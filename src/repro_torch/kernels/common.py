@@ -1,0 +1,57 @@
+"""What the CUDA kernel wrappers share: input checks, the ctypes call and
+its error check."""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+
+# A block may use at most this much dynamic shared memory on Hopper
+# (227 KB of the SM's 256 KB, after cudaFuncSetAttribute).
+MAX_SMEM_BYTES = 232448
+
+
+def check_inputs(name: str, floats: dict, ints: dict) -> torch.device:
+    """Raise unless every tensor is a contiguous CUDA tensor on one device,
+    ``floats`` fp32 and ``ints`` int32. Returns the device."""
+    dev = next(iter(floats.values())).device
+    for arg, t in {**floats, **ints}.items():
+        want = torch.float32 if arg in floats else torch.int32
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"{name}: {arg} is on {t.device}; every input "
+                             f"must lie on the CUDA device {dev}")
+        if t.dtype != want:
+            raise ValueError(f"{name}: {arg} is {t.dtype}; the kernel takes "
+                             f"{want}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+    return dev
+
+
+def launch(name: str, entry: str, *args) -> None:
+    """Call the C entry ``entry`` of ``csrc/<name>.cu`` on the current
+    stream: tensors pass as device pointers, ints as C ints, and the
+    stream last. Raises if the launch reports a CUDA error."""
+    fn = getattr(build.load(name), entry)
+    cargs, types = [], []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            cargs.append(ctypes.c_void_p(a.data_ptr()))
+            types.append(ctypes.c_void_p)
+        else:
+            cargs.append(ctypes.c_int(int(a)))
+            types.append(ctypes.c_int)
+    stream = torch.cuda.current_stream().cuda_stream
+    fn.argtypes = types + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(*cargs, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{entry}: CUDA error {err} at launch")
+
+
+def smem_bytes(rows: int, D: int, ps: int) -> int:
+    """Dynamic shared memory of one paged-attention block
+    (``paged::smem_floats`` in csrc/paged_attention.cuh)."""
+    return 4 * (2 * rows * D + 2 * ps * D + rows * ps + 3 * rows)

@@ -1,0 +1,72 @@
+"""Model bundle API (the port of ``repro.models.model``), paged serving
+path only.
+
+``build_model(cfg)`` returns a ``ModelBundle`` of plain functions over a
+``Decoder`` module, in the reference's argument order:
+
+  init(generator, device="cuda") -> Decoder
+  init_paged_cache(num_pages, page_size=None, device="cuda") -> pools
+  prefill_paged_chunk(model, cache, tokens, page_table, start, n_new,
+                      pages_bound=None) -> x_last (B, 1, D)
+  decode_step_paged(model, cache, token, page_table, seq_lens, active,
+                    pages_bound=None) -> logits (B, V)
+  lm_head(model, x (B, S, D)) -> logits (B, S, V)
+
+The pools in ``cache`` are updated in place. Only the dense family with
+global attention is built so far; the other families and sliding-window
+stacks raise and name the slice that brings them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+from . import decoder
+from .config import ArchConfig
+
+_LATER = {
+    "moe": "the MoE family comes with the MoE/SSM/hybrid slice",
+    "ssm": "the SSM family comes with the MoE/SSM/hybrid slice",
+    "hybrid": "the hybrid family comes with the MoE/SSM/hybrid slice",
+    "vlm": "the vlm family comes with the encoder-decoder and frontends "
+           "slice",
+    "audio": "the audio family comes with the encoder-decoder and "
+             "frontends slice",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelBundle:
+    cfg: ArchConfig
+    init: Callable
+    init_paged_cache: Callable
+    prefill_paged_chunk: Callable
+    decode_step_paged: Callable
+    lm_head: Callable
+
+
+def build_model(cfg: ArchConfig) -> ModelBundle:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported yet — "
+            + _LATER.get(cfg.family, "only the dense family is ported"))
+    if cfg.n_experts or cfg.has_window_layers or not cfg.supports_paged_kv:
+        raise NotImplementedError(
+            f"{cfg.name}: only global-attention dense stacks on the paged "
+            "path are ported yet — MoE layers come with the MoE slice, "
+            "sliding-window layers with the sliding-window slice")
+    return ModelBundle(
+        cfg=cfg,
+        init=lambda generator, device="cuda":
+            decoder.init_decoder(cfg, generator, device),
+        init_paged_cache=lambda num_pages, page_size=None, device="cuda":
+            decoder.init_paged_decode_cache(
+                cfg, num_pages, page_size or cfg.kv_page_size, device),
+        prefill_paged_chunk=lambda m, c, t, page_table, start, n_new,
+            pages_bound=None: decoder.decoder_prefill_paged_chunk(
+                m, c, t, page_table, start, n_new, cfg, pages_bound),
+        decode_step_paged=lambda m, c, t, page_table, seq_lens, active,
+            pages_bound=None: decoder.decoder_decode_step_paged(
+                m, c, t, page_table, seq_lens, active, cfg, pages_bound),
+        lm_head=lambda m, x: decoder._unembed(m, x, cfg),
+    )

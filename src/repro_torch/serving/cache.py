@@ -1,0 +1,168 @@
+"""Paged serving state: a block-pool KV allocator over a shared device page
+pool (the port of ``repro.serving.cache.PagedKVCache``).
+
+Dense serving gives every request a (max_seq, K, Dh) slab per layer; the
+paged cache carves the device KV buffers into fixed-size pages
+(``models.attention.init_paged_kv_cache``) and hands each serving slot just
+the pages its context occupies. The allocator is host-side bookkeeping
+(free list, page table, per-slot lengths) in numpy; each step reads copies
+of the table as device tensors.
+
+Page 0 is reserved: inactive slots' writes and fully masked reads land
+there, so the step never needs a branch on slot liveness.
+
+The reference's shared-prefix tree (refcounted pages, copy-on-write) comes
+with the prefix-sharing slice; here every page has exactly one owner.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass
+class CacheStats:
+    num_pages: int = 0            # allocatable pages (excl. reserved page 0)
+    page_size: int = 0
+    pages_in_use: int = 0
+    high_water_pages: int = 0     # max pages_in_use over the session
+    allocs: int = 0               # slot admissions
+    appends: int = 0              # decode-time page extensions
+    oom_denials: int = 0          # admissions/extensions refused for space
+
+
+class PagedKVCache:
+    """Block-pool KV cache for one model's serving slots.
+
+    ``bundle.init_paged_cache`` builds the device pool (``self.pool``,
+    updated in place by every step); this class owns the host-side page
+    table (n_slots, max_pages_per_slot), per-slot lengths and the free
+    list.
+    """
+
+    def __init__(self, bundle, n_slots: int, num_pages: int, page_size: int,
+                 max_pages_per_slot: int, prefix_pages: int = 0,
+                 device="cuda"):
+        if prefix_pages:
+            raise NotImplementedError(
+                "prefix_pages > 0: shared-prefix KV reuse is not ported yet "
+                "(it comes with the prefix-sharing slice)")
+        self.pool = bundle.init_paged_cache(num_pages, page_size,
+                                            device=device)
+        self.n_slots = n_slots
+        self.num_pages = num_pages
+        self.page_size = page_size
+        self.max_pages_per_slot = max_pages_per_slot
+        self.page_table = np.zeros((n_slots, max_pages_per_slot), np.int32)
+        self.seq_lens = np.zeros((n_slots,), np.int32)
+        self._free = list(range(num_pages - 1, 0, -1))  # pop() -> 1, 2, ...
+        self._owned: dict[int, list[int]] = {s: [] for s in range(n_slots)}
+        self.stats = CacheStats(num_pages=num_pages - 1, page_size=page_size)
+
+    # ------------------------------------------------------------- allocation
+    def pages_for(self, n_tokens: int) -> int:
+        """Pages needed to hold ``n_tokens`` tokens (ceil division by
+        ``page_size``)."""
+        return -(-n_tokens // self.page_size)
+
+    def can_admit(self, n_tokens: int, reserve: int = 0) -> bool:
+        """Can a fresh request of ``n_tokens`` be admitted now? ``reserve``
+        discounts pages promised to slots still mid-prefill (chunked
+        admission allocates incrementally, so their remaining prompt pages
+        are not yet in ``pages_in_use``)."""
+        n = self.pages_for(max(n_tokens, 1))
+        return n <= len(self._free) - reserve and n <= self.max_pages_per_slot
+
+    def _take(self, n: int):
+        """Pop ``n`` fresh pages off the free list, or None (nothing
+        taken) when the pool can't cover ``n``."""
+        if n > len(self._free):
+            return None
+        return [self._free.pop() for _ in range(n)]
+
+    def owned_pages(self, slot: int) -> int:
+        """Pages currently allocated to ``slot`` (0 for a free slot)."""
+        return len(self._owned[slot])
+
+    @property
+    def free_pages(self) -> int:
+        """Pages currently on the free list."""
+        return len(self._free)
+
+    def extend_slot(self, slot: int, n_new: int):
+        """Extend ``slot`` by ``n_new`` tokens (one chunked-prefill step):
+        allocate whatever pages are needed to cover ``seq_lens + n_new`` and
+        advance ``seq_lens``. Works on an empty slot too (first chunk).
+        Returns the newly allocated page ids (possibly empty) or None if the
+        pool / the slot's page cap can't satisfy the extension — in which
+        case nothing is allocated and ``seq_lens`` is unchanged."""
+        owned = self._owned[slot]
+        need = self.pages_for(int(self.seq_lens[slot]) + n_new)
+        fresh = need - len(owned)
+        pages = self._take(fresh) if need <= self.max_pages_per_slot else None
+        if pages is None:
+            self.stats.oom_denials += 1
+            return None
+        self.page_table[slot, len(owned):need] = pages
+        if not owned:
+            self.stats.allocs += 1
+        else:
+            self.stats.appends += fresh
+        owned.extend(pages)
+        self.seq_lens[slot] += n_new
+        self._mark_usage()
+        return np.asarray(pages, np.int32)
+
+    def extend_slots(self, slots, n_news):
+        """Batched ``extend_slot`` for packed multi-slot prefill: each
+        (slot, n_new) extension is attempted independently, in order — a
+        row the pool can't satisfy gets None while the rest proceed."""
+        return [self.extend_slot(s, n) for s, n in zip(slots, n_news)]
+
+    def ensure_append(self, slot: int, reserve: int = 0) -> bool:
+        """Guarantee room for one more token in ``slot`` (the next decode
+        step's write). Allocates a fresh page at a page boundary. Returns
+        False when the pool is exhausted or the slot hit its page cap — the
+        engine then skips the slot this step. ``reserve`` discounts pages
+        promised to mid-prefill slots."""
+        used = int(self.seq_lens[slot])
+        owned = self._owned[slot]
+        if used < len(owned) * self.page_size:
+            return True
+        if len(owned) >= self.max_pages_per_slot \
+                or len(self._free) - reserve < 1:
+            self.stats.oom_denials += 1
+            return False
+        page = self._take(1)[0]
+        self.page_table[slot, len(owned)] = page
+        owned.append(page)
+        self.stats.appends += 1
+        self._mark_usage()
+        return True
+
+    def free_slot(self, slot: int):
+        """Return the slot's pages to the free list (in the reference's
+        order, so both allocators hand out the same page ids)."""
+        self._free.extend(reversed(self._owned[slot]))
+        self._owned[slot] = []
+        self.page_table[slot, :] = 0
+        self.seq_lens[slot] = 0
+        self._mark_usage()
+
+    # ------------------------------------------------------------------ views
+    def device_tables(self, device):
+        """(page_table, seq_lens) as int32 tensors on ``device``.
+
+        Copies, not views: ``torch.from_numpy`` would alias the numpy
+        buffers, which the allocator mutates while a step dispatched on the
+        device may still be reading them."""
+        return (torch.tensor(self.page_table, device=device),
+                torch.tensor(self.seq_lens, device=device))
+
+    # ------------------------------------------------------------------ stats
+    def _mark_usage(self):
+        in_use = self.stats.num_pages - len(self._free)
+        self.stats.pages_in_use = in_use
+        self.stats.high_water_pages = max(self.stats.high_water_pages, in_use)

@@ -1,0 +1,482 @@
+"""Continuous paged serving engine (the core of
+``repro.serving.engine.ContinuousEngine``).
+
+A step-driven engine over a fixed number of serving *slots* and a shared
+paged KV pool (``serving.cache.PagedKVCache`` +
+``serving.scheduler.ContinuousScheduler``). Each slot moves QUEUED ->
+PREFILLING -> DECODING -> DONE. One ``step()``::
+
+  1. ADMIT    pending requests claim free slots (state PREFILLING) while the
+              pool can hold their full prompt minus the pages already
+              promised to other mid-prefill slots, with a bounded
+              head-of-line lookahead;
+  2. PREFILL  a per-step token budget (default: one chunk width per slot)
+              is spent on PREFILLING slots in admission order, at most one
+              chunk per slot per step, charged at each chunk's bucketed
+              width. The due chunks are page-extended in one batched call,
+              then *packed*: slots sharing a bucketed chunk width stack into
+              one (B_chunk, width) batch and one paged prefill-attention
+              launch per layer, which writes every chunk's K/V straight
+              into the pool. Chunk widths are bucketed (full chunks at
+              ``prefill_chunk``, the ragged tail padded to a power of two)
+              and the packed batch is padded to a power of two. When a
+              prompt's last chunk lands, the LM head runs on that row alone,
+              the first token is sampled and the slot flips to DECODING.
+              ``prefill_pack=0`` restores the per-slot B=1 dispatch loop
+              (the packed path's parity baseline);
+  3. DECODE   every DECODING slot emits one token (one paged decode-
+              attention launch per layer);
+  4. RETIRE   EOS / per-request cap / context cap free the slot and record a
+              ``finish_reason``.
+
+Live-bounded page walks (``walk_bound="live"``, the default): both kernels'
+page walks are bounded by the live maximum context of the dispatch,
+rounded up to a power of two of pages; ``walk_bound="static"`` walks the
+full table width (the parity baseline). ``decode_compiles`` and
+``prefill_compiles`` count the distinct (bound, wstart) and
+(batch, width, bound, wstart) launch shapes, the keys the reference jits
+on; wstart stays 0 until the sliding-window slice.
+
+Greedy-exactness: at temperature 0 the engine emits, per request, the
+tokens of the reference engine on the same weights, whatever the
+admission interleaving (tests/test_torch_serving.py). Sampled rows draw
+from the engine's own ``torch.Generator``.
+
+Not ported yet, each with a later slice: one-shot prefill
+(``prefill_chunk=0``), priorities with preemption, deadlines and load
+shedding, shared-prefix reuse, speculative decoding and escalation. A
+prompt that could never fit the pool raises at submit, where the reference
+sheds it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.data import tokenizer as tok
+from repro_torch.models.model import ModelBundle
+from .cache import PagedKVCache
+from .generate import _sample_rows
+from .scheduler import DECODING, ContinuousScheduler, Request
+
+
+def _bucket(n: int) -> int:
+    b = 1
+    while b < n:
+        b *= 2
+    return b
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _stream_seed(*words: int) -> int:
+    """A 32-bit generator seed mixed from ``words`` (seed, salt, call)."""
+    return int(np.random.SeedSequence(list(words)).generate_state(1)[0])
+
+
+@dataclasses.dataclass
+class ContinuousStats:
+    steps: int = 0               # steps that did any work (decode, prefill,
+                                 # admission, or retirement)
+    decode_steps: int = 0        # steps that dispatched a decode
+    prefill_steps: int = 0       # steps that advanced at least one chunk
+    prefill_only_steps: int = 0  # steps that prefilled but decoded nothing
+    admitted: int = 0
+    retired: int = 0
+    prefill_tokens: int = 0
+    decode_tokens: int = 0
+    prefill_chunks: int = 0      # slot-chunks advanced (one slot, one chunk)
+    prefill_dispatches: int = 0  # packed prefill dispatches (<= chunks)
+    prefill_compiles: int = 0    # distinct (batch, width, bound, wstart)
+                                 # prefill shapes launched
+    decode_compiles: int = 0     # distinct (bound, wstart) decode walks
+    prefill_stalls: int = 0      # chunk extensions deferred for pool space
+    occupancy_sum: int = 0       # busy slots summed over steps
+    admission_stalls: int = 0    # admissions deferred for page-pool space
+    wall_s: float = 0.0
+
+
+class ContinuousEngine:
+    """Step-driven continuous-batching engine over a paged KV cache.
+
+    ``bundle`` is a ``ModelBundle``; ``params`` its ``Decoder`` module,
+    whose device (``cuda`` unless the caller built it on the CPU) is where
+    the pool lives and every step runs. ``submit`` enqueues a request,
+    ``step`` advances the world by at most one decode token per occupied
+    slot, ``run`` drains the queue and ``serve`` is the batch API.
+
+    Units: prompts/outputs in TOKENS, cache capacity and walk bounds in
+    PAGES (``page_size`` tokens each), progress in engine STEPS.
+    """
+
+    def __init__(self, bundle: ModelBundle, params, max_new_tokens: int = 16,
+                 temperature: float = 0.0, *, n_slots: int = 8,
+                 page_size: Optional[int] = None, max_seq: int = 256,
+                 num_pages: Optional[int] = None,
+                 prefill_chunk: Optional[int] = None,
+                 prefill_pack: Optional[int] = None,
+                 walk_bound: str = "live"):
+        self.bundle = bundle
+        self.params = params
+        self.device = next(params.parameters()).device
+        self.max_new_tokens = max_new_tokens
+        self.temperature = temperature
+        ps = page_size or bundle.cfg.kv_page_size
+        mp = _round_up(max_seq, ps) // ps
+        if num_pages is None:
+            num_pages = 1 + n_slots * mp      # page 0 reserved
+        self.cache = PagedKVCache(bundle, n_slots, num_pages, ps, mp,
+                                  device=self.device)
+        self.sched = ContinuousScheduler(n_slots)
+        self.stats = ContinuousStats()
+        self.n_slots = n_slots
+        # chunked admission: prefill_chunk tokens per chunk (None -> the
+        # config's knob), one chunk width per slot of prefill per step
+        if prefill_chunk is None:
+            prefill_chunk = bundle.cfg.prefill_chunk
+        if prefill_chunk < 0:
+            raise ValueError(f"prefill_chunk={prefill_chunk}: chunked "
+                             "admission needs a non-negative size")
+        if prefill_chunk == 0:
+            raise NotImplementedError(
+                "prefill_chunk=0: one-shot prefill needs the dense prefill "
+                "path, which comes with the dense-batch slice")
+        self.prefill_chunk = prefill_chunk
+        self.prefill_budget = n_slots * prefill_chunk
+        # packed prefill: up to prefill_pack PREFILLING slots stack into one
+        # dispatch per bucketed chunk width (0 = per-slot B=1 dispatch, the
+        # packed path's parity baseline)
+        if prefill_pack is None:
+            prefill_pack = n_slots
+        if prefill_pack < 0:
+            raise ValueError(f"prefill_pack={prefill_pack}: packed prefill "
+                             "needs a non-negative pack size (0 disables "
+                             "packing)")
+        self.prefill_pack = prefill_pack
+        if walk_bound not in ("live", "static"):
+            raise ValueError(f"walk_bound={walk_bound!r}: expected 'live' "
+                             "or 'static'")
+        self.walk_bound = walk_bound
+        self._chunk_shapes: set = set()   # (batch, width, bound, wstart)
+        self._decode_bounds: set = set()  # (bound, wstart)
+        self._next_in = np.full((n_slots,), tok.PAD, np.int32)
+        self._rng_salt = 0
+        self._serve_calls = 0
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(_stream_seed(0, self._rng_salt))
+
+    # ------------------------------------------------------------ sampling
+    def set_rng_salt(self, salt: int):
+        """Give this engine a distinct sampling stream (sibling engines in a
+        pool are typically built with the same default seed)."""
+        self._rng_salt = salt
+        self._gen.manual_seed(_stream_seed(0, salt))
+
+    def reseed(self, seed: int):
+        """Start a fresh deterministic sampling stream for one serve call,
+        mixing the caller's seed, this engine's salt and a per-call
+        counter, so repeated calls (and sibling engines) never reuse a
+        stream."""
+        self._gen.manual_seed(_stream_seed(seed, self._rng_salt,
+                                           self._serve_calls))
+        self._serve_calls += 1
+
+    # -------------------------------------------------------------- requests
+    def submit(self, tokens: np.ndarray,
+               max_new_tokens: Optional[int] = None) -> Request:
+        """Enqueue one request. ``tokens``: 1-d int prompt (no padding);
+        ``max_new_tokens``: per-request output cap (None = the engine
+        default). Malformed requests and prompts that could never complete
+        in this pool raise."""
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        if len(tokens) == 0:
+            raise ValueError("empty prompt: a request needs at least one "
+                             "token to prefill")
+        max_new = self.max_new_tokens if max_new_tokens is None \
+            else max_new_tokens
+        if max_new < 1:
+            raise ValueError(f"max_new_tokens={max_new}: a request must be "
+                             "allowed at least one output token")
+        cap = self.cache.max_pages_per_slot * self.cache.page_size
+        # worst-case footprint if this request runs alone: prompt plus
+        # every generated token but the last, bounded by the context cap
+        peak = self.cache.pages_for(min(len(tokens) + max_new - 1, cap))
+        if len(tokens) + 1 > cap or peak > self.cache.stats.num_pages:
+            raise ValueError(
+                f"prompt of {len(tokens)} tokens can never complete: the "
+                f"slot context cap is {cap} tokens and the pool holds "
+                f"{self.cache.stats.num_pages} pages")
+        return self.sched.submit(Request(tokens=tokens,
+                                         max_new_tokens=max_new))
+
+    def _retire(self, slot: int, reason: str) -> Request:
+        self.cache.free_slot(slot)
+        self._next_in[slot] = tok.PAD
+        self.stats.retired += 1
+        req = self.sched.retire(slot)
+        req.finish_reason = reason
+        return req
+
+    def _push_token(self, req: Request, token: int) -> Optional[Request]:
+        """Record an emitted token; retire on EOS / request cap."""
+        req.out.append(int(token))
+        req.token_t.append(time.monotonic())
+        if token == tok.EOS:
+            return self._retire(req.slot, "eos")
+        if req.n_generated >= req.max_new_tokens:
+            return self._retire(req.slot, "length")
+        self._next_in[req.slot] = token
+        return None
+
+    def _reserved_prefill_pages(self) -> int:
+        """Pages the mid-prefill slots still need for the rest of their
+        prompts (chunked admission allocates incrementally, so these are
+        not in use yet and admission must not hand them out)."""
+        r = 0
+        for slot in self.sched.prefilling_slots():
+            req = self.sched.running[slot]
+            r += self.cache.pages_for(len(req.serve_tokens)) \
+                - self.cache.owned_pages(slot)
+        return r
+
+    def _admit(self) -> int:
+        """Claim free slots for pending requests in FIFO order, with a
+        head-of-line lookahead of ``n_slots`` requests: when the head
+        doesn't fit the pool right now, the first of the next queued
+        requests that does fit overtakes it. Returns the admissions."""
+        admitted = 0
+        while self.sched.pending and self.sched.has_free_slot:
+            reserve = self._reserved_prefill_pages()
+            idx = next(
+                (i for i, r in enumerate(
+                    self.sched.pending[:self.n_slots])
+                 if self.cache.can_admit(len(r.serve_tokens),
+                                         reserve=reserve)), None)
+            if idx is None:
+                self.stats.admission_stalls += 1
+                break
+            self.sched.admit(idx)
+            admitted += 1
+            self.stats.admitted += 1
+        return admitted
+
+    # --------------------------------------------------------------- prefill
+    def _pages_bound(self, max_tokens: int) -> int:
+        """Page bound for a dispatch whose live contexts reach at most
+        ``max_tokens``: the live page count rounded up to a power of two,
+        capped at the table width. ``walk_bound="static"`` always returns
+        the full width."""
+        mp = self.cache.max_pages_per_slot
+        if self.walk_bound != "live":
+            return mp
+        return min(_bucket(self.cache.pages_for(max(max_tokens, 1))), mp)
+
+    def _chunk_width(self, remaining: int) -> int:
+        """Bucketed width of the next chunk: full chunks at prefill_chunk,
+        ragged tails at a power of two capped by the chunk width."""
+        return self.prefill_chunk if remaining >= self.prefill_chunk \
+            else min(_bucket(remaining), self.prefill_chunk)
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        """A device copy of a host array (never an alias: the host side
+        mutates its arrays while the device may still read the step)."""
+        return torch.tensor(a, device=self.device)
+
+    def _dispatch_prefill(self, group: List[tuple], width: int,
+                          retired: List[Request]) -> None:
+        """Launch ONE prefill step over the stacked chunks of ``group``
+        ((req, n_new) rows sharing the bucketed chunk ``width``), the batch
+        padded to a power of two. Padding rows carry n_new=0 and an
+        all-zero page-table row, so their K/V writes land on the reserved
+        scratch page and their attention is fully masked. The page walk is
+        bounded by the group's live maximum context."""
+        B = _bucket(len(group))
+        mp = self.cache.max_pages_per_slot
+        chunk = np.full((B, width), tok.PAD, np.int32)
+        pt = np.zeros((B, mp), np.int32)
+        start = np.zeros((B,), np.int32)
+        n_new = np.zeros((B,), np.int32)
+        for i, (req, n) in enumerate(group):
+            chunk[i, :n] = req.serve_tokens[req.prefill_pos:
+                                            req.prefill_pos + n]
+            pt[i] = self.cache.page_table[req.slot]
+            start[i] = req.prefill_pos
+            n_new[i] = n
+        bound = self._pages_bound(int((start + n_new).max()))
+        wstart = 0   # window-start walks come with the sliding-window slice
+        if (B, width, bound, wstart) not in self._chunk_shapes:
+            self._chunk_shapes.add((B, width, bound, wstart))
+            self.stats.prefill_compiles += 1
+        x_last = self.bundle.prefill_paged_chunk(
+            self.params, self.cache.pool, self._tensor(chunk),
+            self._tensor(pt), self._tensor(start), self._tensor(n_new),
+            pages_bound=bound)
+        self.stats.prefill_dispatches += 1
+        finishing = []
+        for i, (req, n) in enumerate(group):
+            req.prefill_pos += n
+            self.stats.prefill_tokens += n
+            self.stats.prefill_chunks += 1
+            if req.prefill_pos == len(req.serve_tokens):
+                finishing.append((i, req))
+        if finishing:
+            # the vocab projection runs only on the rows whose prompt just
+            # finished: their logits sample each request's first token
+            rows = [i for i, _ in finishing]
+            logits = self.bundle.lm_head(self.params, x_last[rows])[:, 0]
+            first = _sample_rows(self._gen, logits,
+                                 np.full(len(rows), self.temperature))
+            for (_, req), token in zip(finishing, first.cpu().numpy()):
+                req.state = DECODING
+                done = self._push_token(req, int(token))
+                if done is not None:
+                    retired.append(done)
+
+    def _prefill_step(self, retired: List[Request]) -> List[int]:
+        """Advance each PREFILLING slot by AT MOST one chunk, in admission
+        order, within the step's token budget (charged at the bucketed
+        width; the first chunk always runs, and an over-budget slot is
+        skipped rather than ending the scan). The due chunks are
+        page-extended in one batched call (a stalled row drops out, its
+        budget returns), then dispatched packed. Returns the slots
+        advanced."""
+        budget = self.prefill_budget
+        ready: List[tuple] = []       # (req, n_new, width) advancing
+        advanced: List[int] = []
+        pending = self.sched.prefilling_slots()
+        while pending:
+            cand: List[tuple] = []
+            cand_slots: List[int] = []
+            skipped: List[int] = []
+            for slot in pending:
+                req = self.sched.running[slot]
+                remaining = len(req.serve_tokens) - req.prefill_pos
+                width = self._chunk_width(remaining)
+                if (ready or cand) and budget < width:
+                    skipped.append(slot)
+                    continue
+                cand.append((req, min(remaining, width), width))
+                cand_slots.append(slot)
+                budget -= width
+            if not cand:
+                break
+            got = self.cache.extend_slots(cand_slots,
+                                          [n for _, n, _ in cand])
+            refunded = False
+            for slot, (req, n, width), pages in zip(cand_slots, cand, got):
+                if pages is None:     # page stall: row drops out, rest run
+                    self.stats.prefill_stalls += 1
+                    budget += width
+                    refunded = True
+                else:
+                    ready.append((req, n, width))
+                    advanced.append(slot)
+            pending = skipped if refunded else []
+        if self.prefill_pack == 0:    # per-slot dispatch (B=1)
+            for req, n, width in ready:
+                self._dispatch_prefill([(req, n)], width, retired)
+        else:
+            by_width: Dict[int, List[tuple]] = {}
+            for req, n, width in ready:
+                by_width.setdefault(width, []).append((req, n))
+            for width, rows in by_width.items():
+                for i in range(0, len(rows), self.prefill_pack):
+                    self._dispatch_prefill(rows[i:i + self.prefill_pack],
+                                           width, retired)
+        return advanced
+
+    # ------------------------------------------------------------------ step
+    def step(self) -> List[Request]:
+        """Admit, advance prefill chunks under the step budget, decode one
+        token per DECODING slot, and retire. Returns the requests completed
+        during this step."""
+        t0 = time.monotonic()
+        retired: List[Request] = []
+        progressed = self._admit()
+        prefilled = self._prefill_step(retired)
+        progressed += len(prefilled)
+        cap = self.cache.max_pages_per_slot * self.cache.page_size
+        # decode growth must not eat pages promised to mid-prefill slots
+        reserve = self._reserved_prefill_pages()
+        steppable = []
+        for slot in self.sched.decoding_slots():
+            pos = int(self.cache.seq_lens[slot])
+            if pos + 1 > cap:
+                retired.append(self._retire(slot, "context_cap"))
+            elif self.cache.ensure_append(slot, reserve=reserve):
+                steppable.append(slot)
+        if steppable:
+            active = np.zeros((self.n_slots,), bool)
+            active[steppable] = True
+            pt, sl = self.cache.device_tables(self.device)
+            # every steppable slot's context, including the token this step
+            # writes, fits in ``bound`` pages; inactive slots may exceed it
+            # and their output is garbage the step masks
+            bound = self._pages_bound(
+                int(self.cache.seq_lens[steppable].max()) + 1)
+            wstart = 0   # window-start walks come with the sliding-window slice
+            if (bound, wstart) not in self._decode_bounds:
+                self._decode_bounds.add((bound, wstart))
+                self.stats.decode_compiles += 1
+            logits = self.bundle.decode_step_paged(
+                self.params, self.cache.pool,
+                self._tensor(self._next_in[:, None]), pt, sl,
+                self._tensor(active), pages_bound=bound)
+            # idle rows take the argmax: no draw is spent on garbage
+            temps = np.where(active, self.temperature, 0.0)
+            nxt = _sample_rows(self._gen, logits, temps).cpu().numpy()
+            self.cache.seq_lens[steppable] += 1
+            for slot in steppable:
+                self.stats.decode_tokens += 1
+                done = self._push_token(self.sched.running[slot],
+                                        int(nxt[slot]))
+                if done is not None:
+                    retired.append(done)
+            self.stats.decode_steps += 1
+        elif not progressed and not retired \
+                and (self.sched.running or self.sched.pending):
+            # nothing decoded, no prefill advanced, nothing admitted or
+            # retired, yet work remains: occupied slots all stalled on
+            # pages, or a pending request can't admit into an idle pool.
+            # Without preemption (a later slice) neither can resolve
+            raise RuntimeError(
+                "page pool deadlock: no slot could step and no request "
+                "could admit or retire; provision more pages")
+        if steppable or progressed or retired:
+            self.stats.steps += 1
+            self.stats.occupancy_sum += len(set(steppable) | set(prefilled))
+            if prefilled:
+                self.stats.prefill_steps += 1
+                if not steppable:
+                    self.stats.prefill_only_steps += 1
+        self.stats.wall_s += time.monotonic() - t0
+        return retired
+
+    def run(self) -> List[Request]:
+        """Drain the queue; returns all requests retired during the drain."""
+        done: List[Request] = []
+        while self.sched.has_work:
+            done.extend(self.step())
+        return done
+
+    def serve(self, query_tokens: np.ndarray, seed: int = 0
+              ) -> tuple[np.ndarray, np.ndarray]:
+        """Batch API: submit every row of ``query_tokens`` (N, L) int32,
+        drain, return (responses (N, T) int32 PAD-tailed, lengths (N,)
+        generated-token counts)."""
+        self.reseed(seed)
+        reqs = [self.submit(row) for row in query_tokens]
+        self.run()
+        T = self.max_new_tokens
+        out = np.full((len(reqs), T), tok.PAD, np.int32)
+        lens = np.zeros((len(reqs),), np.int32)
+        for i, r in enumerate(reqs):
+            lens[i] = r.n_generated
+            out[i, :r.n_generated] = r.out[:T]
+        return out, lens
