@@ -8,21 +8,28 @@ and prints no result line):
 
 1. Device: the card's name, count and power limit; TF32 off.
 2. Build: the CUDA kernels from src/repro_torch/csrc, with nvcc for sm_90a.
-3. Kernels against their plain PyTorch versions on the card, one case per
-   launch mode, at the main path's shapes and beside them; the kernel's
+3. The four kernels (paged decode and prefill, flash prefill, dense
+   decode) against their plain PyTorch versions on the card, one case per
+   launch mode, at the main paths' shapes and beside them; the kernel's
    time (CUDA events around back-to-back launches), the plain version's,
-   and the least time the card could take for the same work.
-4. The main path at full width: a router at DeBERTa-v3-large's widths
+   one library call's where PyTorch has one (SDPA), and the least time the
+   card could take for the same work.
+4. The routed pool at full width: a router at DeBERTa-v3-large's widths
    scores 16 prompts, a ThresholdPolicy splits them between two
    qwen1.5-32b tiers ("half": the reference's scaled_sibling(., 2) at 2
    layers; "full": every width, 4 layers), and a ContinuousPoolEngine
-   serves them; both kernels must launch on both tiers.
-5. The card against the CPU: the full tier at depth 1, one prefill chunk
-   and two decode steps on each device, logits compared.
+   serves them; both paged kernels must launch on both tiers.
+   4b. The paper's dense-batch hybrid path on the same models and router:
+   a HybridEngine over two dense Engines serves the same prompts; it must
+   route as the pool did, and the flash and dense decode kernels must
+   launch on both tiers, once per layer per prefill and per decode step.
+5. The card against the CPU: the full tier at depth 1, the paged path (a
+   prefill chunk, two decode steps) and the dense path (a prefill, two
+   decode steps) on each device, logits compared.
 
 It imports neither JAX nor the JAX package. Weights are random, from
 seeded torch.Generators; nothing is downloaded. The last two lines are a
-JSON object per kernel and the result line.
+JSON object listing the kernels and the result line.
 """
 from __future__ import annotations
 
@@ -74,7 +81,8 @@ def build_phase():
         log(f"[build] {src.stem}: nvcc -gencode arch=compute_90a,"
             f"code=sm_90a from {rel} -> {build.build_dir().relative_to(ROOT)}")
         for line in reports.get(src.stem, "").splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry" in line or "registers" in line \
+                    or "spill" in line:
                 log(f"[build]   {line.strip()}")
     log(f"[build] {len(reports)} sources compiled in {dt:.1f} s")
 
@@ -129,10 +137,32 @@ def _bound(nbytes: float, flops: float):
                                        else "operations")
 
 
+def _case(name, desc, kernel, plain, nbytes, flops, library=None,
+          check=None):
+    """One launch mode: callables for the kernel's wrapper, its plain
+    version and (main path only) the library yardstick, the bytes and
+    flops of the work, and an extra check of the kernel's output."""
+    return dict(name=name, desc=desc, kernel=kernel, plain=plain,
+                library=library, nbytes=nbytes, flops=flops, check=check)
+
+
+def _idle_slot_is_zero(out):
+    if out[-1].abs().max().item() != 0.0:
+        raise AssertionError("the idle slot's output is not exactly 0")
+
+
+def _paged_case(name, op, ref, args, kw, nbytes, flops):
+    shape = "x".join(map(str, args[0].shape))
+    return _case(name, f"q {shape} {kw}", lambda: op(*args, **kw),
+                 lambda: ref(*args, **kw), nbytes, flops,
+                 check=_idle_slot_is_zero if name == "ragged_idle" else None)
+
+
 def decode_cases(torch, dev):
-    """(name, args, kwargs, bytes, flops) per decode launch mode. "main" is
-    the main path's decode: 8 slots of the full tier, ragged contexts."""
+    """Paged decode, one case per launch mode. "main" is the main path's
+    decode: 8 slots of the full tier, ragged contexts."""
     import numpy as np
+    from repro_torch.kernels.paged_decode_attention import ops
     rng = np.random.default_rng(1)
     MP, ps = MAX_SEQ // 16, 16
     spec = {  # name: (K, G, D, lens, pages_start, window)
@@ -156,16 +186,20 @@ def decode_cases(torch, dev):
         nbytes = 4 * (2 * q.numel() + 2 * int(keys.sum()) * K * D
                       + pt.numel() + B)
         flops = 4 * int(keys.sum()) * K * G * D
-        out.append((name, (q, kp, vp, pt, torch.tensor(lens, device=dev)),
-                    kw, nbytes, flops))
+        out.append(_paged_case(
+            name, ops.paged_decode_attention_gqa,
+            ops.paged_decode_attention_ref,
+            (q, kp, vp, pt, torch.tensor(lens, device=dev)), kw, nbytes,
+            flops))
     return out
 
 
 def prefill_cases(torch, dev):
-    """(name, args, kwargs, bytes, flops) per prefill launch mode. "main" is
-    the main path's packed chunk: 8 slots x 16 rows of the full tier at
-    ragged resident contexts."""
+    """Paged prefill, one case per launch mode. "main" is the main path's
+    packed chunk: 8 slots x 16 rows of the full tier at ragged resident
+    contexts."""
     import numpy as np
+    from repro_torch.kernels.paged_prefill_attention import ops
     rng = np.random.default_rng(2)
     MP, ps, C = MAX_SEQ // 16, 16, 16
     full = lambda n: np.full(8, n, np.int32)
@@ -200,56 +234,186 @@ def prefill_cases(torch, dev):
         nbytes = 4 * (2 * q.numel() + 2 * int(keys.sum()) * K * D
                       + pt.numel() + 2 * B)
         flops = 4 * int(sum(vis)) * K * G * D
-        out.append((name, (q, kp, vp, pt, torch.tensor(start, device=dev),
-                           torch.tensor(total, device=dev)),
-                    kw, nbytes, flops))
+        out.append(_paged_case(
+            name, ops.paged_prefill_attention_gqa,
+            ops.paged_prefill_attention_ref,
+            (q, kp, vp, pt, torch.tensor(start, device=dev),
+             torch.tensor(total, device=dev)), kw, nbytes, flops))
     return out
 
 
+def flash_cases(torch, dev):
+    """Flash attention, one case per launch mode of the JAX package's
+    flash probe and beside it (analysis/pallas_check.py::_probe_flash):
+    causal, causal with a window, non-causal with and without one,
+    irregular S, G > 1, head_dim 24. "main" is the full tier's dense
+    prefill: 8 prompts of 512 tokens, 40 heads of 128, in the model's
+    (B, S, H, D) layout. The plain version expands kv to H heads and runs
+    on (B*H, S, D); the library yardstick is one SDPA call (causal, scale 1
+    on the pre-scaled q)."""
+    import numpy as np
+    from torch.nn import functional as F
+    from repro_torch.kernels.flash_attention import ops
+    spec = {  # name: (B, S, H, K, D, causal, window)
+        "main": (8, 512, 40, 40, 128, True, 0),
+        "causal_window": (2, 300, 8, 8, 128, True, 100),
+        "non_causal": (2, 200, 8, 8, 64, False, 0),
+        "non_causal_window": (1, 150, 4, 2, 32, False, 33),
+        "irregular_s": (2, 77, 4, 4, 128, True, 0),
+        "gqa": (2, 256, 8, 2, 128, True, 0),
+        "head_dim_24": (2, 130, 4, 4, 24, True, 0),
+    }
+    g = torch.Generator(device=dev).manual_seed(3)
+    out = []
+    for name, (B, S, H, K, D, causal, window) in spec.items():
+        q = torch.randn((B, S, H, D), generator=g, device=dev) * D ** -0.5
+        k = torch.randn((B, S, K, D), generator=g, device=dev)
+        v = torch.randn((B, S, K, D), generator=g, device=dev)
+        kw = dict(causal=causal, window=window)
+        qp, kp = np.arange(S)[:, None], np.arange(S)[None, :]
+        seen = np.ones((S, S), bool)
+        if causal:
+            seen &= kp <= qp
+        if window:
+            seen &= qp - kp < window
+        flops = 4 * int(seen.sum()) * B * H * D
+        nbytes = 4 * (2 * q.numel() + 2 * k.numel())
+
+        def plain(q=q, k=k, v=v, kw=kw, B=B, S=S, H=H, D=D):
+            bhsd = lambda t: t.repeat_interleave(H // t.shape[2], 2) \
+                .movedim(2, 1).reshape(B * H, S, D)
+            return ops.attention_ref(bhsd(q), bhsd(k), bhsd(v), **kw) \
+                .reshape(B, H, S, D).movedim(1, 2)
+
+        library = None
+        if name == "main":
+            library = lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, scale=1.0).transpose(1, 2)
+        out.append(_case(name, f"q {B}x{S}x{H}x{D}, kv heads {K} {kw}",
+                         lambda q=q, k=k, v=v, kw=kw:
+                             ops.flash_attention(q, k, v, **kw),
+                         plain, nbytes, flops, library))
+    return out
+
+
+def dense_decode_cases(torch, dev):
+    """Dense-cache decode, one case per launch mode of the JAX package's
+    decode probe and beside it (analysis/pallas_check.py::_probe_decode):
+    a valid prefix, irregular S, G > 1 under a random validity, head_dim
+    24, and the windowed (attention-sink) layout whose first 512 keys are
+    all invalid. "main" is the full tier's decode mid-generation: 8 rows,
+    40 kv heads of 128 over the 544-position cache, 528 keys valid, read
+    in place from a layer's slice of the (L, B, S, K, D) cache. The plain
+    version regroups to (B*K, G, D); the library yardstick is one SDPA
+    call with a boolean mask from ``valid``."""
+    import numpy as np
+    from torch.nn import functional as F
+    from repro_torch.kernels.decode_attention import ops
+    rng = np.random.default_rng(4)
+    spec = {  # name: (B, S, K, G, D, validity layout)
+        "main": (8, 544, 40, 1, 128, "main"),
+        "prefix": (4, 300, 8, 1, 128, "prefix"),
+        "irregular_s": (4, 77, 8, 2, 128, "prefix"),
+        "gqa": (4, 300, 8, 4, 128, "random"),
+        "head_dim_24": (4, 130, 4, 1, 24, "prefix"),
+        "windowed_sink": (4, 600, 8, 2, 64, "late_window"),
+    }
+    g = torch.Generator(device=dev).manual_seed(5)
+    out = []
+    for name, (B, S, K, G, D, layout) in spec.items():
+        H = K * G
+        cache = torch.randn((2, 2, B, S, K, D), generator=g, device=dev)
+        k, v = cache[0, 1], cache[1, 1]       # layer 1 of a 2-layer slab
+        q = torch.randn((B, H, D), generator=g, device=dev) * D ** -0.5
+        pos = np.arange(S)[None]
+        if layout == "main":
+            valid = np.repeat(pos <= 527, B, axis=0)
+        elif layout == "prefix":
+            valid = pos <= rng.integers(0, S, (B, 1))
+        elif layout == "random":
+            valid = rng.random((B, S)) < 0.6
+            valid[:, -1] = True
+        else:
+            valid = pos >= rng.integers(512, S, (B, 1))
+        n_valid = int(valid.sum())
+        valid = torch.tensor(valid.astype(np.int8), device=dev)
+        nbytes = 4 * (2 * q.numel() + 2 * n_valid * K * D) + B * S
+        flops = 4 * n_valid * K * G * D
+
+        def plain(q=q, k=k, v=v, valid=valid, B=B, S=S, K=K, G=G, D=D):
+            return ops.decode_attention_ref(
+                q.reshape(B * K, G, D), k.movedim(2, 1).reshape(B * K, S, D),
+                v.movedim(2, 1).reshape(B * K, S, D),
+                valid.repeat_interleave(K, 0)).reshape(B, K * G, D)
+
+        library = None
+        if name == "main":
+            library = lambda q=q, k=k, v=v, valid=valid: \
+                F.scaled_dot_product_attention(
+                    q[:, :, None], k.movedim(2, 1), v.movedim(2, 1),
+                    attn_mask=valid.bool()[:, None, None, :],
+                    scale=1.0)[:, :, 0]
+        out.append(_case(name, f"q {B}x{H}x{D}, cache {B}x{S}x{K}x{D}, "
+                         f"{n_valid} valid keys",
+                         lambda q=q, k=k, v=v, valid=valid:
+                             ops.decode_attention_kv(q, k, v, valid),
+                         plain, nbytes, flops, library))
+    return out
+
+
+KERNELS = (  # name, source, replaces, cases
+    ("paged_decode_attention", "src/repro_torch/csrc/paged_decode_attention.cu",
+     "src/repro/kernels/paged_decode_attention/kernel.py:106", decode_cases),
+    ("paged_prefill_attention",
+     "src/repro_torch/csrc/paged_prefill_attention.cu",
+     "src/repro/kernels/paged_prefill_attention/kernel.py:109",
+     prefill_cases),
+    ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention/kernel.py:70", flash_cases),
+    ("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
+     "src/repro/kernels/decode_attention/kernel.py:63", dense_decode_cases),
+)
+
+
 def kernel_phase(torch):
-    from repro_torch.kernels.paged_decode_attention import ops as dec
-    from repro_torch.kernels.paged_prefill_attention import ops as pre
     dev = torch.device("cuda")
     rows = []
-    for kname, op, ref, cases, src, replaces in (
-            ("paged_decode_attention", dec.paged_decode_attention_gqa,
-             dec.paged_decode_attention_ref, decode_cases(torch, dev),
-             "src/repro_torch/csrc/paged_decode_attention.cu",
-             "src/repro/kernels/paged_decode_attention/kernel.py:106"),
-            ("paged_prefill_attention", pre.paged_prefill_attention_gqa,
-             pre.paged_prefill_attention_ref, prefill_cases(torch, dev),
-             "src/repro_torch/csrc/paged_prefill_attention.cu",
-             "src/repro/kernels/paged_prefill_attention/kernel.py:109")):
+    for kname, src, replaces, make_cases in KERNELS:
         worst = 0.0
         row = dict(name=kname, route="cuda", source=src, replaces=replaces,
                    library_ms=None)
-        for name, args, kw, nbytes, flops in cases:
-            got = op(*args, **kw)
+        for c in make_cases(torch, dev):
+            got = c["kernel"]()
             torch.cuda.synchronize()
-            want = ref(*args, **kw)
+            want = c["plain"]()
             err = (got - want).abs().max().item()
             worst = max(worst, err)
-            note = ""
-            if name == "ragged_idle":
-                if got[-1].abs().max().item() != 0.0:
-                    raise AssertionError(f"{kname}: the idle slot's output "
-                                         "is not exactly 0")
-                note = "; idle slot exactly 0"
             if not err <= KERNEL_TOL:
-                raise AssertionError(f"{kname}[{name}]: max abs err {err} > "
-                                     f"{KERNEL_TOL}")
-            shape = "x".join(map(str, args[0].shape))
-            log(f"[kernels] {kname}[{name}] q {shape} {kw}: max abs err "
+                raise AssertionError(f"{kname}[{c['name']}]: max abs err "
+                                     f"{err} > {KERNEL_TOL}")
+            note = ""
+            if c["check"] is not None:
+                c["check"](got)
+                note = "; idle slot exactly 0"
+            log(f"[kernels] {kname}[{c['name']}] {c['desc']}: max abs err "
                 f"{err:.3g} <= {KERNEL_TOL}{note}")
-            if name == "main":
-                ms = _time_ms(torch, lambda: op(*args, **kw))
-                plain_ms = _time_ms(torch, lambda: ref(*args, **kw))
-                bound_ms, bound_by = _bound(nbytes, flops)
-                row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                           bound_by=bound_by)
-                log(f"[kernels] {kname}[main] kernel {ms:.4f} ms, plain "
-                    f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                    f"({bound_by}: {nbytes} B, {flops} flop)")
+            if c["name"] != "main":
+                continue
+            ms = _time_ms(torch, c["kernel"])
+            plain_ms = _time_ms(torch, c["plain"])
+            bound_ms, bound_by = _bound(c["nbytes"], c["flops"])
+            row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by)
+            lib = ""
+            if c["library"] is not None:
+                lib_err = (c["library"]() - want).abs().max().item()
+                row["library_ms"] = _time_ms(torch, c["library"])
+                lib = (f", library {row['library_ms']:.4f} ms (max abs err "
+                       f"{lib_err:.3g})")
+            log(f"[kernels] {kname}[main] kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms{lib}, bound {bound_ms:.4f} ms "
+                f"({bound_by}: {c['nbytes']} B, {c['flops']} flop)")
         row["max_abs_err"] = worst
         rows.append(row)
     return rows
@@ -372,13 +536,107 @@ def main_path_phase(torch, card: str, smi: str):
     log(f"[main] {N_PROMPTS} requests retired ({np.bincount(res.tier_idx, minlength=2).tolist()}"
         f" half/full), threshold {threshold:.6f}, {n_tok} tokens in "
         f"{wall:.3f} s = {n_tok / wall:.1f} tokens/s on {card} ({smi})")
-    return models["full"], full_cfg, launches
+    return dict(models=models, cfgs={"half": half_cfg, "full": full_cfg},
+                router=probe.with_threshold(threshold), tokens=tokens,
+                mask=mask, tier_idx=res.tier_idx, launches=launches)
+
+
+# ----------------------------------------------------------------- phase 4b
+def dense_hybrid_phase(torch, card: str, smi: str, pool_run: dict):
+    """The paper's dense-batch hybrid path on the pool phase's models and
+    router: HybridEngine over two dense Engines, the same 16 prompts as
+    (16, 512) PAD-padded tokens. One warm-up serve, then one counted and
+    timed serve."""
+    import numpy as np
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.hybrid import HybridEngine
+
+    engines = {name: Engine(build_model(pool_run["cfgs"][name]),
+                            pool_run["models"][name],
+                            max_new_tokens=NEW_TOKENS)
+               for name in ("half", "full")}
+    hy = HybridEngine(pool_run["router"], engines["half"], engines["full"])
+    tokens, mask = pool_run["tokens"], pool_run["mask"]
+    hy.serve(tokens, mask, seed=1)
+    torch.cuda.synchronize()
+    hy.meter.tiers.reset()
+
+    per_tier = {name: {"flash": 0, "decode": 0} for name in engines}
+    for name, eng in engines.items():
+        def counted(q, seed=0, name=name, serve=eng.serve):
+            f0, d0 = fa.flash_attention.launches, \
+                dec.decode_attention_kv.launches
+            out = serve(q, seed)
+            per_tier[name]["flash"] += fa.flash_attention.launches - f0
+            per_tier[name]["decode"] += dec.decode_attention_kv.launches - d0
+            return out
+        eng.serve = counted
+    fa.flash_attention.launches = 0
+    dec.decode_attention_kv.launches = 0
+    t0 = time.monotonic()
+    res = hy.serve(tokens, mask, seed=0)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {"flash_attention": fa.flash_attention.launches,
+                "decode_attention": dec.decode_attention_kv.launches}
+
+    for name, eng in engines.items():
+        L = pool_run["cfgs"][name].n_layers
+        want = {"flash": L, "decode": L * NEW_TOKENS}
+        log(f"[dense] {name}: {eng.stats.requests} requests in "
+            f"{eng.stats.batches} batches, kernel launches {per_tier[name]} "
+            f"(expected {want}), KV slab "
+            f"{eng.stats.kv_high_water_bytes / 1e9:.3f} GB")
+        if per_tier[name] != want:
+            raise AssertionError(f"tier {name}: launches {per_tier[name]} "
+                                 f"!= {want}")
+    if not np.array_equal(res.routed_small, pool_run["tier_idx"] == 0):
+        raise AssertionError("the dense hybrid path routes differently "
+                             "from the pool")
+    if hy.meter.tiers.total_calls != N_PROMPTS:
+        raise AssertionError(f"meter calls {hy.meter.tiers.summary()} do not "
+                             f"sum to {N_PROMPTS}")
+    if not (res.lengths >= 1).all() or res.responses.max() >= \
+            pool_run["cfgs"]["full"].vocab_size or res.responses.min() < 0:
+        raise AssertionError("responses out of range")
+    n_tok = int(res.lengths.sum())
+    log(f"[dense] {N_PROMPTS} requests ({int(res.routed_small.sum())} half, "
+        f"{int((~res.routed_small).sum())} full), {n_tok} tokens in "
+        f"{wall:.3f} s = {n_tok / wall:.1f} tokens/s on {card} ({smi})")
+    return launches
 
 
 # ------------------------------------------------------------------ phase 5
+def _compare(torch, tag, gpu_logits, cpu_logits):
+    """Max abs error of card against CPU logits; greedy tokens must agree
+    on every row whose CPU top-2 margin exceeds DEVICE_TOL."""
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(gpu_logits, cpu_logits)):
+        err = (a - b).abs().max().item()
+        worst = max(worst, err)
+        top2 = b.topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > DEVICE_TOL
+        same = (a.argmax(-1) == b.argmax(-1))[sure]
+        log(f"[device-vs-cpu] {tag} logits {i} "
+            f"({'prefill' if i == 0 else 'decode'}): max abs err {err:.3g}; "
+            f"greedy tokens agree on {int(same.sum())}/{int(sure.sum())} "
+            f"rows with a top-2 margin > {DEVICE_TOL}")
+        if not torch.isfinite(a).all() or not same.all():
+            raise AssertionError(f"{tag}: card and CPU disagree on greedy "
+                                 "tokens")
+    if not worst <= DEVICE_TOL:
+        raise AssertionError(f"{tag}: card vs CPU logits {worst} > "
+                             f"{DEVICE_TOL}")
+
+
 def device_vs_cpu_phase(torch, full_model, full_cfg):
-    """The full tier at depth 1, full width: one prefill chunk and two
-    decode steps on the card and on the CPU, same weights, same inputs."""
+    """The full tier at depth 1, full width, on the card and on the CPU,
+    same weights, same inputs: the paged path (one prefill chunk, two
+    decode steps) and the dense path (decoder_prefill, two
+    decoder_decode_step calls)."""
     import numpy as np
     from repro_torch.models import decoder
     cfg = dataclasses.replace(full_cfg, n_layers=1)
@@ -394,39 +652,38 @@ def device_vs_cpu_phase(torch, full_model, full_cfg):
     n_new = np.array([16, 11], np.int32)
     chunk = rng.integers(4, cfg.vocab_size, (2, C)).astype(np.int64)
     pt = np.array([[1, 2, 0, 0], [3, 4, 0, 0]], np.int32)
-    outs = {}
-    for dev, model in (("cuda", gpu), ("cpu", cpu)):
-        T = lambda a: torch.tensor(a, device=dev)
-        cache = decoder.init_paged_decode_cache(cfg, 5, ps, dev)
-        x = decoder.decoder_prefill_paged_chunk(
-            model, cache, T(chunk), T(pt), T(np.zeros(2, np.int32)),
-            T(n_new), cfg)
-        logits = [decoder._unembed(model, x, cfg)[:, 0]]
-        lens = n_new.copy()
-        for step in range(2):
-            # both devices feed the card's greedy tokens
-            tok = outs["cuda"][step].argmax(-1).cpu().numpy() \
-                if dev == "cpu" else logits[-1].argmax(-1).cpu().numpy()
-            logits.append(decoder.decoder_decode_step_paged(
-                model, cache, T(tok[:, None]), T(pt), T(lens),
-                T(np.ones(2, bool)), cfg))
-            lens = lens + 1
-        outs[dev] = [t.float().cpu() for t in logits]
-    worst = 0.0
-    for i, (a, b) in enumerate(zip(outs["cuda"], outs["cpu"])):
-        err = (a - b).abs().max().item()
-        worst = max(worst, err)
-        top2 = b.topk(2, dim=-1).values
-        sure = (top2[:, 0] - top2[:, 1]) > DEVICE_TOL
-        same = (a.argmax(-1) == b.argmax(-1))[sure]
-        log(f"[device-vs-cpu] logits {i} ({'prefill' if i == 0 else 'decode'}"
-            f"): max abs err {err:.3g}; greedy tokens agree on "
-            f"{int(same.sum())}/{int(sure.sum())} rows with a top-2 margin "
-            f"> {DEVICE_TOL}")
-        if not torch.isfinite(a).all() or not same.all():
-            raise AssertionError("card and CPU disagree on greedy tokens")
-    if not worst <= DEVICE_TOL:
-        raise AssertionError(f"card vs CPU logits: {worst} > {DEVICE_TOL}")
+    paged, dense = {}, {}
+    with torch.no_grad():
+        for dev, model in (("cuda", gpu), ("cpu", cpu)):
+            T = lambda a: torch.tensor(a, device=dev)
+            cache = decoder.init_paged_decode_cache(cfg, 5, ps, dev)
+            x = decoder.decoder_prefill_paged_chunk(
+                model, cache, T(chunk), T(pt), T(np.zeros(2, np.int32)),
+                T(n_new), cfg)
+            logits = [decoder._unembed(model, x, cfg)[:, 0]]
+            lens = n_new.copy()
+            for step in range(2):
+                # both devices feed the card's greedy tokens
+                tok = (paged["cuda"][step] if dev == "cpu" else logits[-1]) \
+                    .argmax(-1).cpu().numpy()
+                logits.append(decoder.decoder_decode_step_paged(
+                    model, cache, T(tok[:, None]), T(pt), T(lens),
+                    T(np.ones(2, bool)), cfg))
+                lens = lens + 1
+            paged[dev] = [t.float().cpu() for t in logits]
+
+            last, cache = decoder.decoder_prefill(
+                model, {"tokens": T(chunk)}, cfg, max_seq=C + 2)
+            logits = [last]
+            for step in range(2):
+                tok = (dense["cuda"][step] if dev == "cpu" else logits[-1]) \
+                    .argmax(-1).cpu().numpy()
+                out, cache = decoder.decoder_decode_step(
+                    model, cache, T(tok[:, None]), cfg)
+                logits.append(out)
+            dense[dev] = [t.float().cpu() for t in logits]
+    _compare(torch, "paged", paged["cuda"], paged["cpu"])
+    _compare(torch, "dense", dense["cuda"], dense["cpu"])
 
 
 def main() -> int:
@@ -438,10 +695,13 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     build_phase()
     rows = kernel_phase(torch)
-    full_model, full_cfg, launches = main_path_phase(torch, card, smi)
+    pool_run = main_path_phase(torch, card, smi)
+    launches = {**pool_run["launches"],
+                **dense_hybrid_phase(torch, card, smi, pool_run)}
     for row in rows:
         row["launches"] = launches[row["name"]]
-    device_vs_cpu_phase(torch, full_model, full_cfg)
+    device_vs_cpu_phase(torch, pool_run["models"]["full"],
+                        pool_run["cfgs"]["full"])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(smi)

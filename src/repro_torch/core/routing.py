@@ -1,6 +1,6 @@
 """Routing policies and tier cost accounting (the port of
 ``repro.core.routing``: ``HybridRouter``, ``RoutingPolicy``,
-``ThresholdPolicy`` and ``TierMeter``).
+``ThresholdPolicy``, ``TierMeter`` and its two-tier view ``CostMeter``).
 
 The paper's router is binary: a score threshold splits queries between one
 small and one large model. ``RoutingPolicy`` is the protocol the serving
@@ -13,7 +13,8 @@ come with a later slice.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Protocol, Sequence, Tuple, runtime_checkable
+from typing import (Dict, Optional, Protocol, Sequence, Tuple,
+                    runtime_checkable)
 
 import numpy as np
 import torch
@@ -149,3 +150,51 @@ class TierMeter:
                        "gen_tokens": int(self.tokens[t]),
                        **{k: int(v[t]) for k, v in self.side.items()}}
                 for t, name in enumerate(self.names)}
+
+
+class CostMeter:
+    """Two-tier facade over ``TierMeter`` keeping the paper's small/large
+    vocabulary (§2.3). Pass an existing meter to expose a live view of it
+    (the continuous hybrid facade shares its pool's meter this way)."""
+
+    def __init__(self, tier_meter: Optional[TierMeter] = None):
+        self._m = tier_meter if tier_meter is not None \
+            else TierMeter(("small", "large"))
+        if self._m.n_tiers != 2:
+            raise ValueError(f"CostMeter is the two-tier view; got "
+                             f"{self._m.n_tiers} tiers {self._m.names}")
+
+    @property
+    def tiers(self) -> TierMeter:
+        """The underlying two-tier meter (cheapest first)."""
+        return self._m
+
+    def record(self, routed_small: np.ndarray, gen_tokens):
+        """Record a batch of routed requests (see ``TierMeter.record`` for
+        the ``gen_tokens`` contract)."""
+        routed = np.asarray(routed_small, bool)
+        self._m.record(np.where(routed, 0, 1), gen_tokens)
+
+    @property
+    def to_small(self) -> int:
+        return int(self._m.calls[0])
+
+    @property
+    def to_large(self) -> int:
+        return int(self._m.calls[1])
+
+    @property
+    def small_tokens(self) -> int:
+        return int(self._m.tokens[0])
+
+    @property
+    def large_tokens(self) -> int:
+        return int(self._m.tokens[1])
+
+    @property
+    def cost_advantage(self) -> float:
+        return self._m.cost_advantage
+
+    @property
+    def token_cost_advantage(self) -> float:
+        return self._m.token_cost_advantage

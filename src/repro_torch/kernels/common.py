@@ -13,19 +13,27 @@ from . import build
 MAX_SMEM_BYTES = 232448
 
 
-def check_inputs(name: str, floats: dict, ints: dict) -> torch.device:
-    """Raise unless every tensor is a contiguous CUDA tensor on one device,
-    ``floats`` fp32 and ``ints`` int32. Returns the device."""
+def check_inputs(name: str, floats: dict, ints: dict, *, strided=(),
+                 int_dtype=torch.int32) -> torch.device:
+    """Raise unless every tensor is a CUDA tensor on one device, ``floats``
+    fp32 and ``ints`` of ``int_dtype``, each contiguous, or for the names in
+    ``strided`` at least unit-strided on its last dimension with every
+    element offset within a C int. Returns the device."""
     dev = next(iter(floats.values())).device
     for arg, t in {**floats, **ints}.items():
-        want = torch.float32 if arg in floats else torch.int32
+        want = torch.float32 if arg in floats else int_dtype
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{name}: {arg} is on {t.device}; every input "
                              f"must lie on the CUDA device {dev}")
         if t.dtype != want:
             raise ValueError(f"{name}: {arg} is {t.dtype}; the kernel takes "
                              f"{want}")
-        if not t.is_contiguous():
+        if arg in strided:
+            span = sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
+            if t.stride(-1) != 1 or span >= 2 ** 31:
+                raise ValueError(f"{name}: {arg} needs a unit stride on its "
+                                 "last dimension and offsets below 2**31")
+        elif not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
     return dev
 

@@ -1,17 +1,29 @@
-"""Grouped-query attention over a paged KV cache (the paged part of
-``repro.models.attention``).
+"""Grouped-query attention with RoPE: the dense-cache paths and the paged
+paths of ``repro.models.attention``.
 
-Two entry points serve continuous batching: ``paged_decode_attention`` (one
-new token per slot) and ``paged_prefill_attention`` (a chunk of prompt
-tokens per slot). Each writes the new K/V into the layer's page pool in
-place and then attends through the paged kernel wrappers, which launch the
-CUDA kernels for CUDA tensors and take the plain versions for CPU tensors.
+Dense batch serving (``Engine``): ``prefill_attention`` runs the prompt
+through ``attention_forward`` (causal flash attention) and returns the
+layer's K/V for the (L, B, max_seq, K, Dh) cache; ``decode_attention``
+writes one new token's K/V into that cache and attends to it, optionally
+windowed (attention sink + the trailing positions). Continuous batching:
+``paged_decode_attention`` (one new token per slot) and
+``paged_prefill_attention`` (a chunk of prompt tokens per slot) write the
+new K/V into the layer's page pool and attend through the paged kernels.
+Every attention call goes through a kernel wrapper, which launches the
+CUDA kernel for CUDA tensors and takes the plain version for CPU tensors.
+
+Cross-attention (``kv_override``), ``use_rope=False`` and non-causal
+self-attention serve the encoder-decoder family, and the sequence-sharded
+flash decode serves a multi-device mesh; each raises and names the slice
+that brings it.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from repro_torch.kernels.decode_attention.ops import decode_attention_kv
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_decode_attention.ops import \
     paged_decode_attention_gqa
 from repro_torch.kernels.paged_prefill_attention.ops import \
@@ -57,6 +69,91 @@ def _project_qkv(attn: Attention, x, cfg, positions):
 
 def _out_proj(attn: Attention, out, B, S, H, Dh):
     return out.reshape(B, S, H * Dh) @ attn.wo
+
+
+def attention_forward(attn: Attention, x, cfg, *, is_global: bool = True,
+                      causal: bool = True, positions=None, kv_override=None,
+                      use_rope: bool = True):
+    """Full-sequence causal self-attention. x: (B, S, D). ``is_global`` is
+    this layer's static flag (the port loops over layers, so it is always
+    a Python bool): False selects ``cfg.sliding_window``. Returns
+    (B, S, D)."""
+    if kv_override is not None or not use_rope or not causal:
+        raise NotImplementedError(
+            "cross-attention, use_rope=False and non-causal attention serve "
+            "the encoder-decoder family, which comes with the "
+            "encoder-decoder and frontends slice")
+    return prefill_attention(attn, x, cfg, is_global=is_global,
+                             positions=positions)[0]
+
+
+def init_kv_cache(cfg, batch: int, max_seq: int, n_layers: int,
+                  device="cuda"):
+    """Dense per-request cache: (n_layers, batch, max_seq, K, Dh) per
+    tensor, zero-filled."""
+    K, Dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    shape = (n_layers, batch, max_seq, K, Dh)
+    dt = dtype_of(cfg)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def prefill_attention(attn: Attention, x, cfg, *, is_global: bool = True,
+                      positions=None):
+    """Prefill: ``attention_forward`` plus this layer's (k, v), each
+    (B, S, K, Dh), for cache insertion. q/k/v are projected once (the
+    reference projects k and v twice; the values are the same)."""
+    B, S, _ = x.shape
+    H, Dh = cfg.n_heads, cfg.resolved_head_dim
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    q, k, v = _project_qkv(attn, x, cfg, positions)
+    window = cfg.sliding_window if not is_global else 0
+    out = flash_attention(q * Dh ** -0.5, k, v, causal=True, window=window)
+    return _out_proj(attn, out, B, S, H, Dh), (k, v)
+
+
+def decode_attention(attn: Attention, x_t, layer_k, layer_v, pos: int, cfg,
+                     *, is_global: bool = True, windowed: bool = False):
+    """One decode step at position ``pos`` (a host int: every row of the
+    dense batch sits at the same position).
+
+    x_t: (B, 1, D); layer_k/layer_v: (B, Smax, K, Dh), this layer's slice of
+    the dense cache, entries < pos valid. The new K/V are written at
+    ``pos`` IN PLACE (the reference's ``dynamic_update_slice`` returns a new
+    array). ``windowed``: long-context serving mode — attend only to an
+    attention-sink prefix plus the trailing ``cfg.long_context_window``
+    positions. Returns out (B, 1, D)."""
+    B = x_t.shape[0]
+    H, Dh = cfg.n_heads, cfg.resolved_head_dim
+    Smax = layer_k.shape[1]
+    if not 0 <= pos < Smax:
+        raise ValueError(f"decode position {pos} outside the cache's "
+                         f"{Smax} positions")
+    dev = x_t.device
+    positions = torch.full((B, 1), pos, device=dev)
+    q, k_t, v_t = _project_qkv(attn, x_t, cfg, positions)
+    layer_k[:, pos] = k_t[:, 0]
+    layer_v[:, pos] = v_t[:, 0]
+    if windowed:
+        W = min(cfg.long_context_window, Smax)
+        sink = min(cfg.attention_sink, Smax)
+        start = min(max(pos - W + 1, 0), Smax - W)
+        keys = torch.cat([layer_k[:, :sink], layer_k[:, start:start + W]], 1)
+        vals = torch.cat([layer_v[:, :sink], layer_v[:, start:start + W]], 1)
+        sink_pos = torch.arange(sink, device=dev)
+        # a sink position the window also holds is masked, not counted twice
+        kpos = torch.cat([torch.where(sink_pos < start, sink_pos, pos + 1),
+                          start + torch.arange(W, device=dev)])
+    else:
+        keys, vals = layer_k, layer_v
+        kpos = torch.arange(Smax, device=dev)
+    valid = kpos <= pos
+    if cfg.sliding_window and not is_global:
+        valid &= (pos - kpos) < cfg.sliding_window
+    valid = valid.to(torch.int8)[None].expand(B, -1).contiguous()
+    out = decode_attention_kv(q[:, 0] * Dh ** -0.5, keys, vals, valid)
+    return _out_proj(attn, out, B, 1, H, Dh)
 
 
 def init_paged_kv_cache(cfg, num_pages: int, page_size: int, n_layers: int,

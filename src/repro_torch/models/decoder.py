@@ -1,12 +1,14 @@
-"""Dense decoder-only LM on the paged serving path (the attention branches
-of ``repro.models.decoder``).
+"""Dense decoder-only LM: the dense-cache serving path and the paged
+serving path of ``repro.models.decoder``.
 
 The reference stacks layer weights on a leading axis and ``lax.scan``s
-over them; here layers are a ``ModuleList`` and the scan is a Python loop.
-Each layer reads and writes its own slice ``pool[i]`` of the
-(L, P, ps, K, Dh) page pools, which is contiguous, so the kernels take it
-as it is. Only global-attention dense stacks are built so far
-(``models.model.build_model`` refuses the rest).
+over them; here layers are a ``ModuleList`` and the scan is a Python loop,
+so each layer's global/local flag is a static bool. Each layer reads and
+writes its own slice ``cache[...][i]`` of the (L, B, max_seq, K, Dh) dense
+cache or the (L, P, ps, K, Dh) page pools, which is contiguous, so the
+kernels take it as it is. Only global-attention dense stacks are built so
+far (``models.model.build_model`` refuses the rest); ``decoder_forward``
+(training's teacher-forced forward) comes with the training slice.
 """
 from __future__ import annotations
 
@@ -55,6 +57,59 @@ def _unembed(model: Decoder, x, cfg):
     if cfg.tie_embeddings:
         return unembed(model.embed, x, cfg.vocab_size)
     return output_head(model.head, x, cfg.vocab_size)
+
+
+def decoder_prefill(model: Decoder, batch: dict, cfg, max_seq=None):
+    """Run the prompt ``batch["tokens"]`` (B, S) int; return (last-token
+    logits (B, V), cache). The cache's K/V slabs are sized ``max_seq``
+    (>= S) so decode appends in place; ``cache["pos"]`` is S, a host
+    int."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    max_seq = max(max_seq or S, S)
+    cache = init_decode_cache(cfg, B, max_seq, tokens.device)
+    x = embed(model.embed, tokens)
+    positions = torch.arange(S, device=x.device)
+    for i, layer in enumerate(model.layers):
+        is_global = cfg.layer_kind(i)["global_attn"]
+        h = rmsnorm(layer.ln1, x, cfg.norm_eps)
+        o, (k, v) = attn.prefill_attention(layer.attn, h, cfg,
+                                           is_global=is_global,
+                                           positions=positions)
+        cache["k"][i, :, :S] = k
+        cache["v"][i, :, :S] = v
+        x = x + o
+        x = x + mlp(layer.mlp, rmsnorm(layer.ln2, x, cfg.norm_eps))
+    cache["pos"] = S
+    x = rmsnorm(model.ln_f, x[:, -1:], cfg.norm_eps)
+    return _unembed(model, x, cfg)[:, 0], cache
+
+
+def init_decode_cache(cfg, batch: int, max_seq: int, device="cuda"):
+    """Dense KV cache {"k", "v": (L, B, max_seq, K, Dh), "pos": 0}."""
+    kv = attn.init_kv_cache(cfg, batch, max_seq, cfg.n_layers, device)
+    return {"k": kv["k"], "v": kv["v"], "pos": 0}
+
+
+def decoder_decode_step(model: Decoder, cache, token, cfg, *,
+                        windowed: bool = False):
+    """One decode step. token: (B, 1) int. The new token's K/V land at
+    ``cache["pos"]`` in every layer's slab IN PLACE, and ``cache["pos"]``
+    advances; the same (updated) cache dict is returned. Returns
+    (logits (B, V), cache)."""
+    pos = cache["pos"]
+    x = embed(model.embed, token)
+    for i, layer in enumerate(model.layers):
+        is_global = cfg.layer_kind(i)["global_attn"]
+        h = rmsnorm(layer.ln1, x, cfg.norm_eps)
+        x = x + attn.decode_attention(layer.attn, h, cache["k"][i],
+                                      cache["v"][i], pos, cfg,
+                                      is_global=is_global,
+                                      windowed=windowed)
+        x = x + mlp(layer.mlp, rmsnorm(layer.ln2, x, cfg.norm_eps))
+    cache["pos"] = pos + 1
+    x = rmsnorm(model.ln_f, x, cfg.norm_eps)
+    return _unembed(model, x, cfg)[:, 0], cache
 
 
 def init_paged_decode_cache(cfg, num_pages: int, page_size: int,

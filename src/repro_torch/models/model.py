@@ -1,10 +1,15 @@
-"""Model bundle API (the port of ``repro.models.model``), paged serving
-path only.
+"""Model bundle API (the port of ``repro.models.model``): the dense-cache
+and paged serving paths.
 
 ``build_model(cfg)`` returns a ``ModelBundle`` of plain functions over a
 ``Decoder`` module, in the reference's argument order:
 
   init(generator, device="cuda") -> Decoder
+  prefill(model, batch {"tokens": (B, S)}, max_seq=None)
+      -> (last_logits (B, V), cache)
+  decode_step(model, cache, token (B, 1), windowed=False)
+      -> (logits (B, V), cache)
+  init_cache(batch_size, max_seq, device="cuda") -> cache
   init_paged_cache(num_pages, page_size=None, device="cuda") -> pools
   prefill_paged_chunk(model, cache, tokens, page_table, start, n_new,
                       pages_bound=None) -> x_last (B, 1, D)
@@ -12,9 +17,11 @@ path only.
                     pages_bound=None) -> logits (B, V)
   lm_head(model, x (B, S, D)) -> logits (B, S, V)
 
-The pools in ``cache`` are updated in place. Only the dense family with
-global attention is built so far; the other families and sliding-window
-stacks raise and name the slice that brings them.
+Dense caches and page pools are updated in place. Only the dense family
+with global attention is built so far; the other families and
+sliding-window stacks raise and name the slice that brings them, and
+``forward`` (training's teacher-forced pass) comes with the training
+slice.
 """
 from __future__ import annotations
 
@@ -39,6 +46,9 @@ _LATER = {
 class ModelBundle:
     cfg: ArchConfig
     init: Callable
+    prefill: Callable
+    decode_step: Callable
+    init_cache: Callable
     init_paged_cache: Callable
     prefill_paged_chunk: Callable
     decode_step_paged: Callable
@@ -52,13 +62,19 @@ def build_model(cfg: ArchConfig) -> ModelBundle:
             + _LATER.get(cfg.family, "only the dense family is ported"))
     if cfg.n_experts or cfg.has_window_layers or not cfg.supports_paged_kv:
         raise NotImplementedError(
-            f"{cfg.name}: only global-attention dense stacks on the paged "
-            "path are ported yet — MoE layers come with the MoE slice, "
+            f"{cfg.name}: only global-attention dense stacks are ported "
+            "yet — MoE layers come with the MoE slice, "
             "sliding-window layers with the sliding-window slice")
     return ModelBundle(
         cfg=cfg,
         init=lambda generator, device="cuda":
             decoder.init_decoder(cfg, generator, device),
+        prefill=lambda m, batch, max_seq=None:
+            decoder.decoder_prefill(m, batch, cfg, max_seq),
+        decode_step=lambda m, c, t, windowed=False:
+            decoder.decoder_decode_step(m, c, t, cfg, windowed=windowed),
+        init_cache=lambda batch_size, max_seq, device="cuda":
+            decoder.init_decode_cache(cfg, batch_size, max_seq, device),
         init_paged_cache=lambda num_pages, page_size=None, device="cuda":
             decoder.init_paged_decode_cache(
                 cfg, num_pages, page_size or cfg.kv_page_size, device),

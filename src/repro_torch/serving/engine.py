@@ -1,10 +1,18 @@
-"""Continuous paged serving engine (the core of
-``repro.serving.engine.ContinuousEngine``).
+"""Serving engines (the port of ``repro.serving.engine``): the dense-batch
+``Engine`` and the core of the continuous paged ``ContinuousEngine``.
 
-A step-driven engine over a fixed number of serving *slots* and a shared
-paged KV pool (``serving.cache.PagedKVCache`` +
-``serving.scheduler.ContinuousScheduler``). Each slot moves QUEUED ->
-PREFILLING -> DECODING -> DONE. One ``step()``::
+* **Dense batch** (``Engine``): one synchronous fixed-shape batch at a
+  time. Requests are padded to a power-of-two bucket and a shared prompt
+  width; the batch gets a dense KV slab sized ``prompt + max_new`` per
+  request and decodes for ``max_new_tokens`` steps regardless of where EOS
+  lands (``serving.generate``). Prefill runs the flash-attention kernel,
+  each decode step the dense decode-attention kernel.
+
+* **Continuous paged** (``ContinuousEngine``): a step-driven engine over a
+  fixed number of serving *slots* and a shared paged KV pool
+  (``serving.cache.PagedKVCache`` + ``serving.scheduler.
+  ContinuousScheduler``). Each slot moves QUEUED -> PREFILLING -> DECODING
+  -> DONE. One ``step()``::
 
   1. ADMIT    pending requests claim free slots (state PREFILLING) while the
               pool can hold their full prompt minus the pages already
@@ -60,7 +68,7 @@ import torch
 from repro_torch.data import tokenizer as tok
 from repro_torch.models.model import ModelBundle
 from .cache import PagedKVCache
-from .generate import _sample_rows
+from .generate import _sample_rows, _stream_seed, build_generate_fn
 from .scheduler import DECODING, ContinuousScheduler, Request
 
 
@@ -75,9 +83,101 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def _stream_seed(*words: int) -> int:
-    """A 32-bit generator seed mixed from ``words`` (seed, salt, call)."""
-    return int(np.random.SeedSequence(list(words)).generate_state(1)[0])
+@dataclasses.dataclass
+class ServeStats:
+    requests: int = 0
+    batches: int = 0
+    gen_tokens: int = 0
+    wall_s: float = 0.0
+    compiles: int = 0            # distinct (bucket, prompt-len) batch shapes
+                                 # (the reference's jit compiles)
+    pad_slots: int = 0           # bucket-padding rows across batches
+    slot_count: int = 0          # total rows (incl. padding) across batches
+    kv_high_water_bytes: int = 0  # largest dense KV slab held by one batch
+
+    @property
+    def padding_waste(self) -> float:
+        """Fraction of batch rows that were bucket padding, not requests."""
+        return self.pad_slots / self.slot_count if self.slot_count else 0.0
+
+
+class Engine:
+    """Serves one model, dense-batch mode. Queries are padded token arrays
+    (N, Lq). ``params`` is the ``Decoder`` module, whose device is where
+    every batch runs."""
+
+    def __init__(self, bundle: ModelBundle, params, max_new_tokens: int = 16,
+                 temperature: float = 0.0):
+        self.bundle = bundle
+        self.params = params
+        self.device = next(params.parameters()).device
+        self.max_new_tokens = max_new_tokens
+        self.temperature = temperature
+        self._gen = build_generate_fn(bundle, max_new_tokens, temperature)
+        self._shapes: set = set()   # (bucket, prompt_len) already run
+        self.stats = ServeStats()
+
+    def _run(self, tokens: np.ndarray, seed: int):
+        g = torch.Generator(device=self.device)
+        g.manual_seed(seed)
+        return self._gen(self.params, {"tokens": torch.tensor(
+            tokens, device=self.device)}, g)
+
+    def warmup(self, prompt_len: int, max_batch: int):
+        """Run every bucket up to ``max_batch`` at ``prompt_len`` once, so
+        first-request latency doesn't pay for library handles, kernel
+        builds and allocator growth."""
+        b = 1
+        while b <= _bucket(max_batch):
+            self._run(np.full((b, prompt_len), tok.PAD, np.int32), 0)
+            if (b, prompt_len) not in self._shapes:
+                self._shapes.add((b, prompt_len))
+                self.stats.compiles += 1
+            b *= 2
+
+    def _kv_slab_bytes(self, batch: int, prompt_len: int) -> int:
+        cfg = self.bundle.cfg
+        if not cfg.n_kv_heads:
+            return 0
+        seq = prompt_len + self.max_new_tokens
+        itemsize = 4 if cfg.dtype == "float32" else 2
+        return (cfg.n_layers * batch * seq * cfg.n_kv_heads
+                * cfg.resolved_head_dim * 2 * itemsize)
+
+    def serve(self, query_tokens: np.ndarray, seed: int = 0
+              ) -> tuple[np.ndarray, np.ndarray]:
+        """Returns (responses (N, T), lengths (N,))."""
+        n = len(query_tokens)
+        b = _bucket(n)
+        Lq = query_tokens.shape[1]
+        padded = np.full((b, Lq), tok.PAD, np.int32)
+        padded[:n] = query_tokens
+        if (b, Lq) not in self._shapes:
+            self._shapes.add((b, Lq))
+            self.stats.compiles += 1
+        t0 = time.monotonic()
+        toks, lens = self._run(padded, seed)
+        toks, lens = toks.cpu().numpy()[:n], lens.cpu().numpy()[:n]
+        self.stats.requests += n
+        self.stats.batches += 1
+        self.stats.gen_tokens += int(lens.sum())
+        self.stats.wall_s += time.monotonic() - t0
+        self.stats.pad_slots += b - n
+        self.stats.slot_count += b
+        self.stats.kv_high_water_bytes = max(
+            self.stats.kv_high_water_bytes, self._kv_slab_bytes(b, Lq))
+        return toks, lens
+
+
+def make_engine(bundle: ModelBundle, params, **kw):
+    """Engine factory honouring the config's cache-layout flag:
+    ``cfg.cache_layout == "paged"`` selects the continuous-batching paged
+    engine, anything else the dense-batch engine. Continuous-only kwargs
+    (n_slots, max_seq, ...) are dropped for dense."""
+    if bundle.cfg.cache_layout == "paged":
+        return ContinuousEngine(bundle, params, **kw)
+    return Engine(bundle, params, **{k: v for k, v in kw.items()
+                                     if k in ("max_new_tokens", "temperature")})
 
 
 @dataclasses.dataclass
@@ -145,8 +245,8 @@ class ContinuousEngine:
                              "admission needs a non-negative size")
         if prefill_chunk == 0:
             raise NotImplementedError(
-                "prefill_chunk=0: one-shot prefill needs the dense prefill "
-                "path, which comes with the dense-batch slice")
+                "prefill_chunk=0: one-shot admission is not ported yet; it "
+                "comes with a later slice of the continuous engine")
         self.prefill_chunk = prefill_chunk
         self.prefill_budget = n_slots * prefill_chunk
         # packed prefill: up to prefill_pack PREFILLING slots stack into one

@@ -6,12 +6,14 @@ device). Imports no JAX: run it on the GPU machine with
 Each CUDA kernel, launched through its wrapper, against its plain version
 on the same device inputs, over every launch mode below. The launch modes
 and their inputs, made with numpy from a seed, are shared with the CPU
-parity tests (test_torch_paged_kernels.py).
+parity tests (test_torch_paged_kernels.py, test_torch_dense_kernels.py).
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.decode_attention import ops as dense_dec_ops
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_decode_attention import ops as dec_ops
 from repro_torch.kernels.paged_prefill_attention import ops as pre_ops
 
@@ -33,6 +35,66 @@ PREFILL_MODES = {
     "head_dim_24": (3, 2, 5, 1, 24, 16, 3, None, 0, 0),
     "window_late_start": (3, 2, 4, 2, 16, 8, 6, 5, 1, 8),
 }
+
+# Dense-cache kernels, covering the launch modes of
+# repro/analysis/pallas_check.py::_probe_flash and ::_probe_decode: causal,
+# causal with a window, non-causal, irregular S, G > 1 and S not a
+# multiple of the CUDA kernels' tiles (64 query rows, 32 keys).
+# name -> (B, S, H, K, D, causal, window)
+FLASH_MODES = {
+    "causal": (2, 16, 2, 2, 8, True, 0),
+    "causal_window": (2, 16, 2, 2, 8, True, 4),
+    "non_causal": (2, 16, 2, 2, 8, False, 0),
+    "irregular_s": (2, 12, 2, 2, 8, True, 0),
+    "gqa": (2, 40, 4, 2, 16, True, 0),
+    "long_window": (1, 150, 2, 1, 32, True, 37),
+    "non_causal_window": (1, 70, 2, 2, 16, False, 9),
+    "head_dim_24": (2, 70, 2, 2, 24, True, 0),
+}
+# name -> (B, S, K, G, D, validity layout)
+DECODE_DENSE_MODES = {
+    "prefix": (2, 16, 2, 2, 8, "prefix"),
+    "irregular_s": (2, 12, 2, 2, 8, "prefix"),
+    "mha": (3, 40, 4, 1, 16, "prefix"),
+    "gqa": (2, 40, 2, 4, 16, "random"),
+    "head_dim_24": (2, 70, 2, 1, 24, "prefix"),
+    # the windowed (attention-sink) layout at a position where every sink
+    # key is masked: the first 512 keys, a whole TPU key block, are invalid
+    "windowed_sink": (2, 600, 2, 2, 16, "late_window"),
+}
+
+
+def flash_case(name, seed=0):
+    """Inputs of one flash-attention mode in the model layout: q (B, S, H,
+    D) pre-scaled, k and v (B, S, K, D), as numpy arrays, and the static
+    keyword arguments."""
+    B, S, H, K, D, causal, window = FLASH_MODES[name]
+    rng = np.random.default_rng(seed)
+    q = (rng.standard_normal((B, S, H, D)) * D ** -0.5).astype(np.float32)
+    k = rng.standard_normal((B, S, K, D)).astype(np.float32)
+    v = rng.standard_normal((B, S, K, D)).astype(np.float32)
+    return (q, k, v), dict(causal=causal, window=window)
+
+
+def decode_dense_case(name, seed=0):
+    """Inputs of one dense decode mode in the production layout: q (B, H,
+    D) pre-scaled, the raw cache k and v (B, S, K, D) and valid (B, S)
+    int8, as numpy arrays. Every row has at least one valid key, as on the
+    decode path (the key at the current position)."""
+    B, S, K, G, D, layout = DECODE_DENSE_MODES[name]
+    rng = np.random.default_rng(seed)
+    q = (rng.standard_normal((B, K * G, D)) * D ** -0.5).astype(np.float32)
+    k = rng.standard_normal((B, S, K, D)).astype(np.float32)
+    v = rng.standard_normal((B, S, K, D)).astype(np.float32)
+    pos = np.arange(S)[None]
+    if layout == "prefix":
+        valid = pos <= rng.integers(0, S, (B, 1))
+    elif layout == "random":
+        valid = rng.random((B, S)) < 0.6
+        valid[:, -1] = True
+    else:
+        valid = pos >= rng.integers(512, S, (B, 1))
+    return q, k, v, valid.astype(np.int8)
 
 
 def _pool(rng, B, K, D, ps, MP, totals):
@@ -120,3 +182,57 @@ def test_cuda_kernels_match_plain_versions(mode, cuda):
         assert err <= GPU_TOL, (mode, op.__name__, err)
         if not kw["window"]:
             assert not got[-1].any(), "an idle slot must give exactly 0"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", sorted(FLASH_MODES))
+def test_cuda_flash_attention_matches_plain_version(mode, cuda):
+    """The flash-attention kernel through both entries (model layout and
+    the TPU kernel's (BH, S, D)) against the plain version on the card."""
+    args, kw = flash_case(mode)
+    q, k, v = to_torch(args, cuda)
+    B, S, H, D = q.shape
+    n0 = flash_ops.flash_attention.launches
+    got = flash_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_ops.flash_attention.launches == n0 + 1
+    bhsd = lambda t: t.repeat_interleave(H // t.shape[2], 2).movedim(2, 1) \
+        .reshape(B * H, S, D).contiguous()
+    want = flash_ops.attention_ref(bhsd(q), bhsd(k), bhsd(v), **kw)
+    err = (got.movedim(2, 1).reshape(B * H, S, D) - want).abs().max().item()
+    assert err <= GPU_TOL, (mode, err)
+    got = flash_ops.flash_attention_bhsd(bhsd(q), bhsd(k), bhsd(v), **kw)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= GPU_TOL, mode
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", sorted(DECODE_DENSE_MODES))
+def test_cuda_decode_attention_matches_plain_version(mode, cuda):
+    """The dense decode kernel through its three entries against the plain
+    version on the card; the production entry reads a strided cache."""
+    q, k, v, valid = to_torch(decode_dense_case(mode), cuda)
+    B, S, K, D = k.shape
+    G = q.shape[1] // K
+    qg = q.reshape(B * K, G, D)
+    kg, vg = (t.movedim(2, 1).reshape(B * K, S, D).contiguous()
+              for t in (k, v))
+    vmask = valid.repeat_interleave(K, 0)
+    want = dense_dec_ops.decode_attention_ref(qg, kg, vg, vmask)
+    # a cache slab one position wider, read through its strides in place
+    wide = torch.zeros((2, B, S + 1, K, D), device=cuda)
+    wide[0, :, :S], wide[1, :, :S] = k, v
+    n0 = dense_dec_ops.decode_attention_kv.launches
+    got = dense_dec_ops.decode_attention_kv(q, wide[0, :, :S], wide[1, :, :S],
+                                            valid)
+    torch.cuda.synchronize()
+    assert dense_dec_ops.decode_attention_kv.launches == n0 + 1
+    err = (got.reshape(B * K, G, D) - want).abs().max().item()
+    assert err <= GPU_TOL, (mode, err)
+    got = dense_dec_ops.decode_attention_gqa(qg, kg, vg, vmask)
+    assert (got - want).abs().max().item() <= GPU_TOL, mode
+    if G == 1:
+        got = dense_dec_ops.decode_attention(q[:, None], k, v, valid)
+        err = (got[:, 0].reshape(B * K, 1, D) - want).abs().max().item()
+        assert err <= GPU_TOL, mode
+    torch.cuda.synchronize()
