@@ -8,12 +8,12 @@ and prints no result line):
 
 1. Device: the card's name, count and power limit; TF32 off.
 2. Build: the CUDA kernels from src/repro_torch/csrc, with nvcc for sm_90a.
-3. The four kernels (paged decode and prefill, flash prefill, dense
-   decode) against their plain PyTorch versions on the card, one case per
-   launch mode, at the main paths' shapes and beside them; the kernel's
-   time (CUDA events around back-to-back launches), the plain version's,
-   one library call's where PyTorch has one (SDPA), and the least time the
-   card could take for the same work.
+3. The five kernels (paged decode and prefill, flash prefill, dense
+   decode, SSD chunk scan) against their plain PyTorch versions on the
+   card, one case per launch mode, at the main paths' shapes and beside
+   them; the kernel's time (CUDA events around back-to-back launches), the
+   plain version's, one library call's where PyTorch has one (SDPA), and
+   the least time the card could take for the same work.
 4. The routed pool at full width: a router at DeBERTa-v3-large's widths
    scores 16 prompts, a ThresholdPolicy splits them between two
    qwen1.5-32b tiers ("half": the reference's scaled_sibling(., 2) at 2
@@ -23,9 +23,16 @@ and prints no result line):
    a HybridEngine over two dense Engines serves the same prompts; it must
    route as the pool did, and the flash and dense decode kernels must
    launch on both tiers, once per layer per prefill and per decode step.
-5. The card against the CPU: the full tier at depth 1, the paged path (a
-   prefill chunk, two decode steps) and the dense path (a prefill, two
-   decode steps) on each device, logits compared.
+   4c. The SSM slice: two mamba2-130m tiers ("full": the published config,
+   24 layers at full width; "half": scaled_sibling(., 2), 12 layers at
+   d_model 384) behind the same router serve 16 prompts through the pool
+   (the SSD chunk kernel must launch layers x prefill dispatches times on
+   each tier, and no page may leak), then through the dense hybrid path
+   (it must route as the pool did, launch the SSD kernel once per layer
+   per prefill on each tier, and no kernel in decode).
+5. The card against the CPU: the qwen and mamba2 full tiers at depth 1,
+   the paged path (a prefill chunk, two decode steps) and the dense path
+   (a prefill, two decode steps) on each device, logits compared.
 
 It imports neither JAX nor the JAX package. Weights are random, from
 seeded torch.Generators; nothing is downloaded. The last two lines are a
@@ -44,6 +51,8 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FP32_FLOP_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
 KERNEL_TOL = 1e-4               # fp32 kernel vs plain: another summation order
+SSD_TOL = 1e-4                  # SSD scan: sums over N + l terms reach tens,
+                                # so 1e-4 relative to max(1, max |plain|)
 DEVICE_TOL = 1e-3               # fp32 card vs CPU logits through a 5120-wide
                                 # layer: sums over up to 27392 terms in
                                 # another order on each device
@@ -138,12 +147,16 @@ def _bound(nbytes: float, flops: float):
 
 
 def _case(name, desc, kernel, plain, nbytes, flops, library=None,
-          check=None):
+          check=None, timed=False, scaled=False):
     """One launch mode: callables for the kernel's wrapper, its plain
     version and (main path only) the library yardstick, the bytes and
-    flops of the work, and an extra check of the kernel's output."""
+    flops of the work, and an extra check of the kernel's output.
+    "main" cases are timed and fill the kernel's JSON row; ``timed`` times
+    another main-path shape too. ``scaled`` holds the error relative to
+    max(1, max |plain|) against SSD_TOL instead of KERNEL_TOL."""
     return dict(name=name, desc=desc, kernel=kernel, plain=plain,
-                library=library, nbytes=nbytes, flops=flops, check=check)
+                library=library, nbytes=nbytes, flops=flops, check=check,
+                timed=timed or name == "main", scaled=scaled)
 
 
 def _idle_slot_is_zero(out):
@@ -362,6 +375,82 @@ def dense_decode_cases(torch, dev):
     return out
 
 
+def ssd_cases(torch, dev):
+    """SSD chunk scan, one case per launch mode: chunks of 1 and 4
+    positions (the pool's ragged tails), "pool" (the pool path's packed
+    prefill at mamba2-130m's widths: 8 rows x 16 positions, 24 heads of
+    64, state 128), "main" (the dense path: 8 prompts x 2 chunks of 256),
+    dt = 0 padding (a ragged row and a whole n_new = 0 row, whose state
+    must be exactly 0), steep dA (exp(dA_i - dA_j) overflows above the
+    diagonal), the tiny widths (P 16, N 16), and the model-layout entry on
+    the strided views the dense path hands it. The plain version holds the
+    whole (l, l) decay matrix; no single PyTorch call computes the
+    function."""
+    from repro_torch.kernels.ssd_scan import ops
+    spec = {  # name: (BC, H, l, P, N, layout)
+        "l1": (8, 24, 1, 64, 128, "random"),
+        "l4": (8, 24, 4, 64, 128, "random"),
+        "pool": (8, 24, 16, 64, 128, "random"),
+        "main": (16, 24, 256, 64, 128, "random"),
+        "pad_dt0": (8, 24, 16, 64, 128, "pad"),
+        "steep_dA": (4, 4, 256, 16, 16, "steep"),
+        "tiny_widths": (4, 4, 8, 16, 16, "random"),
+        "model_layout": (16, 24, 256, 64, 128, "model"),
+    }
+    g = torch.Generator(device=dev).manual_seed(6)
+    out = []
+    for name, (BC, H, l, P, N, layout) in spec.items():
+        u = lambda lo, hi, shape: lo + (hi - lo) * torch.rand(
+            shape, generator=g, device=dev)
+        x = torch.randn((BC, H, l, P), generator=g, device=dev)
+        if layout == "steep":
+            dt, A = u(1.0, 5.0, (BC, H, l, 1)), -u(8.0, 16.0, (H,))
+        else:
+            dt, A = u(0.01, 0.2, (BC, H, l, 1)), -u(1.0, 16.0, (H,))
+        if layout == "pad":
+            dt[0, :, l // 2:] = 0.0
+            dt[-1] = 0.0
+        da = torch.cumsum(dt * A[None, :, None, None], dim=2)
+        B = torch.randn((BC, l, N), generator=g, device=dev)
+        C = torch.randn((BC, l, N), generator=g, device=dev)
+        pairs = l * (l + 1) // 2
+        # scores once per bc over j <= i; per head the gate (2 flops for
+        # exp(dA_i - dA_j), 2 for the products) and P FMAs per pair, and
+        # per position w_j (3), B w (N) and the state's N P FMAs
+        flops = BC * pairs * 2 * N + BC * H * pairs * (4 + 2 * P) \
+            + BC * H * l * (3 + N + 2 * N * P)
+        nbytes = 4 * (2 * x.numel() + 2 * dt.numel() + 2 * B.numel()
+                      + BC * H * N * P)
+        if layout == "model":
+            # the dense path's views: x a head-split slice of the conv
+            # output (b, S, di + 2N), B and C slices of the same rows
+            b, nc, di = BC // 2, 2, H * P
+            xbc = torch.randn((b, nc * l, di + 2 * N), generator=g,
+                              device=dev)
+            xs = xbc[..., :di].reshape(b, nc, l, H, P)
+            Bs = xbc[..., di:di + N].reshape(b, nc, l, N)
+            Cs = xbc[..., di + N:].reshape(b, nc, l, N)
+            dts = dt[..., 0].movedim(1, 2).reshape(b, nc, l, H).contiguous()
+            das = da[..., 0].movedim(1, 2).reshape(b, nc, l, H).contiguous()
+            args = (xs, dts, das, Bs, Cs)
+            kernel = lambda args=args: ops.ssd_chunk(*args)
+            plain = lambda args=args: ops.ssd_chunk_reference(*args)
+        else:
+            args = (x, dt, da, B, C)
+            kernel = lambda args=args: ops.ssd_chunk_scan(*args)
+            plain = lambda args=args: ops.ssd_chunk_ref(*args)
+        check = _state_row_is_zero if layout == "pad" else None
+        out.append(_case(name, f"x {BC}x{H}x{l}x{P}, B/C {BC}x{l}x{N}, "
+                         f"{layout}", kernel, plain, nbytes, flops,
+                         check=check, timed=name == "pool", scaled=True))
+    return out
+
+
+def _state_row_is_zero(out):
+    if out[1][-1].abs().max().item() != 0.0:
+        raise AssertionError("the dt = 0 row's state is not exactly 0")
+
+
 KERNELS = (  # name, source, replaces, cases
     ("paged_decode_attention", "src/repro_torch/csrc/paged_decode_attention.cu",
      "src/repro/kernels/paged_decode_attention/kernel.py:106", decode_cases),
@@ -373,7 +462,20 @@ KERNELS = (  # name, source, replaces, cases
      "src/repro/kernels/flash_attention/kernel.py:70", flash_cases),
     ("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
      "src/repro/kernels/decode_attention/kernel.py:63", dense_decode_cases),
+    ("ssd_chunk_scan", "src/repro_torch/csrc/ssd_scan.cu",
+     "src/repro/kernels/ssd_scan/kernel.py:53", ssd_cases),
 )
+
+
+def _max_err(got, want):
+    """Max abs error over every output (a kernel may return a tuple) and
+    the largest magnitude of the plain version's outputs."""
+    if isinstance(got, tuple):
+        pairs = list(zip(got, want))
+    else:
+        pairs = [(got, want)]
+    err = max((a - b).abs().max().item() for a, b in pairs)
+    return err, max(b.abs().max().item() for _, b in pairs)
 
 
 def kernel_phase(torch):
@@ -387,31 +489,36 @@ def kernel_phase(torch):
             got = c["kernel"]()
             torch.cuda.synchronize()
             want = c["plain"]()
-            err = (got - want).abs().max().item()
+            err, scale = _max_err(got, want)
             worst = max(worst, err)
-            if not err <= KERNEL_TOL:
+            tol = SSD_TOL * max(1.0, scale) if c["scaled"] else KERNEL_TOL
+            finite = all(torch.isfinite(t).all().item() for t in
+                         (got if isinstance(got, tuple) else (got,)))
+            if not (finite and err <= tol):
                 raise AssertionError(f"{kname}[{c['name']}]: max abs err "
-                                     f"{err} > {KERNEL_TOL}")
+                                     f"{err} > {tol} (finite: {finite})")
             note = ""
             if c["check"] is not None:
                 c["check"](got)
-                note = "; idle slot exactly 0"
+                note = ("; dt = 0 row's state exactly 0" if c["scaled"]
+                        else "; idle slot exactly 0")
             log(f"[kernels] {kname}[{c['name']}] {c['desc']}: max abs err "
-                f"{err:.3g} <= {KERNEL_TOL}{note}")
-            if c["name"] != "main":
+                f"{err:.3g} <= {tol:.3g}{note}")
+            if not c["timed"]:
                 continue
             ms = _time_ms(torch, c["kernel"])
             plain_ms = _time_ms(torch, c["plain"])
             bound_ms, bound_by = _bound(c["nbytes"], c["flops"])
-            row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by)
+            if c["name"] == "main":
+                row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by)
             lib = ""
             if c["library"] is not None:
                 lib_err = (c["library"]() - want).abs().max().item()
                 row["library_ms"] = _time_ms(torch, c["library"])
                 lib = (f", library {row['library_ms']:.4f} ms (max abs err "
                        f"{lib_err:.3g})")
-            log(f"[kernels] {kname}[main] kernel {ms:.4f} ms, plain "
+            log(f"[kernels] {kname}[{c['name']}] kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms{lib}, bound {bound_ms:.4f} ms "
                 f"({bound_by}: {c['nbytes']} B, {c['flops']} flop)")
         row["max_abs_err"] = worst
@@ -422,13 +529,16 @@ def kernel_phase(torch):
 # ------------------------------------------------------------------ phase 4
 def scaled_sibling(full, factor: int):
     """launch/serve.py:81 ``scaled_sibling`` of the JAX package, for a dense
-    config: layers, width, heads and FFN divided together."""
+    or SSM config: layers, width, heads and FFN divided together; an
+    attention-free stack keeps no KV heads and no FFN."""
     return dataclasses.replace(
         full, n_layers=max(1, full.n_layers // factor),
         d_model=max(8, full.d_model // factor),
         n_heads=max(1, full.n_heads // factor),
-        n_kv_heads=max(1, min(full.n_kv_heads, full.n_heads // factor)),
-        d_ff=max(8, full.d_ff // factor), name=full.name + "-s")
+        n_kv_heads=max(1, min(full.n_kv_heads, full.n_heads // factor))
+        if full.n_kv_heads else 0,
+        d_ff=max(8, full.d_ff // factor) if full.d_ff else 0,
+        name=full.name + "-s")
 
 
 def main_path_phase(torch, card: str, smi: str):
@@ -609,6 +719,159 @@ def dense_hybrid_phase(torch, card: str, smi: str, pool_run: dict):
     return launches
 
 
+# ----------------------------------------------------------------- phase 4c
+def _counting(counters, per_tier, name, fn):
+    """``fn`` wrapped to add each counter's launches during the call to
+    ``per_tier[name]``. ``counters``: {key: wrapper with .launches}."""
+    def run(*args, **kw):
+        before = {k: w.launches for k, w in counters.items()}
+        out = fn(*args, **kw)
+        for k, w in counters.items():
+            per_tier[name][k] += w.launches - before[k]
+        return out
+    return run
+
+
+def ssm_phase(torch, card: str, smi: str, router):
+    """The SSM slice: two mamba2-130m tiers behind the pool phase's router
+    encoder (its threshold set to these prompts' median score), first
+    through the continuous pool, then through the dense hybrid path. Every
+    kernel counter is watched on both tiers: the SSD chunk kernel must
+    launch layers x prefill dispatches times on the pool and layers times
+    per prefill on the dense path, and no other kernel may launch."""
+    import numpy as np
+    from repro_torch.configs.mamba2_130m import CONFIG as MAMBA
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.paged_decode_attention import ops as pdec
+    from repro_torch.kernels.paged_prefill_attention import ops as ppre
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.core.routing import ThresholdPolicy
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import ContinuousEngine, Engine
+    from repro_torch.serving.hybrid import HybridEngine
+    from repro_torch.serving.pool import ContinuousPoolEngine
+
+    dev = torch.device("cuda")
+    counters = {"ssd": ssd.ssd_chunk_scan, "paged_decode":
+                pdec.paged_decode_attention_gqa, "paged_prefill":
+                ppre.paged_prefill_attention_gqa, "flash":
+                fa.flash_attention, "decode": dec.decode_attention_kv}
+    cfgs = {"half": scaled_sibling(MAMBA, 2), "full": MAMBA}
+    t0 = time.monotonic()
+    models, bundles = {}, {}
+    for i, (name, cfg) in enumerate(cfgs.items()):
+        bundles[name] = build_model(cfg)
+        models[name] = bundles[name].init(
+            torch.Generator(device=dev).manual_seed(200 + i), dev)
+        log(f"[ssm] tier {name}: {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, {cfg.ssm_nheads} SSD heads of "
+            f"{cfg.ssm_headdim}, state {cfg.ssm_state}, chunk "
+            f"{cfg.ssm_chunk}, vocab {cfg.vocab_size}, "
+            f"{cfg.param_count() / 1e6:.1f} M params")
+    torch.cuda.synchronize()
+    log(f"[ssm] random init on the card: {time.monotonic() - t0:.1f} s")
+
+    rng = np.random.default_rng(10)
+    lens = rng.integers(32, 513, N_PROMPTS)
+    tokens = rng.integers(4, MAMBA.vocab_size, (N_PROMPTS, 512)
+                          ).astype(np.int32)
+    mask = (np.arange(512)[None] < lens[:, None]).astype(np.float32)
+    tokens[mask == 0] = 0
+    threshold = float(np.median(router.scores(tokens, mask).cpu().numpy()))
+    router = router.with_threshold(threshold)
+
+    # ---- the continuous pool
+    tiers = [(name, ContinuousEngine(bundles[name], models[name],
+                                     max_new_tokens=NEW_TOKENS,
+                                     n_slots=N_SLOTS, max_seq=MAX_SEQ))
+             for name in cfgs]
+    for _, eng in tiers:   # warm-up outside the counts
+        eng.serve(tokens[:2, :48], seed=1)
+        eng.stats = type(eng.stats)()
+    pool = ContinuousPoolEngine(ThresholdPolicy(router), tiers)
+    per_tier = {name: dict.fromkeys(counters, 0) for name in cfgs}
+    for name, eng in tiers:
+        eng.step = _counting(counters, per_tier, name, eng.step)
+    for w in counters.values():
+        w.launches = 0
+    t0 = time.monotonic()
+    res = pool.serve(tokens, mask, seed=0)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    pool_launches = ssd.ssd_chunk_scan.launches
+    summary = pool.meter.summary()
+    for name, eng in tiers:
+        want = {**dict.fromkeys(counters, 0),
+                "ssd": cfgs[name].n_layers * eng.stats.prefill_dispatches}
+        log(f"[ssm] pool {name}: calls {summary[name]['calls']}, tokens "
+            f"{summary[name]['gen_tokens']}, decode steps "
+            f"{eng.stats.decode_steps}, prefill dispatches "
+            f"{eng.stats.prefill_dispatches}, kernel launches "
+            f"{per_tier[name]} (expected {want}), state "
+            f"{eng.rstate.state_bytes / 1e6:.1f} MB, free pages "
+            f"{eng.cache.free_pages} of {eng.cache.num_pages}")
+        if per_tier[name] != want or want["ssd"] <= 0:
+            raise AssertionError(f"ssm pool tier {name}: launches "
+                                 f"{per_tier[name]} != {want}")
+        if eng.cache.free_pages != eng.cache.num_pages - 1:
+            raise AssertionError(f"ssm pool tier {name}: pages leaked")
+    if not np.array_equal(res.tier_idx, (res.scores < threshold)):
+        raise AssertionError("ssm pool: tier_idx disagrees with score < "
+                             "threshold")
+    if sum(v["calls"] for v in summary.values()) != N_PROMPTS \
+            or not 0 < res.tier_idx.sum() < N_PROMPTS:
+        raise AssertionError(f"ssm pool: calls {summary}")
+    if not (res.lengths >= 1).all() or res.responses.max() >= \
+            MAMBA.vocab_size or res.responses.min() < 0:
+        raise AssertionError("ssm pool: responses out of range")
+    n_tok = int(res.lengths.sum())
+    log(f"[ssm] pool: {N_PROMPTS} requests retired "
+        f"({np.bincount(res.tier_idx, minlength=2).tolist()} half/full), "
+        f"threshold {threshold:.6f}, {n_tok} tokens in {wall:.3f} s = "
+        f"{n_tok / wall:.1f} tokens/s on {card} ({smi})")
+
+    # ---- the dense hybrid path on the same models and router
+    engines = {name: Engine(bundles[name], models[name],
+                            max_new_tokens=NEW_TOKENS) for name in cfgs}
+    hy = HybridEngine(router, engines["half"], engines["full"])
+    hy.serve(tokens, mask, seed=1)   # warm-up outside the counts
+    torch.cuda.synchronize()
+    hy.meter.tiers.reset()
+    per_tier = {name: dict.fromkeys(counters, 0) for name in cfgs}
+    for name, eng in engines.items():
+        eng.serve = _counting(counters, per_tier, name, eng.serve)
+    for w in counters.values():
+        w.launches = 0
+    t0 = time.monotonic()
+    dres = hy.serve(tokens, mask, seed=0)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    dense_launches = ssd.ssd_chunk_scan.launches
+    for name, eng in engines.items():
+        want = {**dict.fromkeys(counters, 0), "ssd": cfgs[name].n_layers}
+        log(f"[ssm] dense {name}: {eng.stats.requests} requests in "
+            f"{eng.stats.batches} batches, kernel launches {per_tier[name]} "
+            f"(expected {want}: one SSD launch per layer per prefill, none "
+            "in decode)")
+        if per_tier[name] != want:
+            raise AssertionError(f"ssm dense tier {name}: launches "
+                                 f"{per_tier[name]} != {want}")
+    if not np.array_equal(dres.routed_small, res.tier_idx == 0):
+        raise AssertionError("ssm: the dense hybrid path routes "
+                             "differently from the pool")
+    if hy.meter.tiers.total_calls != N_PROMPTS or not (dres.lengths >= 1) \
+            .all() or dres.responses.max() >= MAMBA.vocab_size \
+            or dres.responses.min() < 0:
+        raise AssertionError("ssm dense: calls or responses out of range")
+    n_tok = int(dres.lengths.sum())
+    log(f"[ssm] dense: {N_PROMPTS} requests ({int(dres.routed_small.sum())} "
+        f"half, {int((~dres.routed_small).sum())} full), {n_tok} tokens in "
+        f"{wall:.3f} s = {n_tok / wall:.1f} tokens/s on {card} ({smi})")
+    return dict(model=models["full"], cfg=MAMBA,
+                launches=pool_launches + dense_launches)
+
+
 # ------------------------------------------------------------------ phase 5
 def _compare(torch, tag, gpu_logits, cpu_logits):
     """Max abs error of card against CPU logits; greedy tokens must agree
@@ -633,16 +896,17 @@ def _compare(torch, tag, gpu_logits, cpu_logits):
 
 
 def device_vs_cpu_phase(torch, full_model, full_cfg):
-    """The full tier at depth 1, full width, on the card and on the CPU,
+    """A full tier at depth 1, full width, on the card and on the CPU,
     same weights, same inputs: the paged path (one prefill chunk, two
-    decode steps) and the dense path (decoder_prefill, two
-    decoder_decode_step calls)."""
+    decode steps; an SSM stack's state in recurrent-state rows 1 and 2)
+    and the dense path (decoder_prefill, two decoder_decode_step calls)."""
     import numpy as np
     from repro_torch.models import decoder
     cfg = dataclasses.replace(full_cfg, n_layers=1)
     gpu = decoder.Decoder(cfg, device="meta")
-    gpu.embed, gpu.ln_f, gpu.head = (full_model.embed, full_model.ln_f,
-                                     full_model.head)
+    for name in ("embed", "ln_f", "head"):
+        if hasattr(full_model, name):
+            setattr(gpu, name, getattr(full_model, name))
     gpu.layers = torch.nn.ModuleList([full_model.layers[0]])
     cpu = decoder.Decoder(cfg, device="cpu")
     cpu.load_state_dict(gpu.state_dict())
@@ -657,9 +921,12 @@ def device_vs_cpu_phase(torch, full_model, full_cfg):
         for dev, model in (("cuda", gpu), ("cpu", cpu)):
             T = lambda a: torch.tensor(a, device=dev)
             cache = decoder.init_paged_decode_cache(cfg, 5, ps, dev)
+            if cfg.family == "ssm":
+                cache["rec"] = decoder.init_decoder_recurrent_state(cfg, 3,
+                                                                    dev)
             x = decoder.decoder_prefill_paged_chunk(
                 model, cache, T(chunk), T(pt), T(np.zeros(2, np.int32)),
-                T(n_new), cfg)
+                T(n_new), cfg, state_rows=T(np.array([1, 2], np.int32)))
             logits = [decoder._unembed(model, x, cfg)[:, 0]]
             lens = n_new.copy()
             for step in range(2):
@@ -682,8 +949,8 @@ def device_vs_cpu_phase(torch, full_model, full_cfg):
                     model, cache, T(tok[:, None]), cfg)
                 logits.append(out)
             dense[dev] = [t.float().cpu() for t in logits]
-    _compare(torch, "paged", paged["cuda"], paged["cpu"])
-    _compare(torch, "dense", dense["cuda"], dense["cpu"])
+    _compare(torch, f"{cfg.name} paged", paged["cuda"], paged["cpu"])
+    _compare(torch, f"{cfg.name} dense", dense["cuda"], dense["cpu"])
 
 
 def main() -> int:
@@ -698,10 +965,13 @@ def main() -> int:
     pool_run = main_path_phase(torch, card, smi)
     launches = {**pool_run["launches"],
                 **dense_hybrid_phase(torch, card, smi, pool_run)}
+    ssm_run = ssm_phase(torch, card, smi, pool_run["router"])
+    launches["ssd_chunk_scan"] = ssm_run["launches"]
     for row in rows:
         row["launches"] = launches[row["name"]]
     device_vs_cpu_phase(torch, pool_run["models"]["full"],
                         pool_run["cfgs"]["full"])
+    device_vs_cpu_phase(torch, ssm_run["model"], ssm_run["cfg"])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(smi)

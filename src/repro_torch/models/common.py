@@ -46,11 +46,14 @@ def init_params_(module: nn.Module, generator) -> nn.Module:
     """Fill every parameter of ``module`` from the reference's init
     distributions, by name: norm ``scale`` ones, QKV biases zeros, token
     embedding tables truncated normal * 0.02 (``embed_init``), the router's
-    ``rel_bias`` normal * 0.02, every other weight truncated normal over
-    its fan-in, the leading axis (``dense_init``)."""
+    ``rel_bias`` normal * 0.02; the SSM mixer's ``conv_w`` truncated normal
+    * 0.2, ``A_log`` log(linspace(1, 16, H)), ``D`` ones and ``dt_bias``
+    log(expm1(linspace(1e-3, 1e-1, H))) (``models/ssm.py::init_ssm``);
+    every other weight truncated normal over its fan-in, the leading axis
+    (``dense_init``)."""
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if leaf == "scale":
+        if leaf in ("scale", "D"):
             p.fill_(1.0)
         elif leaf in ("bq", "bk", "bv"):
             p.zero_()
@@ -58,6 +61,12 @@ def init_params_(module: nn.Module, generator) -> nn.Module:
             trunc_normal_(p, 0.02, generator)
         elif leaf == "rel_bias":
             p.normal_(0.0, 0.02, generator=generator)
+        elif leaf == "conv_w":
+            trunc_normal_(p, 0.2, generator)
+        elif leaf == "A_log":
+            p.copy_(torch.linspace(1.0, 16.0, len(p)).log())
+        elif leaf == "dt_bias":
+            p.copy_(torch.linspace(1e-3, 1e-1, len(p)).expm1().log())
         else:
             trunc_normal_(p, 1.0 / math.sqrt(p.shape[0]), generator)
     return module

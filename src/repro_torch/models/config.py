@@ -19,7 +19,7 @@ class ArchConfig:
     """Configuration for one model architecture.
 
     Families: dense | moe | ssm | hybrid | vlm | audio (the port builds
-    ``dense`` so far; see ``models.model.build_model``).
+    ``dense`` and ``ssm`` so far; see ``models.model.build_model``).
 
     ``use_pallas`` is kept for the 1:1 conversion and selects nothing here:
     in the port a tensor's device decides between a kernel and its plain
@@ -100,6 +100,15 @@ class ArchConfig:
     @property
     def padded_vocab(self) -> int:
         return _round_up(self.vocab_size, self.vocab_pad_multiple)
+
+    @property
+    def d_inner(self) -> int:
+        """SSM inner width."""
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_nheads(self) -> int:
+        return self.d_inner // self.ssm_headdim
 
     @property
     def supports_paged_kv(self) -> bool:

@@ -1,5 +1,5 @@
 """Model bundle API (the port of ``repro.models.model``): the dense-cache
-and paged serving paths.
+and paged serving paths of the dense and SSM families.
 
 ``build_model(cfg)`` returns a ``ModelBundle`` of plain functions over a
 ``Decoder`` module, in the reference's argument order:
@@ -12,29 +12,33 @@ and paged serving paths.
   init_cache(batch_size, max_seq, device="cuda") -> cache
   init_paged_cache(num_pages, page_size=None, device="cuda") -> pools
   prefill_paged_chunk(model, cache, tokens, page_table, start, n_new,
-                      pages_bound=None) -> x_last (B, 1, D)
+                      pages_bound=None, state_rows=None) -> x_last (B, 1, D)
   decode_step_paged(model, cache, token, page_table, seq_lens, active,
                     pages_bound=None) -> logits (B, V)
   lm_head(model, x (B, S, D)) -> logits (B, S, V)
+  init_recurrent_state(n_rows, device="cuda") -> {"h", "conv"} row slabs
+      (SSM family; None for attention stacks)
 
-Dense caches and page pools are updated in place. Only the dense family
-with global attention is built so far; the other families and
-sliding-window stacks raise and name the slice that brings them, and
-``forward`` (training's teacher-forced pass) comes with the training
-slice.
+Dense caches, page pools and recurrent-state rows are updated in place.
+The paged calls of the SSM family take ``cache["rec"]``, the recurrent
+state, beside the (zero-layer) pools, and ``state_rows`` names each
+prefill row's state row. Global-attention dense stacks and SSM stacks are
+built so far; the other families and sliding-window stacks raise and name
+the slice that brings them, and ``forward`` (training's teacher-forced
+pass) comes with the training slice.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 from . import decoder
 from .config import ArchConfig
 
 _LATER = {
-    "moe": "the MoE family comes with the MoE/SSM/hybrid slice",
-    "ssm": "the SSM family comes with the MoE/SSM/hybrid slice",
-    "hybrid": "the hybrid family comes with the MoE/SSM/hybrid slice",
+    "moe": "the MoE family comes with the MoE slice",
+    "hybrid": "the hybrid (Jamba) family comes with the hybrid slice, "
+              "after the MoE slice",
     "vlm": "the vlm family comes with the encoder-decoder and frontends "
            "slice",
     "audio": "the audio family comes with the encoder-decoder and "
@@ -53,18 +57,24 @@ class ModelBundle:
     prefill_paged_chunk: Callable
     decode_step_paged: Callable
     lm_head: Callable
+    init_recurrent_state: Optional[Callable] = None
 
 
 def build_model(cfg: ArchConfig) -> ModelBundle:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet — "
-            + _LATER.get(cfg.family, "only the dense family is ported"))
+            + _LATER.get(cfg.family,
+                         "only the dense and SSM families are ported"))
     if cfg.n_experts or cfg.has_window_layers or not cfg.supports_paged_kv:
         raise NotImplementedError(
             f"{cfg.name}: only global-attention dense stacks are ported "
             "yet — MoE layers come with the MoE slice, "
             "sliding-window layers with the sliding-window slice")
+    rec = None
+    if cfg.family == "ssm":
+        rec = lambda n_rows, device="cuda": \
+            decoder.init_decoder_recurrent_state(cfg, n_rows, device)
     return ModelBundle(
         cfg=cfg,
         init=lambda generator, device="cuda":
@@ -79,10 +89,13 @@ def build_model(cfg: ArchConfig) -> ModelBundle:
             decoder.init_paged_decode_cache(
                 cfg, num_pages, page_size or cfg.kv_page_size, device),
         prefill_paged_chunk=lambda m, c, t, page_table, start, n_new,
-            pages_bound=None: decoder.decoder_prefill_paged_chunk(
-                m, c, t, page_table, start, n_new, cfg, pages_bound),
+            pages_bound=None, state_rows=None:
+            decoder.decoder_prefill_paged_chunk(
+                m, c, t, page_table, start, n_new, cfg, pages_bound,
+                state_rows),
         decode_step_paged=lambda m, c, t, page_table, seq_lens, active,
             pages_bound=None: decoder.decoder_decode_step_paged(
                 m, c, t, page_table, seq_lens, active, cfg, pages_bound),
         lm_head=lambda m, x: decoder._unembed(m, x, cfg),
+        init_recurrent_state=rec,
     )

@@ -1,5 +1,6 @@
 """Paged serving state: a block-pool KV allocator over a shared device page
-pool (the port of ``repro.serving.cache.PagedKVCache``).
+pool (the port of ``repro.serving.cache.PagedKVCache``), and the per-slot
+recurrent-state rows of SSM stacks (``RecurrentStatePool``).
 
 Dense serving gives every request a (max_seq, K, Dh) slab per layer; the
 paged cache carves the device KV buffers into fixed-size pages
@@ -31,6 +32,41 @@ class CacheStats:
     allocs: int = 0               # slot admissions
     appends: int = 0              # decode-time page extensions
     oom_denials: int = 0          # admissions/extensions refused for space
+
+
+class RecurrentStatePool:
+    """Per-slot recurrent-state slabs for SSM serving.
+
+    ``bundle.init_recurrent_state(n_slots + 1)`` builds the device slabs
+    (``self.state``, each with a leading row axis), which every prefill
+    chunk and decode step updates in place.
+
+    Row convention: row 0 is the reserved scratch row (packed-prefill
+    padding rows gather and scatter it, so the step needs no liveness
+    branch) and slot ``s`` owns row ``s + 1`` (``rows``). Slot reuse needs
+    no host-side reset: a prompt's first chunk re-enters its row from zero
+    state, and a decode step leaves the rows of inactive slots as they
+    are.
+    """
+
+    def __init__(self, bundle, n_slots: int, device="cuda"):
+        if bundle.init_recurrent_state is None:
+            raise ValueError(f"{bundle.cfg.name}: architecture keeps no "
+                             "recurrent serving state")
+        self.n_slots = n_slots
+        self.state = bundle.init_recurrent_state(n_slots + 1, device=device)
+
+    def rows(self, slots) -> np.ndarray:
+        """State-pool row ids for ``slots`` (np.int32); pad with 0 (the
+        scratch row) for packed-batch padding rows."""
+        return np.asarray(slots, np.int32) + 1
+
+    @property
+    def state_bytes(self) -> int:
+        """Device bytes held by the state slabs (all rows, scratch
+        included): constant for the engine's lifetime, the recurrent
+        counterpart of the KV pool's capacity."""
+        return sum(t.numel() * t.element_size() for t in self.state.values())
 
 
 class PagedKVCache:

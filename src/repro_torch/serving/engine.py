@@ -45,6 +45,12 @@ full table width (the parity baseline). ``decode_compiles`` and
 (batch, width, bound, wstart) launch shapes, the keys the reference jits
 on; wstart stays 0 until the sliding-window slice.
 
+SSM stacks keep constant-size per-slot recurrent state
+(``serving.cache.RecurrentStatePool``) beside zero-layer page pools:
+prefill rows gather and scatter their slot's state row (padding rows the
+scratch row 0), and each decode step advances the rows of the active
+slots.
+
 Greedy-exactness: at temperature 0 the engine emits, per request, the
 tokens of the reference engine on the same weights, whatever the
 admission interleaving (tests/test_torch_serving.py). Sampled rows draw
@@ -67,7 +73,7 @@ import torch
 
 from repro_torch.data import tokenizer as tok
 from repro_torch.models.model import ModelBundle
-from .cache import PagedKVCache
+from .cache import PagedKVCache, RecurrentStatePool
 from .generate import _sample_rows, _stream_seed, build_generate_fn
 from .scheduler import DECODING, ContinuousScheduler, Request
 
@@ -233,6 +239,10 @@ class ContinuousEngine:
             num_pages = 1 + n_slots * mp      # page 0 reserved
         self.cache = PagedKVCache(bundle, n_slots, num_pages, ps, mp,
                                   device=self.device)
+        # SSM stacks keep constant-size per-slot recurrent state beside
+        # the page pool
+        self.rstate = RecurrentStatePool(bundle, n_slots, self.device) \
+            if bundle.init_recurrent_state is not None else None
         self.sched = ContinuousScheduler(n_slots)
         self.stats = ContinuousStats()
         self.n_slots = n_slots
@@ -243,6 +253,13 @@ class ContinuousEngine:
         if prefill_chunk < 0:
             raise ValueError(f"prefill_chunk={prefill_chunk}: chunked "
                              "admission needs a non-negative size")
+        if prefill_chunk == 0 and self.rstate is not None:
+            # one-shot admission scatters a dense KV cache into pages;
+            # recurrent state has no page-shaped form to scatter, so SSM
+            # prompts must stream through chunked prefill
+            raise ValueError(f"{bundle.cfg.name}: recurrent-state stacks "
+                             "admit through chunked prefill; prefill_chunk "
+                             "must be > 0")
         if prefill_chunk == 0:
             raise NotImplementedError(
                 "prefill_chunk=0: one-shot admission is not ported yet; it "
@@ -388,35 +405,47 @@ class ContinuousEngine:
         mutates its arrays while the device may still read the step)."""
         return torch.tensor(a, device=self.device)
 
+    def _model_cache(self) -> dict:
+        """What the model's paged calls update in place: the page pools,
+        and the recurrent state of an SSM stack as ``"rec"``."""
+        if self.rstate is None:
+            return self.cache.pool
+        return {**self.cache.pool, "rec": self.rstate.state}
+
     def _dispatch_prefill(self, group: List[tuple], width: int,
                           retired: List[Request]) -> None:
         """Launch ONE prefill step over the stacked chunks of ``group``
         ((req, n_new) rows sharing the bucketed chunk ``width``), the batch
-        padded to a power of two. Padding rows carry n_new=0 and an
-        all-zero page-table row, so their K/V writes land on the reserved
-        scratch page and their attention is fully masked. The page walk is
-        bounded by the group's live maximum context."""
+        padded to a power of two. Padding rows carry n_new=0, an all-zero
+        page-table row and state row 0, so their K/V writes land on the
+        reserved scratch page, their attention is fully masked, and their
+        recurrent-state writes land on the reserved scratch row. The page
+        walk is bounded by the group's live maximum context."""
         B = _bucket(len(group))
         mp = self.cache.max_pages_per_slot
         chunk = np.full((B, width), tok.PAD, np.int32)
         pt = np.zeros((B, mp), np.int32)
         start = np.zeros((B,), np.int32)
         n_new = np.zeros((B,), np.int32)
+        rows = np.zeros((B,), np.int32)          # 0 = scratch state row
         for i, (req, n) in enumerate(group):
             chunk[i, :n] = req.serve_tokens[req.prefill_pos:
                                             req.prefill_pos + n]
             pt[i] = self.cache.page_table[req.slot]
             start[i] = req.prefill_pos
             n_new[i] = n
+            if self.rstate is not None:
+                rows[i] = self.rstate.rows(req.slot)
         bound = self._pages_bound(int((start + n_new).max()))
         wstart = 0   # window-start walks come with the sliding-window slice
         if (B, width, bound, wstart) not in self._chunk_shapes:
             self._chunk_shapes.add((B, width, bound, wstart))
             self.stats.prefill_compiles += 1
         x_last = self.bundle.prefill_paged_chunk(
-            self.params, self.cache.pool, self._tensor(chunk),
+            self.params, self._model_cache(), self._tensor(chunk),
             self._tensor(pt), self._tensor(start), self._tensor(n_new),
-            pages_bound=bound)
+            pages_bound=bound, state_rows=None if self.rstate is None
+            else self._tensor(rows))
         self.stats.prefill_dispatches += 1
         finishing = []
         for i, (req, n) in enumerate(group):
@@ -525,7 +554,7 @@ class ContinuousEngine:
                 self._decode_bounds.add((bound, wstart))
                 self.stats.decode_compiles += 1
             logits = self.bundle.decode_step_paged(
-                self.params, self.cache.pool,
+                self.params, self._model_cache(),
                 self._tensor(self._next_in[:, None]), pt, sl,
                 self._tensor(active), pages_bound=bound)
             # idle rows take the argmax: no draw is spent on garbage

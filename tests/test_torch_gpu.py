@@ -6,7 +6,8 @@ device). Imports no JAX: run it on the GPU machine with
 Each CUDA kernel, launched through its wrapper, against its plain version
 on the same device inputs, over every launch mode below. The launch modes
 and their inputs, made with numpy from a seed, are shared with the CPU
-parity tests (test_torch_paged_kernels.py, test_torch_dense_kernels.py).
+parity tests (test_torch_paged_kernels.py, test_torch_dense_kernels.py,
+test_torch_ssm_kernels.py).
 """
 import numpy as np
 import pytest
@@ -16,8 +17,12 @@ from repro_torch.kernels.decode_attention import ops as dense_dec_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_decode_attention import ops as dec_ops
 from repro_torch.kernels.paged_prefill_attention import ops as pre_ops
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
 GPU_TOL = 1e-4    # fp32 kernel vs plain version: another summation order
+# SSD scan: sums over N + l terms reach tens, so the same 1e-4 is taken
+# relative to the output's largest magnitude (at least 1)
+SSD_TOL = 1e-4
 
 # name -> (B, K, G, D, ps, MP, pages_bound, pages_start, window)
 DECODE_MODES = {
@@ -62,6 +67,56 @@ DECODE_DENSE_MODES = {
     # key is masked: the first 512 keys, a whole TPU key block, are invalid
     "windowed_sink": (2, 600, 2, 2, 16, "late_window"),
 }
+
+
+# SSD chunk scan (K3), covering the shapes of tests/test_kernels.py::
+# test_ssd_kernel_sweep and the main paths' launch modes: one position
+# (the pool's one-token tail), 4 and 16 (the pool's bucketed chunks), 100
+# (not a multiple of the CUDA tiles) and 256 (the dense path's chunk) at
+# mamba2-130m's widths (P 64, N 128); padding with dt = 0 (a ragged row and
+# a whole n_new = 0 row); steep dA, whose exp(dA_i - dA_j) overflows above
+# the diagonal. name -> (BC, H, l, P, N, layout)
+SSD_MODES = {
+    "sweep_l16": (4, 2, 16, 8, 8, "random"),
+    "sweep_l32": (4, 4, 32, 16, 8, "random"),
+    "sweep_l64": (4, 3, 64, 32, 16, "random"),
+    "l1": (4, 3, 1, 16, 16, "random"),
+    "l4_pad_dt0": (4, 2, 4, 16, 16, "pad"),
+    "l16_pad_dt0_mamba": (3, 2, 16, 64, 128, "pad"),
+    "steep_dA": (3, 2, 40, 16, 16, "steep"),
+    "l100_mamba": (2, 2, 100, 64, 128, "random"),
+    "l256_mamba": (1, 2, 256, 64, 128, "random"),
+}
+
+
+def ssd_case(name, seed=0):
+    """Inputs of one SSD launch mode in the kernel's layout, as numpy
+    arrays: x (BC, H, l, P); dt and dA = cumsum(dt A) (BC, H, l, 1), A < 0;
+    B, C (BC, l, N). "pad" zeroes dt past the middle of row 0 and on all of
+    the last row (packed prefill's padding); "steep" takes dt in [1, 5) and
+    A in (-16, -8]."""
+    BC, H, l, P, N, layout = SSD_MODES[name]
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((BC, H, l, P))
+    if layout == "steep":
+        dt = rng.uniform(1.0, 5.0, (BC, H, l, 1))
+        A = -rng.uniform(8.0, 16.0, (H,))
+    else:
+        dt = rng.uniform(0.01, 0.2, (BC, H, l, 1))
+        A = -rng.uniform(0.5, 2.0, (H,))
+    if layout == "pad":
+        dt[0, :, l // 2:] = 0.0
+        dt[-1] = 0.0
+    da = np.cumsum(dt * A[None, :, None, None], axis=2)
+    B = rng.standard_normal((BC, l, N))
+    C = rng.standard_normal((BC, l, N))
+    return [a.astype(np.float32) for a in (x, dt, da, B, C)]
+
+
+def ssd_err(got, want):
+    """Max abs error, over the tolerance's scale max(1, max |want|)."""
+    return (got - want).abs().max().item() / max(1.0, want.abs().max()
+                                                 .item())
 
 
 def flash_case(name, seed=0):
@@ -236,3 +291,36 @@ def test_cuda_decode_attention_matches_plain_version(mode, cuda):
         err = (got[:, 0].reshape(B * K, 1, D) - want).abs().max().item()
         assert err <= GPU_TOL, mode
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", sorted(SSD_MODES))
+def test_cuda_ssd_chunk_scan_matches_plain_version(mode, cuda):
+    """The SSD chunk kernel through both entries (the TPU kernel's layout,
+    and the model's layout read and written through strides) against the
+    plain versions on the card. A whole row of dt = 0 gives a state of
+    exactly 0, and steep dA gives finite outputs."""
+    x, dt, da, B, C = to_torch(ssd_case(mode), cuda)
+    n0 = ssd_ops.ssd_chunk_scan.launches
+    y, st = ssd_ops.ssd_chunk_scan(x, dt, da, B, C)
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd_chunk_scan.launches == n0 + 1
+    y_ref, st_ref = ssd_ops.ssd_chunk_ref(x, dt, da, B, C)
+    assert torch.isfinite(y).all() and torch.isfinite(st).all(), mode
+    assert ssd_err(y, y_ref) <= SSD_TOL, (mode, ssd_err(y, y_ref))
+    assert ssd_err(st, st_ref) <= SSD_TOL, (mode, ssd_err(st, st_ref))
+    if SSD_MODES[mode][-1] == "pad":
+        assert not st[-1].any(), "a dt = 0 row must add exactly 0"
+    # the model layout: (b, nc, l, H, P) with b * nc = BC
+    BC, H, l, P = x.shape
+    b = 2 if BC % 2 == 0 else 1
+    xs = x.movedim(1, 2).reshape(b, BC // b, l, H, P)
+    dts, das = (t[..., 0].movedim(1, 2).reshape(b, BC // b, l, H)
+                .contiguous() for t in (dt, da))
+    Bs, Cs = (t.reshape(b, BC // b, l, -1) for t in (B, C))
+    yd, states = ssd_ops.ssd_chunk(xs, dts, das, Bs, Cs)
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd_chunk_scan.launches == n0 + 2
+    yd_ref, states_ref = ssd_ops.ssd_chunk_reference(xs, dts, das, Bs, Cs)
+    assert ssd_err(yd, yd_ref) <= SSD_TOL, mode
+    assert ssd_err(states, states_ref) <= SSD_TOL, mode
