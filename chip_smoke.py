@@ -50,6 +50,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FP32_FLOP_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
+PEAK_TF32_FLOP_PER_S = 495e12   # H100 SXM TF32 on the tensor cores, dense
 KERNEL_TOL = 1e-4               # fp32 kernel vs plain: another summation order
 SSD_TOL = 1e-4                  # SSD scan: sums over N + l terms reach tens,
                                 # so 1e-4 relative to max(1, max |plain|)
@@ -147,16 +148,18 @@ def _bound(nbytes: float, flops: float):
 
 
 def _case(name, desc, kernel, plain, nbytes, flops, library=None,
-          check=None, timed=False, scaled=False):
+          check=None, timed=False, scaled=False, report=None):
     """One launch mode: callables for the kernel's wrapper, its plain
     version and (main path only) the library yardstick, the bytes and
     flops of the work, and an extra check of the kernel's output.
     "main" cases are timed and fill the kernel's JSON row; ``timed`` times
     another main-path shape too. ``scaled`` holds the error relative to
-    max(1, max |plain|) against SSD_TOL instead of KERNEL_TOL."""
+    max(1, max |plain|) against SSD_TOL instead of KERNEL_TOL. ``report``
+    logs more about a timed case: called with (torch, case, kernel ms,
+    library ms)."""
     return dict(name=name, desc=desc, kernel=kernel, plain=plain,
                 library=library, nbytes=nbytes, flops=flops, check=check,
-                timed=timed or name == "main", scaled=scaled)
+                timed=timed or name == "main", scaled=scaled, report=report)
 
 
 def _idle_slot_is_zero(out):
@@ -259,11 +262,14 @@ def flash_cases(torch, dev):
     """Flash attention, one case per launch mode of the JAX package's
     flash probe and beside it (analysis/pallas_check.py::_probe_flash):
     causal, causal with a window, non-causal with and without one,
-    irregular S, G > 1, head_dim 24. "main" is the full tier's dense
-    prefill: 8 prompts of 512 tokens, 40 heads of 128, in the model's
-    (B, S, H, D) layout. The plain version expands kv to H heads and runs
-    on (B*H, S, D); the library yardstick is one SDPA call (causal, scale 1
-    on the pre-scaled q)."""
+    irregular S, G > 1, head_dim 24; head_dim 20 (zero-padded to 8 in the
+    kernel) on views of rows 21 floats wide, whose rows are not 16-byte
+    aligned, so the kernel copies 4 bytes at a time; head_dim 256
+    (gemma3-4b's heads: the largest tiles). "main" is the full tier's
+    dense prefill: 8 prompts of 512 tokens, 40 heads of 128, in the
+    model's (B, S, H, D) layout. The plain version expands kv to H heads
+    and runs on (B*H, S, D); the library yardstick is one SDPA call
+    (causal, scale 1 on the pre-scaled q)."""
     import numpy as np
     from torch.nn import functional as F
     from repro_torch.kernels.flash_attention import ops
@@ -275,13 +281,17 @@ def flash_cases(torch, dev):
         "irregular_s": (2, 77, 4, 4, 128, True, 0),
         "gqa": (2, 256, 8, 2, 128, True, 0),
         "head_dim_24": (2, 130, 4, 4, 24, True, 0),
+        "head_dim_20": (2, 77, 4, 4, 20, True, 0),
+        "head_dim_256": (2, 512, 8, 4, 256, True, 0),
     }
     g = torch.Generator(device=dev).manual_seed(3)
     out = []
     for name, (B, S, H, K, D, causal, window) in spec.items():
-        q = torch.randn((B, S, H, D), generator=g, device=dev) * D ** -0.5
-        k = torch.randn((B, S, K, D), generator=g, device=dev)
-        v = torch.randn((B, S, K, D), generator=g, device=dev)
+        Dr = D + 1 if name == "head_dim_20" else D   # row width in memory
+        q = torch.randn((B, S, H, Dr), generator=g, device=dev)[..., :D] \
+            * D ** -0.5
+        k = torch.randn((B, S, K, Dr), generator=g, device=dev)[..., :D]
+        v = torch.randn((B, S, K, Dr), generator=g, device=dev)[..., :D]
         kw = dict(causal=causal, window=window)
         qp, kp = np.arange(S)[:, None], np.arange(S)[None, :]
         seen = np.ones((S, S), bool)
@@ -303,11 +313,45 @@ def flash_cases(torch, dev):
             library = lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 is_causal=True, scale=1.0).transpose(1, 2)
-        out.append(_case(name, f"q {B}x{S}x{H}x{D}, kv heads {K} {kw}",
+        desc = f"q {B}x{S}x{H}x{D}, kv heads {K} {kw}"
+        if Dr != D:
+            desc += f", rows {Dr} floats apart"
+        out.append(_case(name, desc,
                          lambda q=q, k=k, v=v, kw=kw:
                              ops.flash_attention(q, k, v, **kw),
-                         plain, nbytes, flops, library))
+                         plain, nbytes, flops, library,
+                         report=_flash_standing if name == "main" else None))
     return out
+
+
+def _flash_standing(torch, c, ms, library_ms):
+    """Flash attention's standing at the main shape: its time as a share of
+    the fp32 bound, against SDPA's, and the floor of its 3xTF32 route (three
+    TF32 products per fp32 product at the tensor cores' peak). Names the
+    backend SDPA took, from one call under the profiler: its ATen op and
+    its device kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    bound_ms, _ = _bound(c["nbytes"], c["flops"])
+    tc_ms = 1e3 * 3 * c["flops"] / PEAK_TF32_FLOP_PER_S
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        c["library"]()
+        torch.cuda.synchronize()
+    ops, kernels = [], []
+    for e in prof.key_averages():
+        if e.key.startswith(("aten::_scaled_dot_product", "aten::_efficient",
+                             "aten::_flash", "aten::_cudnn")):
+            ops.append(e.key)
+        elif getattr(e, "device_type", None) is not None and \
+                str(e.device_type).endswith("CUDA"):
+            kernels.append(e.key[:100])
+    log(f"[kernels] flash_attention[main] {bound_ms / ms:.3f} of the fp32 "
+        f"bound ({bound_ms:.4f} ms), {ms / library_ms:.3f}x SDPA's time "
+        f"({library_ms:.4f} ms); 3xTF32 tensor-core floor {tc_ms:.4f} ms "
+        f"(3 x {c['flops']} flop at {PEAK_TF32_FLOP_PER_S / 1e12:g} TFLOP/s)")
+    log(f"[kernels] SDPA backend: ops {sorted(set(ops)) or 'none seen'}; "
+        f"device kernels {sorted(set(kernels)) or 'none seen'}")
 
 
 def dense_decode_cases(torch, dev):
@@ -521,6 +565,8 @@ def kernel_phase(torch):
             log(f"[kernels] {kname}[{c['name']}] kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms{lib}, bound {bound_ms:.4f} ms "
                 f"({bound_by}: {c['nbytes']} B, {c['flops']} flop)")
+            if c["report"] is not None:
+                c["report"](torch, c, ms, row["library_ms"])
         row["max_abs_err"] = worst
         rows.append(row)
     return rows

@@ -12,7 +12,7 @@ import torch
 from ..common import check_inputs, launch
 from .ref import attention_ref
 
-MAX_HEAD_DIM = 256   # a block's shared memory then stays under 143 KB
+MAX_HEAD_DIM = 256   # a block's shared memory then stays under 200 KB
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):

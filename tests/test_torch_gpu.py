@@ -44,7 +44,9 @@ PREFILL_MODES = {
 # Dense-cache kernels, covering the launch modes of
 # repro/analysis/pallas_check.py::_probe_flash and ::_probe_decode: causal,
 # causal with a window, non-causal, irregular S, G > 1 and S not a
-# multiple of the CUDA kernels' tiles (64 query rows, 32 keys).
+# multiple of the CUDA kernels' tiles (flash attention: 128 query rows, 32
+# keys); for flash attention also head_dim 20 (zero-padded to 8 in the
+# kernel) and 256 (the largest tiles in shared memory).
 # name -> (B, S, H, K, D, causal, window)
 FLASH_MODES = {
     "causal": (2, 16, 2, 2, 8, True, 0),
@@ -55,6 +57,8 @@ FLASH_MODES = {
     "long_window": (1, 150, 2, 1, 32, True, 37),
     "non_causal_window": (1, 70, 2, 2, 16, False, 9),
     "head_dim_24": (2, 70, 2, 2, 24, True, 0),
+    "head_dim_20": (2, 37, 2, 2, 20, True, 0),
+    "head_dim_256": (1, 24, 2, 1, 256, True, 0),
 }
 # name -> (B, S, K, G, D, validity layout)
 DECODE_DENSE_MODES = {
@@ -243,7 +247,9 @@ def test_cuda_kernels_match_plain_versions(mode, cuda):
 @pytest.mark.parametrize("mode", sorted(FLASH_MODES))
 def test_cuda_flash_attention_matches_plain_version(mode, cuda):
     """The flash-attention kernel through both entries (model layout and
-    the TPU kernel's (BH, S, D)) against the plain version on the card."""
+    the TPU kernel's (BH, S, D)) against the plain version on the card,
+    and through the model entry on views of rows D + 1 floats wide, whose
+    rows are not 16-byte aligned (the kernel's 4-byte copies)."""
     args, kw = flash_case(mode)
     q, k, v = to_torch(args, cuda)
     B, S, H, D = q.shape
@@ -259,6 +265,11 @@ def test_cuda_flash_attention_matches_plain_version(mode, cuda):
     got = flash_ops.flash_attention_bhsd(bhsd(q), bhsd(k), bhsd(v), **kw)
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= GPU_TOL, mode
+    wide = [torch.nn.functional.pad(t, (0, 1))[..., :D] for t in (q, k, v)]
+    got = flash_ops.flash_attention(*wide, **kw)
+    torch.cuda.synchronize()
+    err = (got.movedim(2, 1).reshape(B * H, S, D) - want).abs().max().item()
+    assert err <= GPU_TOL, (mode, "rows D + 1 apart", err)
 
 
 @pytest.mark.gpu

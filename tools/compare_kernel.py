@@ -1,0 +1,63 @@
+#!/usr/bin/env python3
+"""Time one kernel's main-path case of chip_smoke.py in several checkouts,
+in turns, on one card.
+
+    python3 tools/compare_kernel.py flash_attention PARENT . . PARENT
+
+``flash_attention`` names a row of chip_smoke.py's ``KERNELS``; each
+further argument is the root of a checkout (for example the parent commit
+unpacked with ``git archive`` into a directory that .gitignore lists).
+Each checkout runs in a process of its own, in the order given: it builds
+its own kernels, checks the kernel against its plain version on the
+"main" case, and times the kernel and the library call (where the case
+has one) with chip_smoke.py's CUDA-event timer. Prints the card's name and
+power limit, then one JSON line per checkout.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+
+def run_one(kernel: str, tree: str) -> None:
+    root = Path(tree).resolve()
+    sys.path[:0] = [str(root / "src"), str(root)]
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import build
+    if not torch.cuda.is_available():
+        raise SystemExit("compare_kernel: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build_all()
+    (make_cases,) = [k[3] for k in cs.KERNELS if k[0] == kernel]
+    case = next(c for c in make_cases(torch, torch.device("cuda"))
+                if c["name"] == "main")
+    got = case["kernel"]()
+    torch.cuda.synchronize()
+    err, _ = cs._max_err(got, case["plain"]())
+    ms = cs._time_ms(torch, case["kernel"])
+    lib = cs._time_ms(torch, case["library"]) if case["library"] else None
+    print(json.dumps(dict(tree=tree, kernel=kernel, ms=ms, library_ms=lib,
+                          max_abs_err=err)), flush=True)
+
+
+def main() -> int:
+    if sys.argv[1] == "--one":
+        run_one(sys.argv[2], sys.argv[3])
+        return 0
+    kernel, trees = sys.argv[1], sys.argv[2:]
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip(), flush=True)
+    for tree in trees:
+        subprocess.run([sys.executable, __file__, "--one", kernel, tree],
+                       check=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
