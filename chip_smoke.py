@@ -156,7 +156,8 @@ def _case(name, desc, kernel, plain, nbytes, flops, library=None,
     another main-path shape too. ``scaled`` holds the error relative to
     max(1, max |plain|) against SSD_TOL instead of KERNEL_TOL. ``report``
     logs more about a timed case: called with (torch, case, kernel ms,
-    library ms)."""
+    plain ms, library ms). ``check`` raises if the output is wrong, and may
+    return what it checked, for the log."""
     return dict(name=name, desc=desc, kernel=kernel, plain=plain,
                 library=library, nbytes=nbytes, flops=flops, check=check,
                 timed=timed or name == "main", scaled=scaled, report=report)
@@ -167,11 +168,16 @@ def _idle_slot_is_zero(out):
         raise AssertionError("the idle slot's output is not exactly 0")
 
 
-def _paged_case(name, op, ref, args, kw, nbytes, flops):
+def _paged_case(name, op, ref, args, kw, nbytes, flops, check=None,
+                report=None, ps=16):
     shape = "x".join(map(str, args[0].shape))
-    return _case(name, f"q {shape} {kw}", lambda: op(*args, **kw),
-                 lambda: ref(*args, **kw), nbytes, flops,
-                 check=_idle_slot_is_zero if name == "ragged_idle" else None)
+    if check is None and name == "ragged_idle":
+        check = _idle_slot_is_zero
+    c = _case(name, f"q {shape}, ps {ps} {kw}", lambda: op(*args, **kw),
+              lambda: ref(*args, **kw), nbytes, flops, check=check,
+              report=report)
+    c.update(args=args, kw=kw)
+    return c
 
 
 def decode_cases(torch, dev):
@@ -213,30 +219,49 @@ def decode_cases(torch, dev):
 def prefill_cases(torch, dev):
     """Paged prefill, one case per launch mode. "main" is the main path's
     packed chunk: 8 slots x 16 rows of the full tier at ragged resident
-    contexts."""
+    contexts. The kernel splits each slot's walk into splits of 128 keys
+    and takes 16, 32 or 64 rows a block; the modes after the first six are
+    what that design makes distinct: ps = 8 with chunks across split
+    boundaries, 32-row blocks (G = 2), a 64-row block with 16 rows of
+    padding (G = 3), head_dim 256 in 64-row blocks (16-key tiles), and
+    head_dim 18 (4-byte copies). "main" also checks that its output is
+    bit-identical under the pages it needs and under the full table
+    width, and for each slot launched alone."""
     import numpy as np
     from repro_torch.kernels.paged_prefill_attention import ops
     rng = np.random.default_rng(2)
-    MP, ps, C = MAX_SEQ // 16, 16, 16
+    C = 16
     full = lambda n: np.full(8, n, np.int32)
-    spec = {  # name: (K, G, D, start, n_new, pages_start, window)
-        "main": (40, 1, 128, 16 * rng.integers(0, 31, 8), full(16), 0, 0),
-        "gqa": (8, 8, 128, 16 * rng.integers(0, 31, 8), full(16), 0, 0),
-        "ragged_idle": (40, 1, 128, np.r_[rng.integers(1, 900, 7), 0],
+    spec = {  # name: (K, G, D, ps, start, n_new, pages_start, window)
+        "main": (40, 1, 128, 16, 16 * rng.integers(0, 31, 8), full(16), 0,
+                 0),
+        "gqa": (8, 8, 128, 16, 16 * rng.integers(0, 31, 8), full(16), 0, 0),
+        "ragged_idle": (40, 1, 128, 16, np.r_[rng.integers(1, 900, 7), 0],
                         np.r_[rng.integers(1, 17, 7), 0], 0, 0),
-        "bound_lt_table": (40, 1, 128, rng.integers(0, 100, 8), full(16), 0,
-                           0),
-        "start_mid_n_new_lt_c": (40, 1, 128, rng.integers(1, 1000, 8),
+        "bound_lt_table": (40, 1, 128, 16, rng.integers(0, 100, 8),
+                           full(16), 0, 0),
+        "start_mid_n_new_lt_c": (40, 1, 128, 16, rng.integers(1, 1000, 8),
                                  rng.integers(1, 16, 8), 0, 0),
-        "window_late_start": (8, 4, 128, rng.integers(330, 1000, 8),
+        "window_late_start": (8, 4, 128, 16, rng.integers(330, 1000, 8),
                               rng.integers(1, 17, 8), 4, 256),
+        "page8_split_edge": (40, 1, 128, 8, np.array([113, 120, 127, 128,
+                                                      250, 255, 380, 0]),
+                             np.r_[full(16)[:7], 0], 0, 0),
+        "rows_32": (8, 2, 128, 16, rng.integers(0, 900, 8), full(16), 0, 0),
+        "rows_pad_64": (8, 3, 128, 16, rng.integers(0, 900, 8), full(16), 0,
+                        0),
+        "head_dim_256": (8, 4, 256, 16, rng.integers(0, 900, 8), full(16),
+                         0, 0),
+        "head_dim_18": (8, 1, 18, 16, rng.integers(0, 900, 8), full(16), 0,
+                        0),
     }
     out = []
-    for name, (K, G, D, start, n_new, pstart, window) in spec.items():
+    for name, (K, G, D, ps, start, n_new, pstart, window) in spec.items():
         start = np.asarray(start, np.int32)
         n_new = np.asarray(n_new, np.int32)
         total = start + n_new
         B = len(start)
+        MP = MAX_SEQ // ps
         kp, vp, pt = _pool(torch, rng, K, D, ps, MP, total, dev)
         g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
         q = torch.randn((B, K, C, G, D), generator=g, device=dev) * D ** -0.5
@@ -250,12 +275,50 @@ def prefill_cases(torch, dev):
         nbytes = 4 * (2 * q.numel() + 2 * int(keys.sum()) * K * D
                       + pt.numel() + 2 * B)
         flops = 4 * int(sum(vis)) * K * G * D
+        args = (q, kp, vp, pt, torch.tensor(start, device=dev),
+                torch.tensor(total, device=dev))
+        main = name == "main"
         out.append(_paged_case(
             name, ops.paged_prefill_attention_gqa,
-            ops.paged_prefill_attention_ref,
-            (q, kp, vp, pt, torch.tensor(start, device=dev),
-             torch.tensor(total, device=dev)), kw, nbytes, flops))
+            ops.paged_prefill_attention_ref, args, kw, nbytes, flops,
+            check=_prefill_bitwise(torch, ops, args, kw) if main else
+            _idle_slot_is_zero if name == "page8_split_edge" else None,
+            report=_prefill_standing if main else None, ps=ps))
     return out
+
+
+def _prefill_bitwise(torch, ops, args, kw):
+    """The check of paged prefill's main case: the output is bit-identical
+    under pages_bound = the pages the slots need and = the table width,
+    and each slot launched alone (at its own live bound) gives the bits it
+    gets packed with the other 7."""
+    def check(got):
+        q, kp, vp, pt, start, total = args
+        ps, MP = kp.shape[1], pt.shape[1]
+        op = ops.paged_prefill_attention_gqa
+        need = lambda t: max(1, -(-int(t.max().item()) // ps))
+        for bound in (need(total), MP):
+            if not torch.equal(op(*args, **dict(kw, pages_bound=bound)), got):
+                raise AssertionError(f"pages_bound={bound} changes the bits "
+                                     f"of pages_bound={kw['pages_bound']}")
+        for b in range(q.shape[0]):
+            one = [t[b:b + 1] for t in (q, kp, vp, pt, start, total)]
+            one[1], one[2] = kp, vp
+            alone = op(*one, **dict(kw, pages_bound=need(total[b:b + 1])))
+            if not torch.equal(alone[0], got[b]):
+                raise AssertionError(f"slot {b} alone differs from packed")
+        return (f"bit-identical under pages_bound {need(total)} and {MP}, "
+                f"and for each of {q.shape[0]} slots alone")
+    return check
+
+
+def _prefill_standing(torch, c, ms, plain_ms, library_ms):
+    """Paged prefill's standing at the main shape: its time as a share of
+    its bytes bound and against its plain version."""
+    bound_ms, by = _bound(c["nbytes"], c["flops"])
+    log(f"[kernels] paged_prefill_attention[main] {bound_ms / ms:.3f} of the "
+        f"{by} bound ({bound_ms:.4f} ms), {ms / plain_ms:.3f}x its plain "
+        f"version's time ({plain_ms:.4f} ms)")
 
 
 def flash_cases(torch, dev):
@@ -324,7 +387,7 @@ def flash_cases(torch, dev):
     return out
 
 
-def _flash_standing(torch, c, ms, library_ms):
+def _flash_standing(torch, c, ms, plain_ms, library_ms):
     """Flash attention's standing at the main shape: its time as a share of
     the fp32 bound, against SDPA's, and the floor of its 3xTF32 route (three
     TF32 products per fp32 product at the tensor cores' peak). Names the
@@ -543,9 +606,9 @@ def kernel_phase(torch):
                                      f"{err} > {tol} (finite: {finite})")
             note = ""
             if c["check"] is not None:
-                c["check"](got)
-                note = ("; dt = 0 row's state exactly 0" if c["scaled"]
-                        else "; idle slot exactly 0")
+                note = "; " + (c["check"](got) or (
+                    "dt = 0 row's state exactly 0" if c["scaled"]
+                    else "idle slot exactly 0"))
             log(f"[kernels] {kname}[{c['name']}] {c['desc']}: max abs err "
                 f"{err:.3g} <= {tol:.3g}{note}")
             if not c["timed"]:
@@ -566,7 +629,7 @@ def kernel_phase(torch):
                 f"{plain_ms:.4f} ms{lib}, bound {bound_ms:.4f} ms "
                 f"({bound_by}: {c['nbytes']} B, {c['flops']} flop)")
             if c["report"] is not None:
-                c["report"](torch, c, ms, row["library_ms"])
+                c["report"](torch, c, ms, plain_ms, row["library_ms"])
         row["max_abs_err"] = worst
         rows.append(row)
     return rows

@@ -69,8 +69,13 @@
 #include <stdint.h>
 
 #include "mma_tf32x3.cuh"
+#include "smem_copy.cuh"
 
 namespace {
+
+using tilecopy::cp_async16;
+using tilecopy::cp_async4;
+using tilecopy::ldsm_x4;
 
 constexpr float kNegInf = -1e30f;
 constexpr int kWarps = 8;
@@ -104,22 +109,6 @@ __host__ __device__ inline int vt_rows(int D) {
 __host__ __device__ inline size_t smem_floats(int D, int BK) {
   return (size_t)(kBQ + 4 * BK) * row_stride(D) +
          (size_t)2 * vt_rows(D) * vt_stride(BK);
-}
-
-// Asynchronous copies of 16 or 4 bytes into shared memory; where `in` is
-// false the destination is zero-filled and nothing is read.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool in) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
-               "l"(src), "r"(in ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool in) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d),
-               "l"(src), "r"(in ? 4 : 0));
 }
 
 // Copy four floats of row `row` at column c of a (S, D) slab at row stride
@@ -227,18 +216,6 @@ struct KVTile {
     }
   }
 };
-
-// Four 8x8 matrices of 16-bit elements from shared memory: lane i gives
-// the address of row i % 8 of matrix i / 8. On fp32 data a row is 4 floats
-// and lane 4 g + t receives float t of row g of each matrix: the TF32
-// fragment layout.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const float* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
-               "[%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
 
 template <int DT, bool VEC>
 __global__ void __launch_bounds__(kThreads)

@@ -3,6 +3,7 @@ its error check."""
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -38,28 +39,43 @@ def check_inputs(name: str, floats: dict, ints: dict, *, strided=(),
     return dev
 
 
+# C entries already bound, with their argument types: binding costs more
+# host time per call than the rest of the call
+_entries: dict = {}
+
+
 def launch(name: str, entry: str, *args) -> None:
     """Call the C entry ``entry`` of ``csrc/<name>.cu`` on the current
     stream: tensors pass as device pointers, ints as C ints, and the
     stream last. Raises if the launch reports a CUDA error."""
-    fn = getattr(build.load(name), entry)
-    cargs, types = [], []
-    for a in args:
-        if isinstance(a, torch.Tensor):
-            cargs.append(ctypes.c_void_p(a.data_ptr()))
-            types.append(ctypes.c_void_p)
-        else:
-            cargs.append(ctypes.c_int(int(a)))
-            types.append(ctypes.c_int)
-    stream = torch.cuda.current_stream().cuda_stream
-    fn.argtypes = types + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(*cargs, ctypes.c_void_p(stream))
+    fn = _entries.get((name, entry))
+    if fn is None:
+        fn = getattr(build.load(name), entry)
+        fn.argtypes = [ctypes.c_void_p if isinstance(a, torch.Tensor)
+                       else ctypes.c_int for a in args] + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _entries[name, entry] = fn
+    err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else int(a)
+               for a in args], torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{entry}: CUDA error {err} at launch")
 
 
+@functools.lru_cache(maxsize=4096)
+def query(name: str, entry: str, *args: int) -> int:
+    """What a kernel's source says a launch needs, such as bytes of shared
+    memory or workspace: the host-side C entry ``entry`` of
+    ``csrc/<name>.cu``, which takes ints and returns a long long. Cached
+    by its arguments (call ``query.cache_clear()`` after swapping the
+    library)."""
+    fn = getattr(build.load(name), entry)
+    fn.argtypes = [ctypes.c_int] * len(args)
+    fn.restype = ctypes.c_longlong
+    return int(fn(*args))
+
+
 def smem_bytes(rows: int, D: int, ps: int) -> int:
-    """Dynamic shared memory of one paged-attention block
-    (``paged::smem_floats`` in csrc/paged_attention.cuh)."""
+    """Dynamic shared memory of one paged decode block
+    (``paged::smem_floats`` in csrc/paged_attention.cuh, the page walk of
+    csrc/paged_decode_attention.cu)."""
     return 4 * (2 * rows * D + 2 * ps * D + rows * ps + 3 * rows)

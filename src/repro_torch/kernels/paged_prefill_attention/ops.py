@@ -3,17 +3,18 @@
 The tensor's device decides the path: CPU tensors take the plain version
 (``ref.py``); CUDA tensors launch the hand-written kernel
 ``csrc/paged_prefill_attention.cu`` or raise. There is no fallback between
-the two. ``paged_prefill_attention_gqa.launches`` counts kernel launches.
+the two. ``paged_prefill_attention_gqa.launches`` counts wrapper calls
+that launched the kernel.
 """
 from __future__ import annotations
 
 import torch
 
-from ..common import MAX_SMEM_BYTES, check_inputs, launch, smem_bytes
+from ..common import MAX_SMEM_BYTES, check_inputs, launch, query
 from .ref import paged_prefill_attention_ref
 
-ROW_BLOCK = 16   # chunk rows per block (paged::kRowBlock)
 MAX_HEAD_DIM = 256
+NAME = "paged_prefill_attention"
 
 
 def paged_prefill_attention_gqa(q, k_pages, v_pages, page_table, start,
@@ -43,19 +44,27 @@ def paged_prefill_attention_gqa(q, k_pages, v_pages, page_table, start,
         return paged_prefill_attention_ref(q, k_pages, v_pages, page_table,
                                            start, total, pages_bound,
                                            pages_start, window)
-    check_inputs("paged_prefill_attention",
+    check_inputs(NAME,
                  {"q": q, "k_pages": k_pages, "v_pages": v_pages},
                  {"page_table": page_table, "start": start, "total": total})
     if D > MAX_HEAD_DIM:
         raise ValueError(f"head_dim {D} > {MAX_HEAD_DIM}: not supported")
-    if smem_bytes(min(C * G, ROW_BLOCK), D, ps) > MAX_SMEM_BYTES:
-        raise ValueError(f"page size {ps} at head_dim {D} needs more shared "
+    # the kernel's geometry lives in its source, which says what a launch
+    # needs
+    if query(NAME, "paged_prefill_smem_bytes", C, G, D) > MAX_SMEM_BYTES:
+        raise ValueError(f"{C * G} rows at head_dim {D} need more shared "
                          "memory than a block has")
     out = torch.empty_like(q)
     if B:
-        launch("paged_prefill_attention", "paged_prefill_attention_f32",
-               q, k_pages, v_pages, page_table, start, total, out,
-               B, K, C, G, D, ps, MP, pages_start, end, window)
+        # each split's partial (m, l, accumulator) and the counts of
+        # finished splits, where a walk spans more than one split: carved
+        # and zeroed by the launch, on its stream
+        n = query(NAME, "paged_prefill_workspace_bytes", B, K, C, G, D, ps,
+                  pages_start, end)
+        ws = torch.empty(n, dtype=torch.uint8, device=q.device) if n else out
+        launch(NAME, "paged_prefill_attention_f32", q, k_pages, v_pages,
+               page_table, start, total, out, ws, B, K, C, G, D, ps, MP,
+               pages_start, end, window)
         paged_prefill_attention_gqa.launches += 1
     return out
 

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import common
 from repro_torch.kernels.decode_attention import ops as dense_dec_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.paged_decode_attention import ops as dec_ops
@@ -39,7 +40,22 @@ PREFILL_MODES = {
     "gqa": (2, 2, 4, 8, 16, 8, 3, None, 0, 0),
     "head_dim_24": (3, 2, 5, 1, 24, 16, 3, None, 0, 0),
     "window_late_start": (3, 2, 4, 2, 16, 8, 6, 5, 1, 8),
+    # what the split page walk makes distinct (splits of 128 keys): G = 1
+    # over several splits, ragged, the last slot idle; ps = 8 with chunks
+    # across the first split boundary (PREFILL_TOTALS); a window that
+    # crosses split boundaries; C * G > 16 in 32-row blocks (4-byte copies
+    # at head_dim 18) and in a 64-row block with 28 rows of padding;
+    # head_dim 256 with 64 rows (16-key tiles)
+    "split_walk": (8, 2, 4, 1, 32, 16, 24, None, 0, 0),
+    "page8_split_edge": (4, 2, 4, 1, 16, 8, 20, 18, 0, 0),
+    "window_splits": (3, 2, 4, 2, 16, 8, 40, None, 3, 40),
+    "rows_past_16": (3, 2, 5, 4, 18, 8, 12, None, 0, 0),
+    "rows_64": (3, 1, 6, 6, 40, 16, 12, 9, 0, 0),
+    "head_dim_256": (2, 1, 8, 8, 256, 16, 12, None, 0, 0),
 }
+# modes whose totals are set, not drawn: chunks that end just past the
+# first split boundary (key 128)
+PREFILL_TOTALS = {"page8_split_edge": [130, 128, 129, 0]}
 
 # Dense-cache kernels, covering the launch modes of
 # repro/analysis/pallas_check.py::_probe_flash and ::_probe_decode: causal,
@@ -199,6 +215,8 @@ def prefill_case(name, seed=0):
     # start: start - window + 1 >= pages_start * ps
     lo = pstart * ps + window + C if window else C
     total = rng.integers(lo, hi + 1, (B,)).astype(np.int32)
+    if name in PREFILL_TOTALS:
+        total = np.asarray(PREFILL_TOTALS[name], np.int32)
     n_new = rng.integers(1, C, (B,)).astype(np.int32)         # < C
     start = (total - n_new).astype(np.int32)
     if not window:
@@ -241,6 +259,93 @@ def test_cuda_kernels_match_plain_versions(mode, cuda):
         assert err <= GPU_TOL, (mode, op.__name__, err)
         if not kw["window"]:
             assert not got[-1].any(), "an idle slot must give exactly 0"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", sorted(set(PREFILL_MODES) - set(DECODE_MODES)))
+def test_cuda_prefill_split_modes_match_plain_version(mode, cuda):
+    """The paged prefill kernel's launch modes that decode has no
+    counterpart of (the split walk's), against the plain version."""
+    args, kw = prefill_case(mode)
+    dev = to_torch(args, cuda)
+    op = pre_ops.paged_prefill_attention_gqa
+    n0 = op.launches
+    got = op(*dev, **kw)
+    torch.cuda.synchronize()
+    assert op.launches == n0 + 1
+    err = (got - pre_ops.paged_prefill_attention_ref(*dev, **kw)).abs() \
+        .max().item()
+    assert err <= GPU_TOL, (mode, err)
+    if not kw["window"]:
+        assert not got[-1].any(), "an idle slot must give exactly 0"
+
+
+def _needed_pages(total, ps):
+    return max(1, -(-int(total.max()) // ps))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["split_walk", "page8_split_edge",
+                                  "window_splits", "rows_64"])
+def test_cuda_prefill_live_walk_is_bitwise_static_walk(mode, cuda):
+    """The same inputs under pages_bound = the pages needed and under the
+    full table width give bit-identical outputs: a block's work depends on
+    its slot's own start and total, not on the grid."""
+    args, kw = prefill_case(mode)
+    q, kp, vp, pt, start, total = to_torch(args, cuda)
+    op = pre_ops.paged_prefill_attention_gqa
+    live = op(q, kp, vp, pt, start, total, pages_start=kw["pages_start"],
+              window=kw["window"],
+              pages_bound=_needed_pages(args[5], kp.shape[1]))
+    full = op(q, kp, vp, pt, start, total, pages_start=kw["pages_start"],
+              window=kw["window"], pages_bound=None)
+    torch.cuda.synchronize()
+    assert torch.equal(live, full), mode
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["split_walk", "rows_64"])
+def test_cuda_prefill_slot_alone_is_bitwise_packed(mode, cuda):
+    """Each slot launched alone, at its own live bound, gives the bits it
+    gets in the packed launch of every slot (8 in split_walk)."""
+    args, kw = prefill_case(mode)
+    q, kp, vp, pt, start, total = to_torch(args, cuda)
+    op = pre_ops.paged_prefill_attention_gqa
+    packed = op(q, kp, vp, pt, start, total, **kw)
+    ps = kp.shape[1]
+    for b in range(q.shape[0]):
+        own = dict(kw, pages_bound=max(kw["pages_start"] + 1, _needed_pages(
+            args[5][b:b + 1], ps)))
+        alone = op(q[b:b + 1], kp, vp, pt[b:b + 1], start[b:b + 1],
+                   total[b:b + 1], **own)
+        torch.cuda.synchronize()
+        assert torch.equal(alone[0], packed[b]), (mode, b)
+
+
+@pytest.mark.gpu
+def test_cuda_prefill_launch_zeroes_its_split_counts(cuda):
+    """The paged prefill launch zeroes its counts of finished splits
+    itself: over a workspace whose every byte is 0xff (every count
+    non-zero), the kernel still merges every row block's splits and
+    matches the plain version."""
+    args, kw = prefill_case("split_walk")
+    q, kp, vp, pt, start, total = to_torch(args, cuda)
+    B, K, C, G, D = q.shape
+    ps, MP = kp.shape[1], pt.shape[1]
+    end = MP if kw["pages_bound"] is None else kw["pages_bound"]
+    name = pre_ops.NAME
+    n = common.query(name, "paged_prefill_workspace_bytes", B, K, C, G, D,
+                     ps, kw["pages_start"], end)
+    assert n > 0, "the case must span more than one split"
+    ws = torch.full((n,), 0xFF, dtype=torch.uint8, device=q.device)
+    out = torch.full_like(q, float("nan"))
+    common.launch(name, "paged_prefill_attention_f32", q, kp, vp, pt, start,
+                  total, out, ws, B, K, C, G, D, ps, MP, kw["pages_start"],
+                  end, kw["window"])
+    torch.cuda.synchronize()
+    want = pre_ops.paged_prefill_attention_ref(q, kp, vp, pt, start, total,
+                                               **kw)
+    assert (out - want).abs().max().item() <= GPU_TOL
 
 
 @pytest.mark.gpu

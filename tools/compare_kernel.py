@@ -9,8 +9,9 @@ further argument is the root of a checkout (for example the parent commit
 unpacked with ``git archive`` into a directory that .gitignore lists).
 Each checkout runs in a process of its own, in the order given: it builds
 its own kernels, checks the kernel against its plain version on the
-"main" case, and times the kernel and the library call (where the case
-has one) with chip_smoke.py's CUDA-event timer. Prints the card's name and
+"main" case, and times the kernel, its plain version and the library call
+(where the case has one) with chip_smoke.py's CUDA-event timer, so that a
+kernel without a library call still has a yardstick measured beside it. Prints the card's name and
 power limit, then one JSON line per checkout.
 """
 from __future__ import annotations
@@ -39,9 +40,10 @@ def run_one(kernel: str, tree: str) -> None:
     torch.cuda.synchronize()
     err, _ = cs._max_err(got, case["plain"]())
     ms = cs._time_ms(torch, case["kernel"])
+    plain_ms = cs._time_ms(torch, case["plain"])
     lib = cs._time_ms(torch, case["library"]) if case["library"] else None
-    print(json.dumps(dict(tree=tree, kernel=kernel, ms=ms, library_ms=lib,
-                          max_abs_err=err)), flush=True)
+    print(json.dumps(dict(tree=tree, kernel=kernel, ms=ms, plain_ms=plain_ms,
+                          library_ms=lib, max_abs_err=err)), flush=True)
 
 
 def main() -> int:
