@@ -11,9 +11,11 @@ and prints no result line):
 3. The five kernels (paged decode and prefill, flash prefill, dense
    decode, SSD chunk scan) against their plain PyTorch versions on the
    card, one case per launch mode, at the main paths' shapes and beside
-   them; the kernel's time (CUDA events around back-to-back launches), the
-   plain version's, one library call's where PyTorch has one (SDPA), and
-   the least time the card could take for the same work.
+   them (the paged kernels' main cases also bit for bit under two page
+   walk bounds and slot by slot); the kernel's time (CUDA events around
+   back-to-back launches), the plain version's, one library call's where
+   PyTorch has one (SDPA), and the least time the card could take for the
+   same work.
 4. The routed pool at full width: a router at DeBERTa-v3-large's widths
    scores 16 prompts, a ThresholdPolicy splits them between two
    qwen1.5-32b tiers ("half": the reference's scaled_sibling(., 2) at 2
@@ -182,37 +184,56 @@ def _paged_case(name, op, ref, args, kw, nbytes, flops, check=None,
 
 def decode_cases(torch, dev):
     """Paged decode, one case per launch mode. "main" is the main path's
-    decode: 8 slots of the full tier, ragged contexts."""
+    decode: 8 slots of the full tier, ragged contexts. The kernel splits
+    each slot's walk into splits of 128 keys and takes up to 8 rows of a
+    kv head's group a block (4 at head_dim 256); the modes after the first
+    five are what that design makes distinct: ps = 8 with lengths at the
+    split edges and an idle slot, a window across split boundaries, G = 12
+    in two row blocks of 8, head_dim 256 at G = 2 (gemma3-4b's heads) and
+    head_dim 98 (4-byte loads, a padding row). "main" also checks that its
+    output is bit-identical under the pages it needs and under the full
+    table width, and for each slot launched alone."""
     import numpy as np
     from repro_torch.kernels.paged_decode_attention import ops
     rng = np.random.default_rng(1)
-    MP, ps = MAX_SEQ // 16, 16
-    spec = {  # name: (K, G, D, lens, pages_start, window)
-        "main": (40, 1, 128, rng.integers(33, 545, 8), 0, 0),
-        "gqa": (8, 8, 128, rng.integers(33, 545, 8), 0, 0),
-        "ragged_idle": (40, 1, 128, np.r_[rng.integers(1, 1000, 7), 0], 0,
-                        0),
-        "bound_lt_table": (40, 1, 128, rng.integers(1, 129, 8), 0, 0),
-        "window_late_start": (8, 4, 128, rng.integers(320, 1025, 8), 4, 256),
+    spec = {  # name: (K, G, D, ps, lens, pages_start, window)
+        "main": (40, 1, 128, 16, rng.integers(33, 545, 8), 0, 0),
+        "gqa": (8, 8, 128, 16, rng.integers(33, 545, 8), 0, 0),
+        "ragged_idle": (40, 1, 128, 16, np.r_[rng.integers(1, 1000, 7), 0],
+                        0, 0),
+        "bound_lt_table": (40, 1, 128, 16, rng.integers(1, 129, 8), 0, 0),
+        "window_late_start": (8, 4, 128, 16, rng.integers(320, 1025, 8), 4,
+                              256),
+        "page8_split_edges": (40, 1, 128, 8, np.array([127, 128, 129, 255,
+                                                       256, 257, 384, 0]),
+                              0, 0),
+        "window_splits": (8, 2, 128, 16, rng.integers(300, 1025, 8), 2, 200),
+        "rows_past_8": (4, 12, 128, 16, rng.integers(33, 545, 8), 0, 0),
+        "head_dim_256": (4, 2, 256, 16, rng.integers(33, 545, 8), 0, 0),
+        "head_dim_98": (8, 3, 98, 16, rng.integers(33, 545, 8), 0, 0),
     }
     out = []
-    for name, (K, G, D, lens, pstart, window) in spec.items():
+    for name, (K, G, D, ps, lens, pstart, window) in spec.items():
         lens = np.asarray(lens, np.int32)
-        B = len(lens)
+        B, MP = len(lens), MAX_SEQ // ps
         kp, vp, pt = _pool(torch, rng, K, D, ps, MP, lens, dev)
         g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
         q = torch.randn((B, K, G, D), generator=g, device=dev) * D ** -0.5
-        bound = min(_bucket(-(-int(lens.max()) // ps)), MP)
+        bound = min(_bucket(max(-(-int(lens.max()) // ps), 1)), MP)
         kw = dict(pages_bound=bound, pages_start=pstart, window=window)
         keys = np.minimum(lens, window) if window else lens
         nbytes = 4 * (2 * q.numel() + 2 * int(keys.sum()) * K * D
                       + pt.numel() + B)
         flops = 4 * int(keys.sum()) * K * G * D
+        args = (q, kp, vp, pt, torch.tensor(lens, device=dev))
+        op = ops.paged_decode_attention_gqa
+        main = name == "main"
         out.append(_paged_case(
-            name, ops.paged_decode_attention_gqa,
-            ops.paged_decode_attention_ref,
-            (q, kp, vp, pt, torch.tensor(lens, device=dev)), kw, nbytes,
-            flops))
+            name, op, ops.paged_decode_attention_ref, args, kw, nbytes, flops,
+            check=_walk_bitwise(torch, op, args, kw) if main else
+            _idle_slot_is_zero if name == "page8_split_edges" else None,
+            report=_paged_standing("paged_decode_attention") if main
+            else None, ps=ps))
     return out
 
 
@@ -281,44 +302,48 @@ def prefill_cases(torch, dev):
         out.append(_paged_case(
             name, ops.paged_prefill_attention_gqa,
             ops.paged_prefill_attention_ref, args, kw, nbytes, flops,
-            check=_prefill_bitwise(torch, ops, args, kw) if main else
+            check=_walk_bitwise(torch, ops.paged_prefill_attention_gqa,
+                                args, kw) if main else
             _idle_slot_is_zero if name == "page8_split_edge" else None,
-            report=_prefill_standing if main else None, ps=ps))
+            report=_paged_standing("paged_prefill_attention") if main
+            else None, ps=ps))
     return out
 
 
-def _prefill_bitwise(torch, ops, args, kw):
-    """The check of paged prefill's main case: the output is bit-identical
-    under pages_bound = the pages the slots need and = the table width,
-    and each slot launched alone (at its own live bound) gives the bits it
-    gets packed with the other 7."""
+def _walk_bitwise(torch, op, args, kw):
+    """The check of a paged kernel's main case (``op`` its wrapper, the
+    last of ``args`` the slots' totals or lengths): the output is
+    bit-identical under pages_bound = the pages the slots need and = the
+    table width, and each slot launched alone (at its own live bound)
+    gives the bits it gets packed with the others."""
     def check(got):
-        q, kp, vp, pt, start, total = args
+        q, kp, vp, pt = args[:4]
         ps, MP = kp.shape[1], pt.shape[1]
-        op = ops.paged_prefill_attention_gqa
         need = lambda t: max(1, -(-int(t.max().item()) // ps))
-        for bound in (need(total), MP):
+        for bound in (need(args[-1]), MP):
             if not torch.equal(op(*args, **dict(kw, pages_bound=bound)), got):
                 raise AssertionError(f"pages_bound={bound} changes the bits "
                                      f"of pages_bound={kw['pages_bound']}")
         for b in range(q.shape[0]):
-            one = [t[b:b + 1] for t in (q, kp, vp, pt, start, total)]
+            one = [t[b:b + 1] for t in args]
             one[1], one[2] = kp, vp
-            alone = op(*one, **dict(kw, pages_bound=need(total[b:b + 1])))
+            alone = op(*one, **dict(kw, pages_bound=need(args[-1][b:b + 1])))
             if not torch.equal(alone[0], got[b]):
                 raise AssertionError(f"slot {b} alone differs from packed")
-        return (f"bit-identical under pages_bound {need(total)} and {MP}, "
+        return (f"bit-identical under pages_bound {need(args[-1])} and {MP}, "
                 f"and for each of {q.shape[0]} slots alone")
     return check
 
 
-def _prefill_standing(torch, c, ms, plain_ms, library_ms):
-    """Paged prefill's standing at the main shape: its time as a share of
+def _paged_standing(kname):
+    """A paged kernel's standing at the main shape: its time as a share of
     its bytes bound and against its plain version."""
-    bound_ms, by = _bound(c["nbytes"], c["flops"])
-    log(f"[kernels] paged_prefill_attention[main] {bound_ms / ms:.3f} of the "
-        f"{by} bound ({bound_ms:.4f} ms), {ms / plain_ms:.3f}x its plain "
-        f"version's time ({plain_ms:.4f} ms)")
+    def report(torch, c, ms, plain_ms, library_ms):
+        bound_ms, by = _bound(c["nbytes"], c["flops"])
+        log(f"[kernels] {kname}[main] {bound_ms / ms:.3f} of the {by} bound "
+            f"({bound_ms:.4f} ms), {ms / plain_ms:.3f}x its plain version's "
+            f"time ({plain_ms:.4f} ms)")
+    return report
 
 
 def flash_cases(torch, dev):

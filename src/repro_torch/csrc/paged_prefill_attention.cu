@@ -26,7 +26,7 @@
 //   of the slot's pages: kSplitKeys keys (8 pages at ps = 16), splits
 //   aligned at multiples of that size from page 0. Each block works out
 //   from the slot's own start/total (and the window) which pages its rows
-//   can see, exactly as the page-walk of paged_attention.cuh does, and
+//   can see (visible_pages, from each row's global position), and
 //   exits at once if its split holds none of them. So what a block computes
 //   depends on the slot's data alone, not on pages_end, B or the grid: the
 //   same slot gives the same bits under any live bound and in any packing.

@@ -73,9 +73,3 @@ def query(name: str, entry: str, *args: int) -> int:
     fn.restype = ctypes.c_longlong
     return int(fn(*args))
 
-
-def smem_bytes(rows: int, D: int, ps: int) -> int:
-    """Dynamic shared memory of one paged decode block
-    (``paged::smem_floats`` in csrc/paged_attention.cuh, the page walk of
-    csrc/paged_decode_attention.cu)."""
-    return 4 * (2 * rows * D + 2 * ps * D + rows * ps + 3 * rows)

@@ -3,17 +3,18 @@
 The tensor's device decides the path: CPU tensors take the plain version
 (``ref.py``); CUDA tensors launch the hand-written kernel
 ``csrc/paged_decode_attention.cu`` or raise. There is no fallback between
-the two. ``paged_decode_attention_gqa.launches`` counts kernel launches.
+the two. ``paged_decode_attention_gqa.launches`` counts wrapper calls
+that launched the kernel.
 """
 from __future__ import annotations
 
 import torch
 
-from ..common import MAX_SMEM_BYTES, check_inputs, launch, smem_bytes
+from ..common import check_inputs, launch, query
 from .ref import paged_decode_attention_ref
 
-ROW_BLOCK = 16   # query rows per block (paged::kRowBlock)
 MAX_HEAD_DIM = 256
+NAME = "paged_decode_attention"
 
 
 def paged_decode_attention_gqa(q, k_pages, v_pages, page_table, seq_lens, *,
@@ -41,19 +42,22 @@ def paged_decode_attention_gqa(q, k_pages, v_pages, page_table, seq_lens, *,
         return paged_decode_attention_ref(q, k_pages, v_pages, page_table,
                                           seq_lens, pages_bound, pages_start,
                                           window)
-    check_inputs("paged_decode_attention",
-                 {"q": q, "k_pages": k_pages, "v_pages": v_pages},
+    check_inputs(NAME, {"q": q, "k_pages": k_pages, "v_pages": v_pages},
                  {"page_table": page_table, "seq_lens": seq_lens})
     if D > MAX_HEAD_DIM:
         raise ValueError(f"head_dim {D} > {MAX_HEAD_DIM}: not supported")
-    if smem_bytes(min(G, ROW_BLOCK), D, ps) > MAX_SMEM_BYTES:
-        raise ValueError(f"page size {ps} at head_dim {D} needs more shared "
-                         "memory than a block has")
     out = torch.empty_like(q)
     if B:
-        launch("paged_decode_attention", "paged_decode_attention_f32",
-               q, k_pages, v_pages, page_table, seq_lens, out,
-               B, K, G, D, ps, MP, pages_start, end, window)
+        # each split's partial (m, l, accumulator) and the counts of
+        # finished splits, where a walk spans more than one split: the
+        # kernel's source says how much (its geometry lives there), and the
+        # launch carves it and zeroes the counts, on its stream
+        n = query(NAME, "paged_decode_workspace_bytes", B, K, G, D, ps,
+                  pages_start, end)
+        ws = torch.empty(n, dtype=torch.uint8, device=q.device) if n else out
+        launch(NAME, "paged_decode_attention_f32", q, k_pages, v_pages,
+               page_table, seq_lens, out, ws, B, K, G, D, ps, MP,
+               pages_start, end, window)
         paged_decode_attention_gqa.launches += 1
     return out
 

@@ -32,7 +32,22 @@ DECODE_MODES = {
     "gqa": (2, 2, 8, 16, 8, 3, None, 0, 0),
     "head_dim_24": (3, 2, 1, 24, 16, 3, None, 0, 0),
     "window_late_start": (3, 2, 2, 16, 8, 6, 5, 1, 8),
+    # what the split page walk makes distinct (splits of 128 keys, up to 8
+    # rows a block): G = 1 over several splits, the last slot idle; ps = 8
+    # with lengths at split edges (DECODE_LENS); a window that crosses split
+    # boundaries (head_dim 50: 4-byte loads, 2 columns a lane); G = 12 in
+    # two row blocks of 8 (the second with 4 rows of padding; head_dim 64:
+    # 8-byte loads); head_dim 256 at G = 2 (gemma3-4b's heads); head_dim 98
+    # (4-byte loads, 4 columns a lane) at G = 3 (a padding row)
+    "split_walk_idle": (8, 2, 1, 32, 16, 24, None, 0, 0),
+    "page8_split_edges": (7, 2, 1, 16, 8, 40, 33, 0, 0),
+    "window_across_splits": (3, 2, 2, 50, 8, 60, None, 3, 200),
+    "rows_past_8": (3, 2, 12, 64, 16, 20, None, 0, 0),
+    "head_dim_256_g2": (3, 2, 2, 256, 16, 20, None, 0, 0),
+    "head_dim_98": (3, 2, 3, 98, 16, 20, 12, 0, 0),
 }
+# decode modes whose lengths are set, not drawn: at the split edges
+DECODE_LENS = {"page8_split_edges": [127, 128, 129, 255, 256, 257, 0]}
 # name -> (B, K, C, G, D, ps, MP, pages_bound, pages_start, window)
 PREFILL_MODES = {
     "full_walk": (3, 2, 4, 1, 32, 8, 4, None, 0, 0),
@@ -195,6 +210,8 @@ def decode_case(name, seed=0):
     hi = (bound or MP) * ps
     lo = pstart * ps + window if window else 1
     lens = rng.integers(lo, hi + 1, (B,)).astype(np.int32)
+    if name in DECODE_LENS:
+        lens = np.asarray(DECODE_LENS[name], np.int32)
     if not window:
         lens[-1] = 0
     q = (rng.standard_normal((B, K, G, D)) * D ** -0.5).astype(np.float32)
@@ -239,7 +256,7 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("mode", sorted(DECODE_MODES))
+@pytest.mark.parametrize("mode", sorted(set(DECODE_MODES) & set(PREFILL_MODES)))
 def test_cuda_kernels_match_plain_versions(mode, cuda):
     """Both CUDA kernels, launched through their wrappers on the card,
     against the plain versions on the same device inputs."""
@@ -282,6 +299,87 @@ def test_cuda_prefill_split_modes_match_plain_version(mode, cuda):
 
 def _needed_pages(total, ps):
     return max(1, -(-int(total.max()) // ps))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", sorted(set(DECODE_MODES) - set(PREFILL_MODES)))
+def test_cuda_decode_split_modes_match_plain_version(mode, cuda):
+    """The paged decode kernel's launch modes that prefill has no
+    counterpart of (the split walk's), against the plain version."""
+    args, kw = decode_case(mode)
+    dev = to_torch(args, cuda)
+    op = dec_ops.paged_decode_attention_gqa
+    n0 = op.launches
+    got = op(*dev, **kw)
+    torch.cuda.synchronize()
+    assert op.launches == n0 + 1
+    err = (got - dec_ops.paged_decode_attention_ref(*dev, **kw)).abs() \
+        .max().item()
+    assert err <= GPU_TOL, (mode, err)
+    if not kw["window"]:
+        assert not got[-1].any(), "an idle slot must give exactly 0"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["split_walk_idle", "page8_split_edges",
+                                  "window_across_splits", "rows_past_8"])
+def test_cuda_decode_live_walk_is_bitwise_static_walk(mode, cuda):
+    """The same inputs under pages_bound = the pages needed and under the
+    full table width give bit-identical outputs: a block's work depends on
+    its slot's own len, not on the grid."""
+    args, kw = decode_case(mode)
+    q, kp, vp, pt, lens = to_torch(args, cuda)
+    op = dec_ops.paged_decode_attention_gqa
+    need = max(kw["pages_start"] + 1, _needed_pages(args[4], kp.shape[1]))
+    live = op(q, kp, vp, pt, lens, pages_start=kw["pages_start"],
+              window=kw["window"], pages_bound=need)
+    full = op(q, kp, vp, pt, lens, pages_start=kw["pages_start"],
+              window=kw["window"], pages_bound=None)
+    torch.cuda.synchronize()
+    assert torch.equal(live, full), mode
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["split_walk_idle", "rows_past_8"])
+def test_cuda_decode_slot_alone_is_bitwise_packed(mode, cuda):
+    """Each slot launched alone, at its own live bound, gives the bits it
+    gets in the packed launch of every slot (8 in split_walk_idle)."""
+    args, kw = decode_case(mode)
+    q, kp, vp, pt, lens = to_torch(args, cuda)
+    op = dec_ops.paged_decode_attention_gqa
+    packed = op(q, kp, vp, pt, lens, **kw)
+    ps = kp.shape[1]
+    for b in range(q.shape[0]):
+        own = dict(kw, pages_bound=max(kw["pages_start"] + 1, _needed_pages(
+            args[4][b:b + 1], ps)))
+        alone = op(q[b:b + 1], kp, vp, pt[b:b + 1], lens[b:b + 1], **own)
+        torch.cuda.synchronize()
+        assert torch.equal(alone[0], packed[b]), (mode, b)
+
+
+@pytest.mark.gpu
+def test_cuda_decode_launch_zeroes_its_split_counts(cuda):
+    """The paged decode launch zeroes its counts of finished splits itself:
+    over a workspace whose every byte is 0xff (every count non-zero), the
+    kernel still merges every row block's splits and matches the plain
+    version."""
+    args, kw = decode_case("split_walk_idle")
+    q, kp, vp, pt, lens = to_torch(args, cuda)
+    B, K, G, D = q.shape
+    ps, MP = kp.shape[1], pt.shape[1]
+    end = MP if kw["pages_bound"] is None else kw["pages_bound"]
+    name = dec_ops.NAME
+    n = common.query(name, "paged_decode_workspace_bytes", B, K, G, D, ps,
+                     kw["pages_start"], end)
+    assert n > 0, "the case must span more than one split"
+    ws = torch.full((n,), 0xFF, dtype=torch.uint8, device=q.device)
+    out = torch.full_like(q, float("nan"))
+    common.launch(name, "paged_decode_attention_f32", q, kp, vp, pt, lens,
+                  out, ws, B, K, G, D, ps, MP, kw["pages_start"], end,
+                  kw["window"])
+    torch.cuda.synchronize()
+    want = dec_ops.paged_decode_attention_ref(q, kp, vp, pt, lens, **kw)
+    assert (out - want).abs().max().item() <= GPU_TOL
 
 
 @pytest.mark.gpu

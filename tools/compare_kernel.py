@@ -11,14 +11,16 @@ Each checkout runs in a process of its own, in the order given: it builds
 its own kernels, checks the kernel against its plain version on the
 "main" case, and times the kernel, its plain version and the library call
 (where the case has one) with chip_smoke.py's CUDA-event timer, so that a
-kernel without a library call still has a yardstick measured beside it. Prints the card's name and
-power limit, then one JSON line per checkout.
+kernel without a library call still has a yardstick measured beside it,
+and the host time of a wrapper call. Prints the card's name and power
+limit, then one JSON line per checkout.
 """
 from __future__ import annotations
 
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 
@@ -42,8 +44,15 @@ def run_one(kernel: str, tree: str) -> None:
     ms = cs._time_ms(torch, case["kernel"])
     plain_ms = cs._time_ms(torch, case["plain"])
     lib = cs._time_ms(torch, case["library"]) if case["library"] else None
+    # host time of a wrapper call, over 200 calls back to back
+    t0 = time.perf_counter()
+    for _ in range(200):
+        case["kernel"]()
+    host_us = (time.perf_counter() - t0) * 1e6 / 200
+    torch.cuda.synchronize()
     print(json.dumps(dict(tree=tree, kernel=kernel, ms=ms, plain_ms=plain_ms,
-                          library_ms=lib, max_abs_err=err)), flush=True)
+                          library_ms=lib, host_us=host_us,
+                          max_abs_err=err)), flush=True)
 
 
 def main() -> int:

@@ -77,7 +77,11 @@ def instances(report: str) -> str:
     return "; ".join(sorted(out))
 
 
-def compile_all(names, out_root: Path) -> dict:
+def compile_all(names, out_root: Path, src=SRC, variants=VARIANTS,
+                report_of=instances) -> dict:
+    """Each variant of ``variants`` named in ``names``, compiled from
+    csrc/``src`` with its -D flags into out_root/<name>/, all at once;
+    logs ``report_of(ptxas report)`` for each."""
     from repro_torch.kernels import build
     nvcc, procs = build._nvcc(), {}
     for name in names:
@@ -85,28 +89,34 @@ def compile_all(names, out_root: Path) -> dict:
         d.mkdir(parents=True, exist_ok=True)
         lib = d / "libvariant.so"
         procs[name] = (subprocess.Popen(
-            [nvcc, *build.NVCC_FLAGS, *VARIANTS[name][0], "-o", str(lib),
-             str(build.CSRC / SRC)],
+            [nvcc, *build.NVCC_FLAGS, *variants[name][0], "-o", str(lib),
+             str(build.CSRC / src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
     libs = {}
     for name, (proc, lib) in procs.items():
         report, _ = proc.communicate()
         if proc.returncode != 0:
-            raise SystemExit(f"prefill_variants: {name} failed:\n{report}")
-        log(f"[build] {name}: {instances(report)}")
+            raise SystemExit(f"{src}: variant {name} failed:\n{report}")
+        log(f"[build] {name}: {report_of(report)}")
         libs[name] = lib
     return libs
 
 
-def measure(torch, cs, ops, build, profile_ssm, name, lib, case, want):
+def measure(torch, cs, ops, build, profile_ssm, name, lib, case, want,
+            kernel="paged_prefill_attention", piece="paged_prefill_kernel",
+            exact=None):
+    """One variant's library loaded in place of the built ``kernel``,
+    checked (where ``exact``, by default its VARIANTS entry says so) and
+    timed; ``piece``: a piece of its device kernels' names."""
     from repro_torch.kernels import common
-    build._libs["paged_prefill_attention"] = ctypes.CDLL(str(lib))
+    exact = VARIANTS[name][1] if exact is None else exact
+    build._libs[kernel] = ctypes.CDLL(str(lib))
     common._entries.clear()
     common.query.cache_clear()
     got = case["kernel"]()
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
-    if VARIANTS[name][1] and not err <= cs.KERNEL_TOL:
+    if exact and not err <= cs.KERNEL_TOL:
         raise AssertionError(f"{name}: max abs err {err}")
     ms = cs._time_ms(torch, case["kernel"])
     n = 50
@@ -119,9 +129,9 @@ def measure(torch, cs, ops, build, profile_ssm, name, lib, case, want):
     _, by_name = profile_ssm._profiled(
         torch, f"../variants/{name}", lambda: [case["kernel"]()
                                                for _ in range(n)])
-    device = sum(v[1] for k, v in by_name.items() if "paged_prefill_kernel" in k) / n
+    device = sum(v[1] for k, v in by_name.items() if piece in k) / n
     return dict(variant=name, ms=ms, host_ms=host_ms, device_ms=device,
-                max_abs_err=err, exact=VARIANTS[name][1])
+                max_abs_err=err, exact=exact)
 
 
 def phase_report(torch, lib, case) -> dict:
@@ -170,6 +180,8 @@ def read_rates(torch, cs, case) -> dict:
 
 
 def _host_us(fn, n=200) -> float:
+    """Host microseconds a call of ``fn``, over ``n`` calls back to
+    back."""
     t0 = time.perf_counter()
     for _ in range(n):
         fn()

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""The paged prefill kernel (K2) on the qwen pool's own calls, in several
-checkouts, in turns, on one CUDA card.
+"""The paged kernels, prefill (K2) and decode (K1), on the qwen pool's own
+calls, in several checkouts, in turns, on one CUDA card.
 
 Run from the root of a checkout:
 
@@ -8,20 +8,22 @@ Run from the root of a checkout:
 
 First one serve of chip_smoke.py phase 4's pool (two qwen1.5-32b tiers,
 16 prompts of 32-512 tokens, 8 slots) records the arguments of every K2
-call (shapes, page table, start, total, live bound) into
-build/replay/calls.pt. Then each further argument, the root of a checkout
-(for example the parent commit unpacked with ``git archive`` into a
-directory that .gitignore lists), runs in a process of its own, in the
-order given: it builds its own kernels and replays the recorded calls on
-random pools and queries of the same shapes (the work depends on the
-shapes and the positions only), each call checked once against the
-plain version; and the same for a few shapes beside the pool's
-(``SHAPES``: its chunk at the half tier's 20 kv heads, and contexts near
-max_seq on a full and a small grid). Times are the kernel's device time
-from torch.profiler, summed over a tier's calls (one replay of the
-serve's sequence) or over 20 calls of a shape, three rounds each. Also
-prints how the recorded calls spread over contexts: the share of slot
-chunks whose keys pass 128, 256 and 512. Prints the card's name and power
+call (shapes, page table, start, total, live bound) and of every K1 call
+(shapes, page table, lengths, live bound) into build/replay/calls.pt.
+Then each further argument, the root of a checkout (for example the
+parent commit unpacked with ``git archive`` into a directory that
+.gitignore lists), runs in a process of its own, in the order given: it
+builds its own kernels and replays the recorded calls on random pools and
+queries of the same shapes (the work depends on the shapes and the
+positions only), each call checked once against the plain version; and
+for K2 the same for a few shapes beside the pool's (``SHAPES``: its chunk
+at the half tier's 20 kv heads, and contexts near max_seq on a full and a
+small grid). Times are the kernel's device time from torch.profiler,
+summed over a tier's calls of one kernel (one replay of the serve's
+sequence: "pool_*" K2, "decode_*" K1) or over 20 calls of a shape, three
+rounds each. Also prints how the recorded calls spread over contexts: the
+share of slot chunks (K2) and of slot rows (K1, idle slots left out)
+whose keys pass 128, 256 and 512. Prints the card's name and power
 limit, then one JSON line per checkout and round. It imports neither JAX
 nor the JAX package.
 """
@@ -49,9 +51,16 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def _spread(keys) -> dict:
+    keys = keys[keys > 0].float()
+    return dict(slots=len(keys), max_keys=int(keys.max()),
+                **{f"keys>{n}": (keys > n).float().mean().item()
+                   for n in (128, 256, 512)})
+
+
 def record() -> None:
-    """One serve of phase 4's pool with the K2 wrapper wrapped: its
-    arguments, on the host, in call order."""
+    """One serve of phase 4's pool with the K2 and K1 wrappers wrapped:
+    their arguments, on the host, in call order."""
     sys.path[:0] = [str(ROOT / "src"), str(ROOT), str(ROOT / "tools")]
     import torch
     import chip_smoke as cs
@@ -60,30 +69,37 @@ def record() -> None:
     from repro_torch.models import attention
     torch.backends.cuda.matmul.allow_tf32 = False
     build.build_all()
-    real, calls = attention.paged_prefill_attention_gqa, []
+    real = dict(prefill=attention.paged_prefill_attention_gqa,
+                decode=attention.paged_decode_attention_gqa)
+    calls = dict(prefill=[], decode=[])
 
-    def wrapped(q, kp, vp, pt, start, total, **kw):
-        calls.append(dict(q=tuple(q.shape), pool=tuple(kp.shape),
-                          pt=pt.cpu(), start=start.cpu(), total=total.cpu(),
-                          kw=kw))
-        return real(q, kp, vp, pt, start, total, **kw)
+    def prefill(q, kp, vp, pt, start, total, **kw):
+        calls["prefill"].append(dict(q=tuple(q.shape), pool=tuple(kp.shape),
+                                     pt=pt.cpu(), start=start.cpu(),
+                                     total=total.cpu(), kw=kw))
+        return real["prefill"](q, kp, vp, pt, start, total, **kw)
+
+    def decode(q, kp, vp, pt, lens, **kw):
+        calls["decode"].append(dict(q=tuple(q.shape), pool=tuple(kp.shape),
+                                    pt=pt.cpu(), lens=lens.cpu(), kw=kw))
+        return real["decode"](q, kp, vp, pt, lens, **kw)
 
     serve = profile_qwen.build_paths(torch, cs)["pool"]
-    attention.paged_prefill_attention_gqa = wrapped
+    attention.paged_prefill_attention_gqa = prefill
+    attention.paged_decode_attention_gqa = decode
     try:
         serve()
     finally:
-        attention.paged_prefill_attention_gqa = real
+        attention.paged_prefill_attention_gqa = real["prefill"]
+        attention.paged_decode_attention_gqa = real["decode"]
     OUT.mkdir(parents=True, exist_ok=True)
     torch.save(calls, CALLS)
-    keys = torch.cat([c["total"] for c in calls])
-    keys = keys[keys > 0].float()
-    spread = {f"keys>{n}": (keys > n).float().mean().item()
-              for n in (128, 256, 512)}
-    log(json.dumps(dict(recorded=len(calls), by_kv_heads={
-        k: sum(c["q"][1] == k for c in calls)
-        for k in sorted({c["q"][1] for c in calls})},
-        slot_chunks=len(keys), max_keys=int(keys.max()), **spread)))
+    for kind, key in (("prefill", "total"), ("decode", "lens")):
+        lst = calls[kind]
+        log(json.dumps(dict(kernel=kind, recorded=len(lst), by_kv_heads={
+            k: sum(c["q"][1] == k for c in lst)
+            for k in sorted({c["q"][1] for c in lst})},
+            **_spread(torch.cat([c[key] for c in lst])))))
 
 
 def _shape_calls(torch):
@@ -114,20 +130,31 @@ def run_one(tree: str) -> None:
     import torch
     import profile_ssm
     from repro_torch.kernels import build
-    from repro_torch.kernels.paged_prefill_attention import ops
+    from repro_torch.kernels.paged_decode_attention import ops as dec
+    from repro_torch.kernels.paged_prefill_attention import ops as pre
     torch.backends.cuda.matmul.allow_tf32 = False
     build.build_all()
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     calls = torch.load(CALLS)
-    groups = {f"pool_{'full' if c['q'][1] == 40 else 'half'}": []
-              for c in calls}
-    for c in calls:
-        groups[f"pool_{'full' if c['q'][1] == 40 else 'half'}"].append(c)
-    groups.update(_shape_calls(torch))
+    tier = lambda c: "full" if c["q"][1] == 40 else "half"
+    # group: (wrapper, plain version, a piece of the kernel's device name,
+    # calls)
+    groups = {}
+    for kind, op, ref, piece, prefix in (
+            ("prefill", pre.paged_prefill_attention_gqa,
+             pre.paged_prefill_attention_ref, "paged_prefill", "pool"),
+            ("decode", dec.paged_decode_attention_gqa,
+             dec.paged_decode_attention_ref, "paged_decode", "decode")):
+        for c in calls[kind]:
+            groups.setdefault(f"{prefix}_{tier(c)}", (op, ref, piece, []))[
+                3].append(c)
+    for name, lst in _shape_calls(torch).items():
+        groups[name] = (pre.paged_prefill_attention_gqa,
+                        pre.paged_prefill_attention_ref, "paged_prefill", lst)
     pools, worst = {}, 0.0
     runs = {}
-    for name, lst in groups.items():
+    for name, (op, ref, piece, lst) in groups.items():
         args = []
         for c in lst:
             if c["pool"] not in pools:
@@ -136,27 +163,25 @@ def run_one(tree: str) -> None:
                                          for _ in range(2))
             kp, vp = pools[c["pool"]]
             q = torch.randn(c["q"], generator=g, device=dev) * c["q"][-1] ** -.5
-            a = (q, kp, vp, c["pt"].to(dev), c["start"].to(dev),
-                 c["total"].to(dev))
+            pos = (c["lens"],) if "lens" in c else (c["start"], c["total"])
+            a = (q, kp, vp, c["pt"].to(dev), *[t.to(dev) for t in pos])
             args.append((a, c["kw"]))
-            err = (ops.paged_prefill_attention_gqa(*a, **c["kw"])
-                   - ops.paged_prefill_attention_ref(*a, **c["kw"])
-                   ).abs().max().item()
+            err = (op(*a, **c["kw"]) - ref(*a, **c["kw"])).abs().max().item()
             worst = max(worst, err)
-        runs[name] = args
+        runs[name] = (op, piece, args)
     if not worst <= 1e-4:
         raise AssertionError(f"{tree}: max abs err {worst}")
     profile_ssm.OUT.mkdir(parents=True, exist_ok=True)
     for rnd in range(3):
         res = {}
-        for name, args in runs.items():
+        for name, (op, piece, args) in runs.items():
             def go():
                 for a, kw in args:
-                    ops.paged_prefill_attention_gqa(*a, **kw)
+                    op(*a, **kw)
             go()
             _, by_name = profile_ssm._profiled(
                 torch, f"replay_{root.name}_{name}", go)
-            ms = sum(t for k, (n, t) in by_name.items() if "paged_prefill" in k)
+            ms = sum(t for k, (n, t) in by_name.items() if piece in k)
             res[name] = dict(calls=len(args), device_ms=ms)
         log(json.dumps(dict(tree=tree, round=rnd, max_abs_err=worst, **res)))
 
