@@ -514,10 +514,15 @@ def ssd_cases(torch, dev):
     64, state 128), "main" (the dense path: 8 prompts x 2 chunks of 256),
     dt = 0 padding (a ragged row and a whole n_new = 0 row, whose state
     must be exactly 0), steep dA (exp(dA_i - dA_j) overflows above the
-    diagonal), the tiny widths (P 16, N 16), and the model-layout entry on
-    the strided views the dense path hands it. The plain version holds the
-    whole (l, l) decay matrix; no single PyTorch call computes the
-    function."""
+    diagonal), the tiny widths (P 16, N 16), the model-layout entry on
+    the strided views the dense path hands it, and what the tensor-core
+    kernel's tiles make distinct: 17 positions (past its 16-row tiles),
+    the widest P and N (128, 256; N 256 at P 64, in 200 KB of shared
+    memory), and 300 positions with 3 heads (past its
+    256-key score strip, recomputed for the second round of heads). "pool"
+    also checks the kernel's exact contracts bit for bit (``_ssd_exact``).
+    The plain version holds the whole (l, l) decay matrix; no single
+    PyTorch call computes the function."""
     from repro_torch.kernels.ssd_scan import ops
     spec = {  # name: (BC, H, l, P, N, layout)
         "l1": (8, 24, 1, 64, 128, "random"),
@@ -528,6 +533,10 @@ def ssd_cases(torch, dev):
         "steep_dA": (4, 4, 256, 16, 16, "steep"),
         "tiny_widths": (4, 4, 8, 16, 16, "random"),
         "model_layout": (16, 24, 256, 64, 128, "model"),
+        "l17_tile_edge": (8, 24, 17, 64, 128, "random"),
+        "p128_n256": (4, 4, 64, 128, 256, "random"),
+        "n256_p64": (2, 3, 70, 64, 256, "random"),
+        "l300_strip_panels": (2, 3, 300, 64, 128, "random"),
     }
     g = torch.Generator(device=dev).manual_seed(6)
     out = []
@@ -572,15 +581,104 @@ def ssd_cases(torch, dev):
             kernel = lambda args=args: ops.ssd_chunk_scan(*args)
             plain = lambda args=args: ops.ssd_chunk_ref(*args)
         check = _state_row_is_zero if layout == "pad" else None
-        out.append(_case(name, f"x {BC}x{H}x{l}x{P}, B/C {BC}x{l}x{N}, "
-                         f"{layout}", kernel, plain, nbytes, flops,
-                         check=check, timed=name == "pool", scaled=True))
+        if name == "pool":
+            check = lambda out: _ssd_exact(torch, ops, dev)
+        # the products' flops on the tensor cores: the scores once per bc,
+        # y and the state per head
+        mma_flops = BC * pairs * 2 * N + BC * H * pairs * 2 * P \
+            + BC * H * l * 2 * N * P
+        c = _case(name, f"x {BC}x{H}x{l}x{P}, B/C {BC}x{l}x{N}, {layout}",
+                  kernel, plain, nbytes, flops, check=check,
+                  timed=name in ("pool", "model_layout"), scaled=True,
+                  report=_ssd_standing)
+        c.update(mma_flops=mma_flops)
+        out.append(c)
     return out
 
 
 def _state_row_is_zero(out):
     if out[1][-1].abs().max().item() != 0.0:
         raise AssertionError("the dt = 0 row's state is not exactly 0")
+
+
+def _device_ms(torch, fn, piece, n=20):
+    """Device time per call of ``fn`` from torch.profiler: the kernels
+    whose name holds ``piece``, over ``n`` calls back to back."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "device_time_total", 0.0) or
+                getattr(e, "cuda_time_total", 0.0)
+                for e in prof.key_averages() if piece in e.key)
+    return total / 1e3 / n
+
+
+def _ssd_standing(torch, c, ms, plain_ms, library_ms):
+    """The SSD kernel's standing at a timed shape: its device time from the
+    profiler (at the pool's chunks the CUDA events around back-to-back
+    calls time the host wrapper), its share of the bound, and the floor of
+    its 3xTF32 route (three TF32 products per fp32 product of the scores,
+    y and the state at the tensor cores' peak)."""
+    bound_ms, by = _bound(c["nbytes"], c["flops"])
+    device_ms = _device_ms(torch, c["kernel"], "ssd_kernel")
+    tc_ms = 1e3 * 3 * c["mma_flops"] / PEAK_TF32_FLOP_PER_S
+    log(f"[kernels] ssd_chunk_scan[{c['name']}] device {device_ms:.4f} ms "
+        f"(events {ms:.4f}): {bound_ms / device_ms:.3f} of the {by} bound "
+        f"({bound_ms:.4f} ms); 3xTF32 tensor-core floor {tc_ms:.4f} ms (3 x "
+        f"{c['mma_flops']} flop at {PEAK_TF32_FLOP_PER_S / 1e12:g} TFLOP/s)")
+
+
+def _ssd_padded(torch, dev, n, l, BC=8, H=24, P=64, N=128):
+    """A packed pool prefill at mamba2-130m's widths in the model layout:
+    xs (BC, 1, l, H, P), dts and dA (BC, 1, l, H), Bs and Cs (BC, 1, l, N).
+    Each row's first n positions are the same for every bucket l >= n;
+    past n, dt = 0 (dA stays put) and x, B and C are drawn afresh for each
+    l, as a packed dispatch pads a chunk."""
+    g = torch.Generator(device=dev).manual_seed(1000 + n)
+    pad = torch.Generator(device=dev).manual_seed(2000 + 100 * n + l)
+    draw = lambda *tail: torch.cat([
+        torch.randn((BC, 1, n) + tail, generator=g, device=dev),
+        torch.randn((BC, 1, l - n) + tail, generator=pad, device=dev)], 2)
+    x, B, C = draw(H, P), draw(N), draw(N)
+    dt = 0.01 + 0.19 * torch.rand((BC, 1, n, H), generator=g, device=dev)
+    A = -0.5 - 1.5 * torch.rand((H,), generator=g, device=dev)
+    dt = torch.cat([dt, torch.zeros((BC, 1, l - n, H), device=dev)], 2)
+    return x, dt, torch.cumsum(dt * A, dim=2), B, C
+
+
+def _ssd_exact(torch, ops, dev):
+    """The SSD kernel's exact contracts, bit for bit, through the entry the
+    model calls, at the pool's widths: each chunk of a packed launch (BC =
+    8) gives the bits it gives alone, at l = 1, 2, 4, 8, 16 and 256; a chunk
+    of n real positions padded with dt = 0 to each l bucket from the next
+    power of two up to 16 gives the same bits in its n rows of y and in its
+    state (n = 1, 2, 3, 5, 7). Raises on the first difference."""
+    for l in (1, 2, 4, 8, 16, 256):
+        args = _ssd_padded(torch, dev, l, l)
+        packed = ops.ssd_chunk(*args)
+        for k in range(args[0].shape[0]):
+            alone = ops.ssd_chunk(*(t[k:k + 1] for t in args))
+            if not all(torch.equal(a[0], p[k]) for a, p in zip(alone,
+                                                               packed)):
+                raise AssertionError(f"ssd: chunk {k} at l = {l} alone "
+                                     "differs from packed")
+    for n in (1, 2, 3, 5, 7):
+        first = None
+        for l in (b for b in (1, 2, 4, 8, 16) if b >= n):
+            y, st = ops.ssd_chunk(*_ssd_padded(torch, dev, n, l))
+            if first is None:
+                first = (l, y[:, :, :n], st)
+            elif not (torch.equal(y[:, :, :n], first[1])
+                      and torch.equal(st, first[2])):
+                raise AssertionError(f"ssd: {n} positions padded to l = {l} "
+                                     f"differ from l = {first[0]}")
+    torch.cuda.synchronize()
+    return ("bit-identical alone and packed (l = 1, 2, 4, 8, 16, 256) and "
+            "across l buckets (n = 1, 2, 3, 5, 7)")
 
 
 KERNELS = (  # name, source, replaces, cases

@@ -4,7 +4,9 @@ The tensor's device decides the path: CPU tensors take the plain versions
 (``ref.py``); CUDA tensors launch the hand-written kernel
 ``csrc/ssd_scan.cu`` or raise. There is no fallback between the two.
 Both entries are one launch, and ``ssd_chunk_scan.launches`` counts the
-launches of both.
+launches of both. The kernel multiplies in 3xTF32 on the tensor cores and
+sums every output in an order fixed by absolute position, so a chunk's
+outputs do not depend on how many chunks share the launch.
 """
 from __future__ import annotations
 
@@ -13,9 +15,9 @@ import torch
 from ..common import check_inputs, launch
 from .ref import ssd_chunk_ref, ssd_chunk_reference
 
-MAX_HEAD_DIM = 128   # P: output columns a block keeps in registers
-MAX_STATE = 256      # N: a block's shared memory then stays under 127 KB
-MAX_GRID_YZ = 65535  # heads and batch*chunks are grid dimensions
+MAX_HEAD_DIM = 128   # P: output columns a warp keeps in registers
+MAX_STATE = 256      # N: a block's shared memory then stays under 200 KB
+MAX_GRID_Y = 65535   # head groups are a grid dimension
 
 
 def _launch(x, dt, da, B, C, y, st, shape, x_s, d_s, b_s, y_s, s_s):
@@ -28,9 +30,9 @@ def _launch(x, dt, da, B, C, y, st, shape, x_s, d_s, b_s, y_s, s_s):
     if not 1 <= P <= MAX_HEAD_DIM or not 1 <= N <= MAX_STATE:
         raise ValueError(f"ssd_chunk_scan: P={P} outside [1, "
                          f"{MAX_HEAD_DIM}] or N={N} outside [1, {MAX_STATE}]")
-    if BC > MAX_GRID_YZ or H > MAX_GRID_YZ:
-        raise ValueError(f"ssd_chunk_scan: {BC} chunks or {H} heads exceed "
-                         f"the grid's {MAX_GRID_YZ}")
+    if H > MAX_GRID_Y:
+        raise ValueError(f"ssd_chunk_scan: {H} heads exceed the grid's "
+                         f"{MAX_GRID_Y}")
     if BC * H * l == 0:
         return
     launch("ssd_scan", "ssd_chunk_scan_f32", x, dt, da, B, C, y, st, BC, H, l,

@@ -121,7 +121,22 @@ SSD_MODES = {
     "steep_dA": (3, 2, 40, 16, 16, "steep"),
     "l100_mamba": (2, 2, 100, 64, 128, "random"),
     "l256_mamba": (1, 2, 256, 64, 128, "random"),
+    # what the tensor-core kernel makes distinct: the pool's 2- and
+    # 8-position buckets (16-row tiles, 8-key steps), 17 positions (the
+    # first chunk past the 16-row tiles), the widest P and N (P 128, N 256;
+    # N 256 at P 64, where a block has 16 warps) and a chunk past a 256-key
+    # score strip with 3 heads (its strip is recomputed for the second
+    # round of heads)
+    "l2": (8, 3, 2, 16, 16, "random"),
+    "l8_pad_dt0": (4, 2, 8, 32, 16, "pad"),
+    "l17_tile_edge": (3, 2, 17, 64, 128, "random"),
+    "p128_n256": (2, 2, 40, 128, 256, "random"),
+    "n256_p64": (2, 3, 70, 64, 256, "random"),
+    "l300_strip_panels": (1, 3, 300, 16, 16, "random"),
 }
+# pool chunks of n real positions, each padded with dt = 0 to every l
+# bucket from the next power of two up to 16 (see ssd_bucket_case)
+SSD_BUCKET_LENS = (1, 2, 3, 5, 7)
 
 
 def ssd_case(name, seed=0):
@@ -146,6 +161,35 @@ def ssd_case(name, seed=0):
     B = rng.standard_normal((BC, l, N))
     C = rng.standard_normal((BC, l, N))
     return [a.astype(np.float32) for a in (x, dt, da, B, C)]
+
+
+def ssd_bucket_case(n, l, seed=0, BC=8, H=4, P=64, N=128):
+    """A packed pool prefill in the model layout, as numpy arrays: xs
+    (BC, 1, l, H, P), dts and dA (BC, 1, l, H), Bs and Cs (BC, 1, l, N).
+    Each row's first n positions are the same for every bucket l >= n;
+    the padding past n has dt = 0 (so dA stays put) and x, B and C drawn
+    afresh for each l, as a packed dispatch pads a chunk."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((BC, 1, n, H, P))
+    dt = rng.uniform(0.01, 0.2, (BC, 1, n, H))
+    A = -rng.uniform(0.5, 2.0, (H,))
+    B = rng.standard_normal((BC, 1, n, N))
+    C = rng.standard_normal((BC, 1, n, N))
+    pad = np.random.default_rng((seed, l))
+    grow = lambda a: np.concatenate(
+        [a, pad.standard_normal(a.shape[:2] + (l - n,) + a.shape[3:])], 2)
+    x, B, C = grow(x), grow(B), grow(C)
+    dt = np.concatenate([dt, np.zeros((BC, 1, l - n, H))], 2)
+    da = np.cumsum(dt * A, axis=2)
+    return [a.astype(np.float32) for a in (x, dt, da, B, C)]
+
+
+def ssd_buckets(n):
+    """The pool's l buckets a chunk of n real positions may be padded to."""
+    b = 1
+    while b < n:
+        b *= 2
+    return [l for l in (1, 2, 4, 8, 16) if l >= b]
 
 
 def ssd_err(got, want):
@@ -538,3 +582,41 @@ def test_cuda_ssd_chunk_scan_matches_plain_version(mode, cuda):
     yd_ref, states_ref = ssd_ops.ssd_chunk_reference(xs, dts, das, Bs, Cs)
     assert ssd_err(yd, yd_ref) <= SSD_TOL, mode
     assert ssd_err(states, states_ref) <= SSD_TOL, mode
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("l", [1, 2, 8, 16, 17, 256])
+def test_cuda_ssd_bc_alone_is_bitwise_packed(l, cuda):
+    """Each bc of a packed launch (8 chunks, both entries) gives the same
+    bits as the same chunk launched alone: no sum depends on BC."""
+    case = ssd_bucket_case(l, l, seed=l)
+    x, dt, da, B, C = model = to_torch(case, cuda)
+    packed = ssd_ops.ssd_chunk(*model)
+    # the same chunks in the TPU kernel's layout
+    x_, dt_, da_ = (a[:, 0].swapaxes(1, 2) for a in case[:3])
+    flat = to_torch([a.copy() for a in (x_, dt_[..., None], da_[..., None],
+                                        case[3][:, 0], case[4][:, 0])], cuda)
+    packed_tpu = ssd_ops.ssd_chunk_scan(*flat)
+    for k in range(x.shape[0]):
+        alone = ssd_ops.ssd_chunk(*(t[k:k + 1] for t in model))
+        alone_tpu = ssd_ops.ssd_chunk_scan(*(t[k:k + 1] for t in flat))
+        for got, want in zip(alone + alone_tpu, packed + packed_tpu):
+            assert torch.equal(got[0], want[k]), (l, k)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", SSD_BUCKET_LENS)
+def test_cuda_ssd_buckets_are_bitwise_equal(n, cuda):
+    """A chunk of n real positions padded with dt = 0 (and other x, B, C
+    past n) to each l bucket of the pool gives the same bits in its n rows
+    of y and in its state: the padding adds exact zeros, and every sum
+    runs over the same 8-key steps at the same absolute positions."""
+    outs = []
+    for l in ssd_buckets(n):
+        y, st = ssd_ops.ssd_chunk(*to_torch(ssd_bucket_case(n, l), cuda))
+        outs.append((l, y[:, :, :n], st))
+    torch.cuda.synchronize()
+    for l, y, st in outs[1:]:
+        assert torch.equal(y, outs[0][1]), (n, l)
+        assert torch.equal(st, outs[0][2]), (n, l)

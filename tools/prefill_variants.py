@@ -80,17 +80,20 @@ def instances(report: str) -> str:
 def compile_all(names, out_root: Path, src=SRC, variants=VARIANTS,
                 report_of=instances) -> dict:
     """Each variant of ``variants`` named in ``names``, compiled from
-    csrc/``src`` with its -D flags into out_root/<name>/, all at once;
-    logs ``report_of(ptxas report)`` for each."""
+    csrc/``src`` (or the source path a variant's third element names)
+    with its -D flags into out_root/<name>/, all at once; logs
+    ``report_of(ptxas report)`` for each."""
     from repro_torch.kernels import build
     nvcc, procs = build._nvcc(), {}
     for name in names:
         d = out_root / name
         d.mkdir(parents=True, exist_ok=True)
         lib = d / "libvariant.so"
+        path = variants[name][2] if len(variants[name]) > 2 \
+            else build.CSRC / src
         procs[name] = (subprocess.Popen(
             [nvcc, *build.NVCC_FLAGS, *variants[name][0], "-o", str(lib),
-             str(build.CSRC / src)],
+             str(path)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
     libs = {}
     for name, (proc, lib) in procs.items():
@@ -102,21 +105,28 @@ def compile_all(names, out_root: Path, src=SRC, variants=VARIANTS,
     return libs
 
 
-def measure(torch, cs, ops, build, profile_ssm, name, lib, case, want,
-            kernel="paged_prefill_attention", piece="paged_prefill_kernel",
-            exact=None):
-    """One variant's library loaded in place of the built ``kernel``,
-    checked (where ``exact``, by default its VARIANTS entry says so) and
-    timed; ``piece``: a piece of its device kernels' names."""
+def load_variant(build, kernel, lib) -> None:
+    """The library ``lib`` loaded in place of the built ``kernel``."""
     from repro_torch.kernels import common
-    exact = VARIANTS[name][1] if exact is None else exact
     build._libs[kernel] = ctypes.CDLL(str(lib))
     common._entries.clear()
     common.query.cache_clear()
+
+
+def measure(torch, cs, ops, build, profile_ssm, name, lib, case, want,
+            kernel="paged_prefill_attention", piece="paged_prefill_kernel",
+            exact=None, tol=None):
+    """One variant's library loaded in place of the built ``kernel``,
+    checked (where ``exact``, by default its VARIANTS entry says so) and
+    timed; ``piece``: a piece of its device kernels' names. The error is
+    the largest over the outputs (``cs._max_err``), held to ``tol(scale
+    of the plain outputs)`` (default KERNEL_TOL)."""
+    exact = VARIANTS[name][1] if exact is None else exact
+    load_variant(build, kernel, lib)
     got = case["kernel"]()
     torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    if exact and not err <= cs.KERNEL_TOL:
+    err, scale = cs._max_err(got, want)
+    if exact and not err <= (cs.KERNEL_TOL if tol is None else tol(scale)):
         raise AssertionError(f"{name}: max abs err {err}")
     ms = cs._time_ms(torch, case["kernel"])
     n = 50

@@ -22,7 +22,9 @@ It builds the kernels, then measures with ``torch.profiler``:
 
 The trace of each serve is written to build/profile/ (ignored by git) and
 summarised; the last line of the output is one JSON object with every
-number. It imports neither JAX nor the JAX package.
+number. ``record_k3_calls`` (used by tools/ssd_variants.py) serves the same
+traffic once more and records the shape and strides of each K3 call.
+It imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "build" / "profile"
+CALLS = ROOT / "build" / "replay" / "ssd_calls.pt"   # record_k3_calls
 
 
 def log(msg: str) -> None:
@@ -96,6 +99,7 @@ def kernel_timing(torch, cs):
         torch.cuda.synchronize()
         _, by_name = _profiled(torch, f"k3_{name}",
                                lambda: [c["kernel"]() for _ in range(n)])
+        # every device kernel of a wrapper call (the kernel is one launch)
         k3 = [(k, v) for k, v in by_name.items() if "ssd_kernel" in k]
         launches = sum(v[0] for _, v in k3)
         device_ms = sum(v[1] for _, v in k3) / max(launches, 1)
@@ -108,8 +112,9 @@ def kernel_timing(torch, cs):
     return out
 
 
-def serve_profiles(torch, cs):
-    """Phase 4c's traffic through the pool and the dense hybrid path."""
+def _serving(torch, cs):
+    """Phase 4c's traffic and its two paths: {"pool": serve, "dense":
+    serve}, each a callable that serves the 16 prompts once."""
     import numpy as np
     from repro_torch.configs.mamba2_130m import CONFIG as MAMBA
     from repro_torch.core.routing import HybridRouter, ThresholdPolicy
@@ -147,9 +152,48 @@ def serve_profiles(torch, cs):
     hy = HybridEngine(router, *(Engine(bundles[n], models[n],
                                        max_new_tokens=cs.NEW_TOKENS)
                                 for n in cfgs))
+    return {"pool": lambda: pool.serve(tokens, mask, seed=0),
+            "dense": lambda: hy.serve(tokens, mask, seed=0)}
+
+
+def record_k3_calls(torch, cs, path=CALLS):
+    """One serve of phase 4c's traffic through each path with the SSD
+    wrapper the model calls (``ssd_chunk``) wrapped: the shape and strides
+    of each argument of every K3 call, in call order, saved to ``path`` as
+    {"pool": [...], "dense": [...]} (each call a tuple of (shape, strides)
+    pairs: xs, dts, dA_cum, Bs, Cs). The kernel's work depends on the
+    shapes and strides only, so tools/ssd_variants.py replays the calls on
+    random inputs of the same layout."""
+    from repro_torch.kernels.ssd_scan import ops
+    real, calls = ops.ssd_chunk, []
+
+    def recording(*args):
+        calls.append(tuple((tuple(t.shape), tuple(t.stride()))
+                           for t in args))
+        return real(*args)
+
     out = {}
-    for tag, fn in (("pool", lambda: pool.serve(tokens, mask, seed=0)),
-                    ("dense", lambda: hy.serve(tokens, mask, seed=0))):
+    ops.ssd_chunk = recording
+    try:
+        for tag, fn in _serving(torch, cs).items():
+            calls = []
+            fn()
+            out[tag] = calls
+    finally:
+        ops.ssd_chunk = real
+    torch.cuda.synchronize()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(out, path)
+    log(f"[record] K3 calls: " + ", ".join(f"{k} {len(v)}"
+                                          for k, v in out.items())
+        + f" -> {path.relative_to(ROOT)}")
+    return out
+
+
+def serve_profiles(torch, cs):
+    """Phase 4c's traffic through the pool and the dense hybrid path."""
+    out = {}
+    for tag, fn in _serving(torch, cs).items():
         fn()   # warm-up: allocator, cuBLAS handles, kernel loads
         wall, res = _wall_ms(torch, fn)
         busy, by_name = _profiled(torch, f"ssm_{tag}", fn)
