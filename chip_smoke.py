@@ -35,6 +35,16 @@ and prints no result line):
 5. The card against the CPU: the qwen and mamba2 full tiers at depth 1,
    the paged path (a prefill chunk, two decode steps) and the dense path
    (a prefill, two decode steps) on each device, logits compared.
+6. The paper's pipeline (after phase 5, on the memory phases 4 and 5
+   held): (a) train_router for one epoch at DeBERTa-v3-large's widths and
+   (b) train_lm for 6 steps on the "half" qwen tier, each timed per step
+   with its peak memory and its first step repeated on the CPU (loss and
+   grad norm within STEP_RTOL); (c) the label -> train -> calibrate ->
+   route pipeline at benchmarks/common.py's "full" scale: build_experiment
+   (K4 and K5 in sampling, no kernel in training), the three pairs'
+   routers with their drops beside random routing, and a calibrated
+   three-tier cascade and quality-target dial serving the 500 test queries
+   through a ContinuousPoolEngine (K1 and K2 on every tier that serves).
 
 It imports neither JAX nor the JAX package. Weights are random, from
 seeded torch.Generators; nothing is downloaded. The last two lines are a
@@ -60,6 +70,9 @@ DEVICE_TOL = 1e-3               # fp32 card vs CPU logits through a 5120-wide
                                 # layer: sums over up to 27392 terms in
                                 # another order on each device
 N_PROMPTS, NEW_TOKENS, N_SLOTS, MAX_SEQ = 16, 32, 8, 1024
+# the router's encoder at DeBERTa-v3-large's widths (the paper's router)
+DEBERTA_V3_LARGE = dict(n_layers=24, d_model=1024, n_heads=16, d_ff=4096,
+                        max_seq=512)
 
 
 def log(msg: str) -> None:
@@ -787,8 +800,7 @@ def main_path_phase(torch, card: str, smi: str):
     dev = torch.device("cuda")
     full_cfg = dataclasses.replace(QWEN, n_layers=4)
     half_cfg = dataclasses.replace(scaled_sibling(QWEN, 2), n_layers=2)
-    rcfg = RouterConfig(vocab_size=QWEN.vocab_size, n_layers=24,
-                        d_model=1024, n_heads=16, d_ff=4096, max_seq=512)
+    rcfg = RouterConfig(vocab_size=QWEN.vocab_size, **DEBERTA_V3_LARGE)
     t0 = time.monotonic()
     tiers, models = [], {}
     for i, (name, cfg) in enumerate((("half", half_cfg), ("full", full_cfg))):
@@ -1185,6 +1197,406 @@ def device_vs_cpu_phase(torch, full_model, full_cfg):
     _compare(torch, f"{cfg.name} dense", dense["cuda"], dense["cpu"])
 
 
+# ------------------------------------------------------------------ phase 6
+# benchmarks/common.py's "full" scale (its _SCALES["full"] and
+# ROUTER_EPOCHS["full"]), copied: benchmarks/ imports the JAX package
+PIPELINE = dict(seed=0, n_train_queries=1000, n_test_queries=500,
+                n_samples=10, steps_scale=1.0,
+                tiers=("tiny", "small", "medium", "large"))
+ROUTER_EPOCHS = 4
+POOL_TIERS = ("small", "medium", "large")
+STEP_RTOL = 1e-4   # one training step, card vs CPU: loss and grad norm
+                   # are sums over ~1e9 products in another order
+ROUTER_QUERIES, ROUTER_VAL, ROUTER_BATCH = 256, 64, 16
+LM_ROWS, LM_BATCH, LM_SEQ, LM_STEPS = 8, 4, 512, 6
+
+
+def _timed_steps(torch, module, name, times, metrics):
+    """Swap ``module.name`` (a train-step factory) for one whose steps are
+    timed between card synchronisations and whose metrics are kept (loss
+    and grad norm as floats). Returns the original, to put back."""
+    make = getattr(module, name)
+
+    def timed(*args):
+        step = make(*args)
+
+        def run(*a):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            out = step(*a)
+            m = {k: float(out[2][k]) for k in ("loss", "grad_norm")}
+            torch.cuda.synchronize()
+            times.append(time.monotonic() - t0)
+            metrics.append(m)
+            return out
+        return run
+    setattr(module, name, timed)
+    return make
+
+
+def _step_on_cpu(torch, tag, make_module, snapshot, run_step, gpu):
+    """One training step on the CPU from the card's initial weights
+    (``snapshot``, a CPU state dict) and first batch: loss and grad norm
+    must agree with the card's first step (``gpu``) within STEP_RTOL."""
+    from repro_torch.training.trainer import trainable
+    model = make_module()
+    model.load_state_dict(snapshot)
+    t0 = time.monotonic()
+    with trainable(model):
+        m = run_step(model)
+    cpu = {k: float(m[k]) for k in ("loss", "grad_norm")}
+    wall = time.monotonic() - t0
+    rel = {k: abs(gpu[k] - cpu[k]) / abs(cpu[k]) for k in cpu}
+    log(f"[pipeline] {tag} first step, card vs CPU ({wall:.1f} s on "
+        f"{torch.get_num_threads()} CPU threads): loss {gpu['loss']:.7g} vs "
+        f"{cpu['loss']:.7g}, grad norm {gpu['grad_norm']:.7g} vs "
+        f"{cpu['grad_norm']:.7g}; relative differences "
+        f"{rel['loss']:.3g}, {rel['grad_norm']:.3g} <= {STEP_RTOL}")
+    if not all(r <= STEP_RTOL for r in rel.values()):
+        raise AssertionError(f"{tag}: card and CPU steps disagree: {rel}")
+
+
+def _train_rate(model, skip, n_tokens, seq, n_layers, attn_width,
+                median_s) -> str:
+    """The product rate of a full-width training step: 6 flop per matmul
+    weight per token (2 forward, 4 backward) and 12 per token per key per
+    attention channel of each layer (QK^T and PV over the full S x S
+    scores, as the plain masked softmax computes them, forward and
+    backward). Gathered tables (``skip``: embeddings, bucketed biases) do
+    no products and are left out."""
+    n_mm = sum(p.numel() for n, p in model.named_parameters()
+               if p.dim() >= 2 and n not in skip)
+    flops = 6 * n_mm * n_tokens + 12 * n_layers * n_tokens * seq * attn_width
+    rate = flops / median_s
+    return (f"{n_mm / 1e9:.4f} B matmul weights, {flops / 1e12:.3f} TFLOP a "
+            f"step, {rate / 1e12:.1f} TFLOP/s at the median step, "
+            f"{100 * rate / PEAK_FP32_FLOP_PER_S:.0f}% of the fp32 peak "
+            f"{PEAK_FP32_FLOP_PER_S / 1e12:g} TFLOP/s")
+
+
+def _peak(torch) -> str:
+    return f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
+
+
+def router_training_phase(torch, card: str, smi: str):
+    """(a) train_router for one epoch at DeBERTa-v3-large's widths (phase
+    4's router config): 256 seeded queries of 32-512 tokens at batch 16,
+    trans labels from seeded synthetic qualities, 64 validation queries;
+    the first step again on the CPU from the same weights and batch."""
+    import numpy as np
+    from repro_torch.configs.qwen15_32b import CONFIG as QWEN
+    from repro_torch.core import router as router_mod
+    from repro_torch.core.labels import trans_labels
+    from repro_torch.models.encoder import (RouterConfig, RouterEncoder,
+                                            init_router_encoder)
+    from repro_torch.training.optim import AdamWConfig, init_opt_state
+
+    dev = torch.device("cuda")
+    rcfg = RouterConfig(vocab_size=QWEN.vocab_size, **DEBERTA_V3_LARGE)
+    rng = np.random.default_rng(20)
+
+    def queries(n):
+        lens = rng.integers(32, 513, n)
+        toks = rng.integers(4, QWEN.vocab_size, (n, 512)).astype(np.int32)
+        mask = (np.arange(512)[None] < lens[:, None]).astype(np.float32)
+        toks[mask == 0] = 0
+        # synthetic sampled qualities: the large tier's 10 samples, and the
+        # small tier's a per-query gap below them
+        ql = rng.normal(-0.3, 0.1, (n, 10))
+        qs = ql + rng.normal(-0.2, 0.3, (n, 1)) + rng.normal(0, 0.1, (n, 10))
+        return toks, mask, trans_labels(qs, ql)[0]
+
+    toks, mask, y = queries(ROUTER_QUERIES)
+    vt, vm, vy = queries(ROUTER_VAL)
+    model = init_router_encoder(rcfg, torch.Generator(device=dev)
+                                .manual_seed(21), dev)
+    snapshot = {k: v.to("cpu", copy=True)
+                for k, v in model.state_dict().items()}
+    n_params = sum(p.numel() for p in model.parameters())
+    tcfg = router_mod.RouterTrainConfig(epochs=1, batch_size=ROUTER_BATCH,
+                                        seed=0)
+    times, metrics = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    make = _timed_steps(torch, router_mod, "make_train_step", times, metrics)
+    try:
+        t0 = time.monotonic()
+        trained, hist = router_mod.train_router(
+            rcfg, toks, mask, y, tcfg, val=(vt, vm, vy), params=model)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    finally:
+        router_mod.make_train_step = make
+    losses = [m["loss"] for m in metrics] + hist["val_loss"]
+    log(f"[pipeline] router train_router: {n_params / 1e9:.3f} B params, "
+        f"{len(times)} steps of {ROUTER_BATCH} x 512 tokens in {wall:.2f} s "
+        f"(first step {times[0]:.3f} s, then median "
+        f"{float(np.median(times[1:])):.4f} s/step), peak memory "
+        f"{_peak(torch)}, on {card} ({smi})")
+    log(f"[pipeline] router step: " + _train_rate(
+        model, {"embed", "rel_bias"}, ROUTER_BATCH * 512, 512,
+        rcfg.n_layers, rcfg.d_model, float(np.median(times[1:]))))
+    log(f"[pipeline] router losses: train {[round(x, 4) for x in losses[:-1]]}"
+        f", val {hist['val_loss']}")
+    if len(times) != ROUTER_QUERIES // ROUTER_BATCH \
+            or not np.isfinite(losses).all():
+        raise AssertionError(f"router training: {len(times)} steps, losses "
+                             f"{losses}")
+    with torch.no_grad():
+        vloss = float(router_mod.bce_loss(
+            router_mod._logits(trained, rcfg, vt, vm, 256),
+            torch.tensor(vy, device=dev)))
+    if trained is not model or abs(vloss - min(hist["val_loss"])) > \
+            1e-5 * abs(vloss):
+        raise AssertionError(f"the returned router is not the best-val one: "
+                             f"val loss {vloss} vs {hist['val_loss']}")
+    del trained, model
+    torch.cuda.empty_cache()
+
+    idx = np.random.default_rng(tcfg.seed).permutation(ROUTER_QUERIES)[
+        :ROUTER_BATCH]
+    T = lambda a, dt: torch.tensor(a[idx], dtype=dt)
+    ocfg = AdamWConfig(lr=tcfg.lr, weight_decay=tcfg.weight_decay)
+    step = router_mod.make_train_step(rcfg, ocfg)
+    _step_on_cpu(torch, "router", lambda: RouterEncoder(rcfg, "cpu"),
+                 snapshot, lambda m: step(
+                     m, init_opt_state(dict(m.named_parameters()), ocfg),
+                     T(toks, torch.long), T(mask, torch.float32),
+                     T(y, torch.float32))[2], metrics[0])
+
+
+def lm_training_phase(torch, card: str, smi: str):
+    """(b) train_lm for 6 steps on phase 4's "half" qwen1.5-32b tier (2
+    layers at d_model 2560) at batch 4 x 512 over 8 seeded rows; the
+    first step again on the CPU from the same weights and batch."""
+    import numpy as np
+    from repro_torch.configs.qwen15_32b import CONFIG as QWEN
+    from repro_torch.models.decoder import Decoder
+    from repro_torch.models.model import build_model
+    from repro_torch.training import trainer as trainer_mod
+    from repro_torch.training.optim import AdamWConfig, init_opt_state
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(scaled_sibling(QWEN, 2), n_layers=2)
+    bundle = build_model(cfg)
+    rng = np.random.default_rng(30)
+    tokens = rng.integers(4, cfg.vocab_size, (LM_ROWS, LM_SEQ)).astype(
+        np.int32)
+    arrays = {"tokens": tokens,
+              "labels": np.concatenate([tokens[:, 1:], np.zeros(
+                  (LM_ROWS, 1), np.int32)], axis=1),
+              "loss_mask": (np.arange(LM_SEQ)[None] < LM_SEQ - 1).repeat(
+                  LM_ROWS, 0).astype(np.float32)}
+    model = bundle.init(torch.Generator(device=dev).manual_seed(31), dev)
+    snapshot = {k: v.to("cpu", copy=True)
+                for k, v in model.state_dict().items()}
+    n_params = sum(p.numel() for p in model.parameters())
+    tcfg = trainer_mod.TrainConfig(steps=LM_STEPS, batch_size=LM_BATCH,
+                                   log_every=1, seed=0)
+    times, metrics = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    make = _timed_steps(torch, trainer_mod, "make_lm_train_step", times,
+                        metrics)
+    try:
+        t0 = time.monotonic()
+        trained, hist = trainer_mod.train_lm(bundle, arrays, tcfg,
+                                             params=model)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    finally:
+        trainer_mod.make_lm_train_step = make
+    losses = [h["loss"] for h in hist]
+    log(f"[pipeline] LM train_lm ({cfg.name}, {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads of "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}): {n_params / 1e9:.3f} B "
+        f"params, {len(times)} steps of {LM_BATCH} x {LM_SEQ} tokens in "
+        f"{wall:.2f} s (first step {times[0]:.3f} s, then median "
+        f"{float(np.median(times[1:])):.4f} s/step), peak memory "
+        f"{_peak(torch)}, on {card} ({smi})")
+    log(f"[pipeline] LM step: " + _train_rate(
+        model, set() if cfg.tie_embeddings else {"embed.table"},
+        LM_BATCH * LM_SEQ, LM_SEQ, cfg.n_layers,
+        cfg.n_heads * cfg.resolved_head_dim, float(np.median(times[1:]))))
+    log(f"[pipeline] LM losses {[round(x, 4) for x in losses]}")
+    if len(losses) != LM_STEPS or not np.isfinite(losses).all() \
+            or not np.mean(losses[-2:]) < np.mean(losses[:2]):
+        raise AssertionError(f"LM training did not descend: {losses}")
+    del trained, model
+    torch.cuda.empty_cache()
+
+    batch = next(trainer_mod.batch_iterator(np.random.default_rng(tcfg.seed),
+                                            arrays, LM_BATCH, "cpu"))
+    ocfg = AdamWConfig(lr=tcfg.lr)
+    step = trainer_mod.make_lm_train_step(bundle, ocfg)
+    _step_on_cpu(torch, "LM", lambda: Decoder(cfg, "cpu"), snapshot,
+                 lambda m: step(m, init_opt_state(dict(m.named_parameters()),
+                                                  ocfg), batch)[2],
+                 metrics[0])
+
+
+def pipeline_phase(torch, card: str, smi: str):
+    """(c) The paper's pipeline at benchmarks/common.py's "full" scale on
+    the card: build_experiment (the four tiers' LMs trained, 10 responses
+    sampled per query on three splits; K4 once per layer per sampling
+    batch, K5 once per layer per decode step, no kernel in training),
+    the three pairs' r_det / r_prob / r_trans with their drops at fixed
+    cost advantages beside random routing, then a per-boundary router for
+    (small, medium, large) calibrated into a cascade that serves the 500
+    test queries through a three-engine ContinuousPoolEngine (K1 and K2 on
+    every tier that receives a query), and the quality-target dial swept
+    over three targets on the same engines."""
+    import numpy as np
+    from repro_torch.core import experiment as E
+    from repro_torch.core.metrics import (drop_at_cost_advantages,
+                                          random_routing_curve)
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.paged_decode_attention import ops as pdec
+    from repro_torch.kernels.paged_prefill_attention import ops as ppre
+    from repro_torch.serving.engine import ContinuousEngine
+    from repro_torch.serving.pool import ContinuousPoolEngine
+
+    counters = {"K1": pdec.paged_decode_attention_gqa,
+                "K2": ppre.paged_prefill_attention_gqa,
+                "K4": fa.flash_attention, "K5": dec.decode_attention_kv}
+    walls = {}
+
+    def stage(name, fn, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        walls[name] = time.monotonic() - t0
+        log(f"[pipeline] stage {name}: {walls[name]:.2f} s")
+        return out
+
+    for w in counters.values():
+        w.launches = 0
+    train_launches = {"train": dict.fromkeys(counters, 0)}
+    train_tier_lms = E.train_tier_lms
+    counted = _counting(counters, train_launches, "train", train_tier_lms)
+    E.train_tier_lms = lambda *a, **kw: stage("train_tier_lms", counted, *a,
+                                              **kw)
+    try:
+        exp = stage("build_experiment", E.build_experiment, **PIPELINE)
+    finally:
+        E.train_tier_lms = train_tier_lms
+    built = {k: w.launches for k, w in counters.items()}
+    n_layers = sum(E.TIERS[t][0].n_layers for t in PIPELINE["tiers"])
+    batches = sum(-(-len(ds.query) // 256) for ds in exp.datasets.values())
+    gen_calls = PIPELINE["n_samples"] * batches
+    want = {"K1": 0, "K2": 0, "K4": n_layers * gen_calls,
+            "K5": n_layers * gen_calls * 16}
+    lm_steps = sum(max(20, int(E.TIERS[t][1] * PIPELINE["steps_scale"]))
+                   for t in PIPELINE["tiers"])
+    log(f"[pipeline] build_experiment: LM training {lm_steps} steps in "
+        f"{walls['train_tier_lms']:.2f} s "
+        f"({walls['train_tier_lms'] / lm_steps * 1e3:.2f} ms/step), "
+        f"sampling and scoring {gen_calls * len(PIPELINE['tiers'])} batches "
+        f"in {walls['build_experiment'] - walls['train_tier_lms']:.2f} s")
+    log(f"[pipeline] build_experiment launches {built} (expected {want}: "
+        f"one K4 per layer per sampling batch, one K5 per layer per decode "
+        f"step), in LM training {train_launches['train']}")
+    if built != want or any(train_launches["train"].values()):
+        raise AssertionError(f"build_experiment launches {built} != {want}, "
+                             f"training {train_launches['train']}")
+    for t in PIPELINE["tiers"]:
+        q = exp.qualities[t]
+        log(f"[pipeline] tier {t}: mean quality "
+            + ", ".join(f"{s} {q[s].mean():+.4f}" for s in q))
+
+    routers = {}
+    for pair, (lo, hi) in E.PAIRS.items():
+        routers[pair] = stage(f"train_pair_routers {pair}",
+                              E.train_pair_routers, exp, lo, hi,
+                              epochs=ROUTER_EPOCHS, seed=PIPELINE["seed"])
+        qs, ql = exp.qualities[lo]["test"], exp.qualities[hi]["test"]
+        rand = random_routing_curve(np.random.default_rng(0), len(qs), qs,
+                                    ql)
+        cas = (0.1, 0.2, 0.4)
+        rand_at = [min(rand, key=lambda p: abs(p.cost_advantage - ca))
+                   for ca in cas]
+        row = {kind: drop_at_cost_advantages(r["scores"]["test"], qs, ql,
+                                             cas)
+               for kind, r in routers[pair].items()}
+        log(f"[pipeline] {pair} ({lo} vs {hi}) drop % at cost advantage "
+            + "; ".join(f"{ca}: " + ", ".join(
+                f"{k} {row[k][ca]['drop_pct']:.2f}" for k in row)
+                + f", random {p.drop_pct:.2f}" for ca, p in zip(cas, rand_at))
+            + f"; t* {routers[pair]['trans']['t_star']:.4f}")
+        for kind, r in row.items():
+            if not all(np.isfinite(v["drop_pct"]) for v in r.values()):
+                raise AssertionError(f"{pair} {kind}: drops {r}")
+
+    out = stage("train_pool_router", E.train_pool_router, exp, POOL_TIERS,
+                epochs=ROUTER_EPOCHS, seed=PIPELINE["seed"])
+    ds = exp.datasets["test"]
+    tokens, mask = ds.query, ds.query_mask
+    engines = [(t, ContinuousEngine(exp.lms[t].bundle, exp.lms[t].params,
+                                    max_new_tokens=16, n_slots=32,
+                                    max_seq=64)) for t in POOL_TIERS]
+    per_tier = {t: dict.fromkeys(counters, 0) for t in POOL_TIERS}
+    for t, eng in engines:
+        eng.step = _counting(counters, per_tier, t, eng.step)
+
+    def serve(policy, tag):
+        pool = ContinuousPoolEngine(policy, engines)
+        res = stage(tag, pool.serve, tokens, mask, seed=0)
+        decided = policy.decide(tokens, mask)[0]
+        summary = pool.meter.summary()
+        if not np.array_equal(res.tier_idx, decided):
+            raise AssertionError(f"{tag}: the pool's tier_idx differs from "
+                                 "the policy's decide")
+        if pool.meter.total_calls != len(tokens) or not (res.lengths >= 1) \
+                .all():
+            raise AssertionError(f"{tag}: calls {summary}")
+        for t, eng in engines:
+            if eng.cache.free_pages != eng.cache.num_pages - 1:
+                raise AssertionError(f"{tag}: tier {t} leaked pages")
+        n_tok = int(res.lengths.sum())
+        log(f"[pipeline] {tag}: calls "
+            f"{[summary[t]['calls'] for t in POOL_TIERS]}, tokens "
+            f"{[summary[t]['gen_tokens'] for t in POOL_TIERS]}, cost "
+            f"advantage {pool.meter.cost_advantage:.4f}, {n_tok} tokens in "
+            f"{walls[tag]:.3f} s")
+        return res, summary
+
+    cascade = E.pool_policy(exp, out, POOL_TIERS, kind="cascade")
+    log(f"[pipeline] cascade gates "
+        f"{[round(g.threshold, 6) for g in cascade.boundaries]}")
+    for w in counters.values():
+        w.launches = 0
+    _, summary = serve(cascade, "cascade pool")
+    for t in POOL_TIERS:
+        log(f"[pipeline] cascade tier {t}: {summary[t]['calls']} calls, "
+            f"launches {per_tier[t]}")
+        if summary[t]["calls"] and not (per_tier[t]["K1"] > 0
+                                        and per_tier[t]["K2"] > 0):
+            raise AssertionError(f"tier {t} served queries without K1/K2 "
+                                 f"launches: {per_tier[t]}")
+    pool_launches = {k: w.launches for k, w in counters.items()}
+
+    qt = E.pool_policy(exp, out, POOL_TIERS, kind="quality_target")
+    # three targets across the tiers' predicted qualities on the test split
+    targets = np.quantile(qt.predicted_quality(
+        out["boundaries"][0]["scores"]["test"]), [0.25, 0.5, 0.75])
+    prev = None
+    for target in targets:
+        qt.set_target(float(target))
+        res, _ = serve(qt, f"quality target {target:+.4f}")
+        if prev is not None and not (res.tier_idx >= prev).all():
+            raise AssertionError("raising the quality target sent a query "
+                                 "to a cheaper tier")
+        prev = res.tier_idx
+    log(f"[pipeline] kernel launches: build_experiment "
+        + ", ".join(f"{k} {built[k]}" for k in ("K4", "K5"))
+        + "; cascade pool " + ", ".join(f"{k} {pool_launches[k]}"
+                                        for k in ("K1", "K2")))
+    log(f"[pipeline] stage walls (s) on {card} ({smi}): "
+        + json.dumps({k: round(v, 3) for k, v in walls.items()}))
+
+
 def main() -> int:
     import torch
     card, smi = device_phase(torch)
@@ -1204,6 +1616,11 @@ def main() -> int:
     device_vs_cpu_phase(torch, pool_run["models"]["full"],
                         pool_run["cfgs"]["full"])
     device_vs_cpu_phase(torch, ssm_run["model"], ssm_run["cfg"])
+    del pool_run, ssm_run   # phase 6 needs the card's memory
+    torch.cuda.empty_cache()
+    router_training_phase(torch, card, smi)
+    lm_training_phase(torch, card, smi)
+    pipeline_phase(torch, card, smi)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(smi)

@@ -1,14 +1,29 @@
 """Routing policies and tier cost accounting (the port of
-``repro.core.routing``: ``HybridRouter``, ``RoutingPolicy``,
-``ThresholdPolicy``, ``TierMeter`` and its two-tier view ``CostMeter``).
+``repro.core.routing``, without the fused XLA scoring helper
+``route_scores_jit``): ``HybridRouter``, ``RoutingPolicy``, the policies,
+``TierMeter`` and its two-tier view ``CostMeter``.
 
 The paper's router is binary: a score threshold splits queries between one
 small and one large model. ``RoutingPolicy`` is the protocol the serving
 pool consumes: ``decide(tokens, mask) -> (tier_idx, scores)`` with
 ``tier_idx`` an (N,) int array over an ordered pool of engines, cheapest
 (0) to priciest (K-1), and ``scores`` the raw router scores (higher =
-easier = cheaper-tier-safe). ``CascadePolicy`` and ``QualityTargetPolicy``
-come with a later slice.
+easier = cheaper-tier-safe). Besides the paper's binary
+``ThresholdPolicy``:
+
+* ``CascadePolicy`` — two modes. Shared-score: K-1 descending thresholds
+  over ONE router's scores bucket queries across K tiers, all picked from
+  a single ``core.thresholds.calibration_frontier`` sweep
+  (``from_frontier``). Per-boundary: K-1 independent calibrated gates
+  (``boundaries``), one ``HybridRouter`` per adjacent tier pair; a query
+  goes to the cheapest tier whose gate it passes.
+* ``QualityTargetPolicy`` — per-tier calibrated score->quality maps
+  (``TierQualityMap``, ``fit_quality_map``); each query goes to the
+  cheapest tier whose predicted quality clears a runtime-tunable target.
+
+Every policy compares a score with a threshold by ``>=``, as the reference
+does, and decides on host numpy scores, so a policy given fixed scores
+decides exactly as the reference's does.
 """
 from __future__ import annotations
 
@@ -27,16 +42,24 @@ class HybridRouter:
     params: torch.nn.Module         # a RouterEncoder
     rcfg: RouterConfig
     threshold: float
+    label_kind: str = "trans"       # det | prob | trans — provenance only
 
+    @torch.no_grad()
     def scores(self, tokens, mask) -> torch.Tensor:
         """Sigmoid router scores (N,) in [0, 1] for a padded query batch
         ``tokens`` (N, L) with validity ``mask`` (N, L), on the router's
-        device; higher = easier = safer to serve on a cheaper tier."""
+        device; higher = easier = safer to serve on a cheaper tier. Runs
+        without autograd, so scoring a module fresh from training builds
+        no graph."""
         dev = next(self.params.parameters()).device
         tokens = torch.as_tensor(np.asarray(tokens), device=dev).long()
         mask = torch.as_tensor(np.asarray(mask, np.float32), device=dev)
         return torch.sigmoid(router_encode(self.params, tokens, mask,
                                            self.rcfg))
+
+    def route(self, tokens, mask) -> torch.Tensor:
+        """True where the query goes to the SMALL model ("easy")."""
+        return self.scores(tokens, mask) >= self.threshold
 
     def with_threshold(self, threshold: float) -> "HybridRouter":
         """A copy of this router gating at ``threshold`` (params shared)."""
@@ -66,8 +89,177 @@ class ThresholdPolicy:
         return 2
 
     def decide(self, tokens, mask) -> Tuple[np.ndarray, np.ndarray]:
-        scores = self.router.scores(tokens, mask).cpu().numpy()
+        scores = _host_scores(self.router, tokens, mask)
         return np.where(scores >= self.router.threshold, 0, 1), scores
+
+
+@dataclasses.dataclass
+class CascadePolicy:
+    """K-tier cascade routing, in one of two modes (exactly one is set):
+
+    Shared-score (``thresholds``): K-1 descending thresholds over ONE
+    router's scores — tier k takes scores in [t_k, t_{k-1}), tier 0
+    everything >= t_0, tier K-1 everything below t_{K-2}. With one
+    threshold this is exactly ``ThresholdPolicy``. ``router`` supplies the
+    scores; its own threshold is ignored.
+
+    Per-boundary (``boundaries``): K-1 independent gates, one
+    ``HybridRouter`` per adjacent tier pair (cheapest pair first), each
+    trained on its own pair's quality gap and gating at its own calibrated
+    threshold. A query routes to the cheapest tier b whose gate it passes
+    (score_b >= boundaries[b].threshold), falling through to tier K-1 when
+    every gate refuses. With one head behind every gate and the
+    shared-score thresholds installed per gate, the two modes route
+    identically.
+
+    Reported ``scores`` are the shared router's in shared-score mode and
+    the cheapest gate's in per-boundary mode.
+    """
+    router: Optional[HybridRouter] = None
+    thresholds: Tuple[float, ...] = ()
+    boundaries: Tuple[HybridRouter, ...] = ()
+
+    def __post_init__(self):
+        self.thresholds = tuple(float(t) for t in self.thresholds)
+        self.boundaries = tuple(self.boundaries)
+        if self.boundaries:
+            if self.thresholds:
+                raise ValueError("CascadePolicy takes shared-score "
+                                 "thresholds OR per-boundary gates, not "
+                                 "both")
+            return
+        if self.router is None:
+            raise ValueError("shared-score CascadePolicy needs the router "
+                             "that supplies its scores")
+        if not self.thresholds:
+            raise ValueError("CascadePolicy needs at least one threshold "
+                             "(two tiers)")
+        if any(a < b for a, b in zip(self.thresholds, self.thresholds[1:])):
+            raise ValueError(f"cascade thresholds must be non-increasing "
+                             f"(cheapest tier takes the highest scores): "
+                             f"{self.thresholds}")
+
+    @property
+    def per_boundary(self) -> bool:
+        return bool(self.boundaries)
+
+    @property
+    def n_tiers(self) -> int:
+        return (len(self.boundaries) if self.boundaries
+                else len(self.thresholds)) + 1
+
+    def decide(self, tokens, mask) -> Tuple[np.ndarray, np.ndarray]:
+        if self.boundaries:
+            # first passing gate, cheapest first: walk the boundaries
+            # priciest-first so cheaper gates overwrite — the final value
+            # is the smallest b with score_b >= gate b's threshold
+            tier = np.full((len(tokens),), len(self.boundaries), np.int64)
+            scores0: Optional[np.ndarray] = None
+            for b in reversed(range(len(self.boundaries))):
+                gate = self.boundaries[b]
+                s = _host_scores(gate, tokens, mask)
+                tier = np.where(s >= gate.threshold, b, tier)
+                if b == 0:
+                    scores0 = s
+            return tier, scores0
+        scores = _host_scores(self.router, tokens, mask)
+        tier = np.zeros(scores.shape, np.int64)
+        for t in self.thresholds:
+            tier += scores < t
+        return tier, scores
+
+    @classmethod
+    def from_frontier(cls, router: HybridRouter, frontier, n_tiers: int,
+                      max_drop_pct: float = 1.0) -> "CascadePolicy":
+        """Pick K-1 thresholds from one ``calibration_frontier`` sweep (see
+        core.thresholds.cascade_thresholds for the selection rule)."""
+        from .thresholds import cascade_thresholds
+        return cls(router, tuple(cascade_thresholds(frontier, n_tiers,
+                                                    max_drop_pct)))
+
+
+@dataclasses.dataclass
+class TierQualityMap:
+    """Piecewise-constant calibrated score -> expected-quality map for one
+    tier: quantile score bins over a calibration set, mean quality per bin."""
+    bin_edges: np.ndarray   # (n_bins + 1,) ascending score edges
+    quality: np.ndarray     # (n_bins,) mean quality inside each bin
+
+    def __call__(self, scores: np.ndarray) -> np.ndarray:
+        idx = np.searchsorted(self.bin_edges, scores, side="right") - 1
+        return self.quality[np.clip(idx, 0, len(self.quality) - 1)]
+
+
+def fit_quality_map(scores: np.ndarray, q_samples: np.ndarray,
+                    n_bins: int = 8) -> TierQualityMap:
+    """Calibrate one tier's score->quality map on (scores, quality samples).
+    Quantile bin edges keep every bin populated on the calibration set;
+    ``q_samples`` is (N,) or (N, n_samples) (sample mean used)."""
+    q = np.asarray(q_samples, np.float64)
+    if q.ndim == 2:
+        q = q.mean(axis=1)
+    edges = np.unique(np.quantile(scores, np.linspace(0.0, 1.0, n_bins + 1)))
+    if len(edges) < 2:   # constant scores: one bin
+        edges = np.array([edges[0] - 1e-6, edges[0] + 1e-6])
+    idx = np.clip(np.searchsorted(edges, scores, side="right") - 1,
+                  0, len(edges) - 2)
+    quality = np.full(len(edges) - 1, float(q.mean()))
+    for b in range(len(quality)):
+        sel = idx == b
+        if sel.any():
+            quality[b] = float(q[sel].mean())
+    return TierQualityMap(edges, quality)
+
+
+@dataclasses.dataclass
+class QualityTargetPolicy:
+    """Cheapest tier whose calibrated score->quality map clears ``target`` —
+    the paper's "desired quality level" dial, generalized to K tiers and
+    tunable at serve time (``set_target``; no retraining, no recalibration).
+    Queries no tier clears fall through to the priciest tier."""
+    router: HybridRouter
+    maps: Sequence[TierQualityMap]   # cheapest -> priciest
+    target: float
+
+    def __post_init__(self):
+        if len(self.maps) < 2:
+            raise ValueError("QualityTargetPolicy needs a map per tier for "
+                             "at least two tiers")
+
+    @property
+    def n_tiers(self) -> int:
+        return len(self.maps)
+
+    def set_target(self, target: float):
+        self.target = float(target)
+
+    def predicted_quality(self, scores: np.ndarray) -> np.ndarray:
+        """(K, N) calibrated quality prediction per tier."""
+        return np.stack([m(scores) for m in self.maps])
+
+    def decide(self, tokens, mask) -> Tuple[np.ndarray, np.ndarray]:
+        scores = _host_scores(self.router, tokens, mask)
+        ok = self.predicted_quality(scores) >= self.target
+        tier = np.where(ok.any(axis=0), ok.argmax(axis=0), self.n_tiers - 1)
+        return tier.astype(np.int64), scores
+
+    @classmethod
+    def fit(cls, router: HybridRouter, scores: np.ndarray,
+            tier_qualities: Sequence[np.ndarray], target: float,
+            n_bins: int = 8) -> "QualityTargetPolicy":
+        """Calibrate per-tier maps from one calibration set: ``scores`` (N,)
+        and ``tier_qualities`` [(N,) or (N, S)] cheapest -> priciest."""
+        return cls(router, [fit_quality_map(scores, q, n_bins)
+                            for q in tier_qualities], float(target))
+
+
+def _host_scores(router, tokens, mask) -> np.ndarray:
+    """``router.scores`` as a host numpy array (a ``HybridRouter`` returns a
+    tensor on its device; a stand-in may return numpy)."""
+    s = router.scores(tokens, mask)
+    if isinstance(s, torch.Tensor):
+        s = s.cpu().numpy()
+    return np.asarray(s)
 
 
 class TierMeter:

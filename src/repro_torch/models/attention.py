@@ -5,12 +5,15 @@ Dense batch serving (``Engine``): ``prefill_attention`` runs the prompt
 through ``attention_forward`` (causal flash attention) and returns the
 layer's K/V for the (L, B, max_seq, K, Dh) cache; ``decode_attention``
 writes one new token's K/V into that cache and attends to it, optionally
-windowed (attention sink + the trailing positions). Continuous batching:
+windowed (attention sink + the trailing positions). Training's
+teacher-forced pass takes ``training_attention``, the plain version under
+autograd. Continuous batching:
 ``paged_decode_attention`` (one new token per slot) and
 ``paged_prefill_attention`` (a chunk of prompt tokens per slot) write the
 new K/V into the layer's page pool and attend through the paged kernels.
-Every attention call goes through a kernel wrapper, which launches the
-CUDA kernel for CUDA tensors and takes the plain version for CPU tensors.
+Every serving attention call goes through a kernel wrapper, which
+launches the CUDA kernel for CUDA tensors and takes the plain version for
+CPU tensors.
 
 Cross-attention (``kv_override``), ``use_rope=False`` and non-causal
 self-attention serve the encoder-decoder family, and the sequence-sharded
@@ -24,6 +27,7 @@ from torch import nn
 
 from repro_torch.kernels.decode_attention.ops import decode_attention_kv
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.paged_decode_attention.ops import \
     paged_decode_attention_gqa
 from repro_torch.kernels.paged_prefill_attention.ops import \
@@ -85,6 +89,28 @@ def attention_forward(attn: Attention, x, cfg, *, is_global: bool = True,
             "encoder-decoder and frontends slice")
     return prefill_attention(attn, x, cfg, is_global=is_global,
                              positions=positions)[0]
+
+
+def training_attention(attn: Attention, x, cfg, *, is_global: bool = True,
+                       positions=None):
+    """Full-sequence causal self-attention for training's teacher-forced
+    pass, differentiable: the flash kernel's plain version (one masked
+    softmax over the whole (S, S) score matrix) under autograd, on any
+    device. No kernel launches here — the kernels have no backward pass,
+    and the reference's training forward reaches none either. x: (B, S, D).
+    Returns (B, S, D)."""
+    B, S, _ = x.shape
+    H, Dh = cfg.n_heads, cfg.resolved_head_dim
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    q, k, v = _project_qkv(attn, x, cfg, positions)
+    bhsd = lambda t: t.repeat_interleave(H // t.shape[2], 2).movedim(2, 1) \
+        .reshape(B * H, S, Dh)
+    window = cfg.sliding_window if not is_global else 0
+    out = attention_ref(bhsd(q * Dh ** -0.5), bhsd(k), bhsd(v), causal=True,
+                        window=window)
+    return _out_proj(attn, out.reshape(B, H, S, Dh).movedim(1, 2), B, S, H,
+                     Dh)
 
 
 def init_kv_cache(cfg, batch: int, max_seq: int, n_layers: int,

@@ -1,5 +1,5 @@
-"""Common layers: parameter containers, norms, RoPE, MLP, embeddings, and
-the init helpers (the port of ``repro.models.common``).
+"""Common layers: parameter containers, norms, RoPE, MLP, embeddings, the
+init helpers and the LM loss (the port of ``repro.models.common``).
 
 Parameters keep the reference's names and layouts, so that the weight
 bridge (``repro_torch.bridge``) is a copy key for key. Modules are built
@@ -139,7 +139,8 @@ def embed(emb: Embedding, tokens: torch.Tensor) -> torch.Tensor:
 
 def _mask_padded_vocab(logits: torch.Tensor, logical_vocab: int):
     """Padded vocab tail -> the dtype's most negative finite value, as the
-    reference masks it (later slices softmax over the padded width)."""
+    reference masks it: a softmax over the padded width (``softmax_xent``)
+    gives the tail zero mass and zero gradient."""
     padded = logits.shape[-1]
     if padded != logical_vocab:
         logits[..., logical_vocab:] = torch.finfo(logits.dtype).min
@@ -161,3 +162,18 @@ class OutputHead(nn.Module):
 
 def output_head(head: OutputHead, x: torch.Tensor, logical_vocab: int):
     return _mask_padded_vocab(x @ head.w, logical_vocab)
+
+
+# -------------------------------------------------------------------- losses
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token cross-entropy, in fp32. logits (..., V), labels (...)
+    int; ``mask`` (...) weights each position (1 = counted)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - ll
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

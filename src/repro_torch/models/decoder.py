@@ -12,8 +12,8 @@ in the dense cache, and per-slot rows of a recurrent-state pool
 (``cache["rec"]``, rows (n_slots + 1, L, ...)) on the paged path, whose
 page pools then have zero layers. Only global-attention dense stacks and
 SSM stacks are built so far (``models.model.build_model`` refuses the
-rest); ``decoder_forward`` (training's teacher-forced forward) comes with
-the training slice.
+rest). ``decoder_forward`` is training's teacher-forced pass, for dense
+stacks: differentiable, and it launches no kernel.
 """
 from __future__ import annotations
 
@@ -106,6 +106,33 @@ def decoder_prefill(model: Decoder, batch: dict, cfg, max_seq=None):
     cache["pos"] = S
     x = rmsnorm(model.ln_f, x[:, -1:], cfg.norm_eps)
     return _unembed(model, x, cfg)[:, 0], cache
+
+
+def decoder_forward(model: Decoder, batch: dict, cfg):
+    """Teacher-forced forward over ``batch["tokens"]`` (B, S) int. Returns
+    (logits (B, S, V) over the padded vocab, tail masked; aux, a 0-d fp32
+    zero: a dense stack has no MoE load-balance loss). Differentiable: the
+    attention is the plain masked softmax under autograd
+    (``attention.training_attention``; the reference chunks queries by
+    ``attn_chunk``, which gives the same values), and no kernel launches.
+    The SSM family's ``ssm_forward`` comes with a later slice."""
+    if cfg.family == "ssm":
+        raise NotImplementedError(
+            f"{cfg.name}: the SSM family's teacher-forced forward "
+            "(ssm_forward) comes with the dense ssm_forward slice; no tier "
+            "of the routing pipeline is an SSM")
+    tokens = batch["tokens"]
+    x = embed(model.embed, tokens)
+    positions = torch.arange(tokens.shape[1], device=x.device)
+    for i, layer in enumerate(model.layers):
+        h = rmsnorm(layer.ln1, x, cfg.norm_eps)
+        x = x + attn.training_attention(
+            layer.attn, h, cfg, is_global=cfg.layer_kind(i)["global_attn"],
+            positions=positions)
+        x = x + mlp(layer.mlp, rmsnorm(layer.ln2, x, cfg.norm_eps))
+    x = rmsnorm(model.ln_f, x, cfg.norm_eps)
+    return _unembed(model, x, cfg), torch.zeros((), dtype=torch.float32,
+                                                device=x.device)
 
 
 def _ssm_prefill_layer(ssm, h, cfg):

@@ -18,14 +18,16 @@ and paged serving paths of the dense and SSM families.
   lm_head(model, x (B, S, D)) -> logits (B, S, V)
   init_recurrent_state(n_rows, device="cuda") -> {"h", "conv"} row slabs
       (SSM family; None for attention stacks)
+  forward(model, batch {"tokens": (B, S)}) -> (logits (B, S, V), aux)
+      training's teacher-forced pass, differentiable (dense stacks; the
+      SSM family raises until the slice that brings ``ssm_forward``)
 
 Dense caches, page pools and recurrent-state rows are updated in place.
 The paged calls of the SSM family take ``cache["rec"]``, the recurrent
 state, beside the (zero-layer) pools, and ``state_rows`` names each
 prefill row's state row. Global-attention dense stacks and SSM stacks are
 built so far; the other families and sliding-window stacks raise and name
-the slice that brings them, and ``forward`` (training's teacher-forced
-pass) comes with the training slice.
+the slice that brings them.
 """
 from __future__ import annotations
 
@@ -58,6 +60,7 @@ class ModelBundle:
     decode_step_paged: Callable
     lm_head: Callable
     init_recurrent_state: Optional[Callable] = None
+    forward: Optional[Callable] = None
 
 
 def build_model(cfg: ArchConfig) -> ModelBundle:
@@ -97,5 +100,6 @@ def build_model(cfg: ArchConfig) -> ModelBundle:
             pages_bound=None: decoder.decoder_decode_step_paged(
                 m, c, t, page_table, seq_lens, active, cfg, pages_bound),
         lm_head=lambda m, x: decoder._unembed(m, x, cfg),
+        forward=lambda m, batch: decoder.decoder_forward(m, batch, cfg),
         init_recurrent_state=rec,
     )

@@ -521,10 +521,12 @@ class ContinuousEngine:
         return advanced
 
     # ------------------------------------------------------------------ step
+    @torch.no_grad()
     def step(self) -> List[Request]:
         """Admit, advance prefill chunks under the step budget, decode one
         token per DECODING slot, and retire. Returns the requests completed
-        during this step."""
+        during this step. Runs without autograd, so serving a module fresh
+        from training builds no graph."""
         t0 = time.monotonic()
         retired: List[Request] = []
         progressed = self._admit()

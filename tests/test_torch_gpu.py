@@ -620,3 +620,126 @@ def test_cuda_ssd_buckets_are_bitwise_equal(n, cuda):
     for l, y, st in outs[1:]:
         assert torch.equal(y, outs[0][1]), (n, l)
         assert torch.equal(st, outs[0][2]), (n, l)
+
+
+# ------------------------------------------------------------- training
+STEP_RTOL = 1e-4   # one training step, card vs CPU: loss and grad norm
+
+
+def _step_card_vs_cpu(make_module, make_step, batch, cuda):
+    """One training step from the same weights and batch on the CPU and on
+    the card: [cpu metrics, card metrics], loss and grad norm as floats.
+    ``batch`` is a tuple of tensors and dicts of tensors."""
+    from repro_torch.training.optim import init_opt_state
+    from repro_torch.training.trainer import trainable
+    to = lambda t, dev: {k: v.to(dev) for k, v in t.items()} \
+        if isinstance(t, dict) else t.to(dev)
+    cpu_model = make_module()
+    card_model = make_module().to(cuda)
+    card_model.load_state_dict(cpu_model.state_dict())
+    out = []
+    for model, dev in ((cpu_model, "cpu"), (card_model, cuda)):
+        step, ocfg = make_step()
+        with trainable(model):
+            m = step(model, init_opt_state(dict(model.named_parameters()),
+                                           ocfg),
+                     *[to(t, dev) for t in batch])[2]
+        torch.cuda.synchronize()
+        out.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+    return out
+
+
+@pytest.mark.gpu
+def test_cuda_router_train_step_matches_cpu(cuda):
+    from repro_torch.core import router
+    from repro_torch.data import tokenizer as tok
+    from repro_torch.data.tasks import generate_dataset
+    from repro_torch.models.encoder import RouterConfig, init_router_encoder
+    from repro_torch.training.optim import AdamWConfig
+    rcfg = RouterConfig(vocab_size=tok.VOCAB_SIZE, n_layers=2, d_model=64,
+                        n_heads=4, d_ff=256)
+    ds = generate_dataset(np.random.default_rng(0), 32)
+    y = np.random.default_rng(1).uniform(size=32).astype(np.float32)
+    ocfg = AdamWConfig()
+    cpu, card = _step_card_vs_cpu(
+        lambda: init_router_encoder(rcfg, torch.Generator().manual_seed(0),
+                                    "cpu"),
+        lambda: (router.make_train_step(rcfg, ocfg), ocfg),
+        (torch.tensor(ds.query).long(), torch.tensor(ds.query_mask),
+         torch.tensor(y)), cuda)
+    for k in cpu:
+        assert abs(card[k] - cpu[k]) <= STEP_RTOL * abs(cpu[k]), (k, cpu, card)
+
+
+@pytest.mark.gpu
+def test_cuda_lm_train_step_matches_cpu(cuda):
+    from repro_torch.core.experiment import TIERS
+    from repro_torch.data.tasks import generate_dataset, lm_training_arrays
+    from repro_torch.models.model import build_model
+    from repro_torch.training.optim import AdamWConfig
+    from repro_torch.training.trainer import make_lm_train_step
+    cfg = TIERS["large"][0]   # head_dim 24
+    bundle = build_model(cfg)
+    arrays = lm_training_arrays(generate_dataset(np.random.default_rng(2),
+                                                 16))
+    ocfg = AdamWConfig()
+    cpu, card = _step_card_vs_cpu(
+        lambda: bundle.init(torch.Generator().manual_seed(1), "cpu"),
+        lambda: (make_lm_train_step(bundle, ocfg), ocfg),
+        ({k: torch.tensor(v) for k, v in arrays.items()},), cuda)
+    for k in cpu:
+        assert abs(card[k] - cpu[k]) <= STEP_RTOL * abs(cpu[k]), (k, cpu, card)
+
+
+@pytest.mark.gpu
+def test_cuda_cascade_pool_launches_paged_kernels(cuda):
+    """A 3-tier shared-score CascadePolicy over three of the pipeline's
+    tiers: every tier receives queries, and each launches both paged
+    kernels on the card; the pool dispatches as the policy decides and
+    leaks no page."""
+    from repro_torch.core.experiment import TIERS
+    from repro_torch.core.routing import CascadePolicy, HybridRouter
+    from repro_torch.data import tokenizer as tok
+    from repro_torch.data.tasks import generate_dataset
+    from repro_torch.models.encoder import RouterConfig, init_router_encoder
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import ContinuousEngine
+    from repro_torch.serving.pool import ContinuousPoolEngine
+    rcfg = RouterConfig(vocab_size=tok.VOCAB_SIZE, n_layers=1, d_model=32,
+                        n_heads=2, d_ff=64)
+    r = HybridRouter(init_router_encoder(
+        rcfg, torch.Generator(device=cuda).manual_seed(0), cuda), rcfg, 0.0)
+    ds = generate_dataset(np.random.default_rng(3), 24)
+    s = np.sort(r.scores(ds.query, ds.query_mask).cpu().numpy())
+    policy = CascadePolicy(r, (float(s[15] + s[16]) / 2,
+                               float(s[7] + s[8]) / 2))
+    names = ("small", "medium", "large")
+    engines, per_tier = [], {}
+    for i, name in enumerate(names):
+        bundle = build_model(TIERS[name][0])
+        eng = ContinuousEngine(bundle, bundle.init(
+            torch.Generator(device=cuda).manual_seed(i), cuda),
+            max_new_tokens=6, n_slots=4, max_seq=64)
+        per_tier[name] = [0, 0]
+
+        def counted(step=eng.step, name=name):
+            d0 = dec_ops.paged_decode_attention_gqa.launches
+            p0 = pre_ops.paged_prefill_attention_gqa.launches
+            out = step()
+            per_tier[name][0] += dec_ops.paged_decode_attention_gqa.launches \
+                - d0
+            per_tier[name][1] += pre_ops.paged_prefill_attention_gqa.launches \
+                - p0
+            return out
+        eng.step = counted
+        engines.append((name, eng))
+    pool = ContinuousPoolEngine(policy, engines)
+    res = pool.serve(ds.query, ds.query_mask)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(res.tier_idx,
+                                  policy.decide(ds.query, ds.query_mask)[0])
+    assert np.bincount(res.tier_idx, minlength=3).tolist() == [8, 8, 8]
+    assert pool.meter.total_calls == 24 and (res.lengths >= 1).all()
+    for name, eng in engines:
+        assert per_tier[name][0] > 0 and per_tier[name][1] > 0, per_tier
+        assert eng.cache.free_pages == eng.cache.num_pages - 1
