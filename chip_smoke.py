@@ -11,8 +11,9 @@ and prints no result line):
 3. The five kernels (paged decode and prefill, flash prefill, dense
    decode, SSD chunk scan) against their plain PyTorch versions on the
    card, one case per launch mode, at the main paths' shapes and beside
-   them (the paged kernels' main cases also bit for bit under two page
-   walk bounds and slot by slot); the kernel's time (CUDA events around
+   them (the paged kernels' main and gemma3 cases also bit for bit under
+   two page walk bounds, slot by slot, and from page 0 against the
+   engine's late first page under a window); the kernel's time (CUDA events around
    back-to-back launches), the plain version's, one library call's where
    PyTorch has one (SDPA), and the least time the card could take for the
    same work.
@@ -32,10 +33,24 @@ and prints no result line):
    each tier, and no page may leak), then through the dense hybrid path
    (it must route as the pool did, launch the SSD kernel once per layer
    per prefill on each tier, and no kernel in decode).
-5. The card against the CPU: the qwen and mamba2 full tiers at depth 1,
-   the paged path (a prefill chunk, two decode steps) and the dense path
-   (a prefill, two decode steps) on each device, logits compared.
-6. The paper's pipeline (after phase 5, on the memory phases 4 and 5
+   4d. The sliding-window slice: two gemma3-4b tiers ("full": the
+   published config, 34 layers, 29 local with a 1024-token window; "half":
+   scaled_sibling(., 2), 17 layers) behind a router at DeBERTa-v3-large's
+   widths over gemma's vocabulary serve 16 prompts of 1040-1984 tokens
+   through the pool (K1 and K2 on both tiers, some launches windowed with
+   a late first page; no page leaked); the half tier serves the stream
+   under the live and the static walk (the same greedy tokens); four
+   prompts admitted one-shot on the full tier (K4 at window 1024 and
+   head_dim 256) agree with chunked admission's first-token logits; the
+   dense hybrid path routes as the pool did (K4 once per layer per
+   prefill, K5 once per layer per decode step, local layers windowed).
+5. The card against the CPU: the qwen and mamba2 full tiers at depth 1
+   (before phase 4d, which runs on the memory phases 4-4c held), and
+   gemma3-4b at depth 6 (one local:global period, after phase 4d) on
+   prompts past the window, the paged path (prefill chunks, two decode
+   steps) and the dense path (a prefill, two decode steps) on each
+   device, logits compared.
+6. The paper's pipeline (after phase 5, on the memory phases 4 to 5
    held): (a) train_router for one epoch at DeBERTa-v3-large's widths and
    (b) train_lm for 6 steps on the "half" qwen tier, each timed per step
    with its peak memory and its first step repeated on the CPU (loss and
@@ -48,11 +63,15 @@ and prints no result line):
 
 It imports neither JAX nor the JAX package. Weights are random, from
 seeded torch.Generators; nothing is downloaded. The last two lines are a
-JSON object listing the kernels and the result line.
+JSON object listing the kernels and the result line. A kernel's
+"launches" there are those of the first main path that runs it (qwen1.5-32b
+for K1, K2, K4 and K5, mamba2-130m for K3), and "launches_by_path" holds
+each path's own count, read just after that path ran from 0.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -70,6 +89,7 @@ DEVICE_TOL = 1e-3               # fp32 card vs CPU logits through a 5120-wide
                                 # layer: sums over up to 27392 terms in
                                 # another order on each device
 N_PROMPTS, NEW_TOKENS, N_SLOTS, MAX_SEQ = 16, 32, 8, 1024
+GEMMA_MAX_SEQ = 2048    # gemma3-4b's pool: contexts of 1040-2016 tokens
 # the router's encoder at DeBERTa-v3-large's widths (the paper's router)
 DEBERTA_V3_LARGE = dict(n_layers=24, d_model=1024, n_heads=16, d_ff=4096,
                         max_seq=512)
@@ -184,13 +204,13 @@ def _idle_slot_is_zero(out):
 
 
 def _paged_case(name, op, ref, args, kw, nbytes, flops, check=None,
-                report=None, ps=16):
+                report=None, ps=16, timed=False):
     shape = "x".join(map(str, args[0].shape))
     if check is None and name == "ragged_idle":
         check = _idle_slot_is_zero
     c = _case(name, f"q {shape}, ps {ps} {kw}", lambda: op(*args, **kw),
               lambda: ref(*args, **kw), nbytes, flops, check=check,
-              report=report)
+              report=report, timed=timed)
     c.update(args=args, kw=kw)
     return c
 
@@ -205,10 +225,17 @@ def decode_cases(torch, dev):
     in two row blocks of 8, head_dim 256 at G = 2 (gemma3-4b's heads) and
     head_dim 98 (4-byte loads, a padding row). "main" also checks that its
     output is bit-identical under the pages it needs and under the full
-    table width, and for each slot launched alone."""
+    table width, and for each slot launched alone. "gemma3" is the gemma3-4b
+    pool's decode on a local layer: 8 slots at contexts of 1040-2016, 4 kv
+    heads of 256, G = 2, window 1024, the walk from the engine's first page
+    (``window_start_page``). "main" and "gemma3" also check that a window
+    walk gives the same bits from page 0 and from the engine's first page
+    ("main" under a window of 128)."""
     import numpy as np
     from repro_torch.kernels.paged_decode_attention import ops
+    from repro_torch.serving.engine import window_start_page
     rng = np.random.default_rng(1)
+    grng = np.random.default_rng(21)    # the gemma3 case's contexts
     spec = {  # name: (K, G, D, ps, lens, pages_start, window)
         "main": (40, 1, 128, 16, rng.integers(33, 545, 8), 0, 0),
         "gqa": (8, 8, 128, 16, rng.integers(33, 545, 8), 0, 0),
@@ -224,11 +251,15 @@ def decode_cases(torch, dev):
         "rows_past_8": (4, 12, 128, 16, rng.integers(33, 545, 8), 0, 0),
         "head_dim_256": (4, 2, 256, 16, rng.integers(33, 545, 8), 0, 0),
         "head_dim_98": (8, 3, 98, 16, rng.integers(33, 545, 8), 0, 0),
+        "gemma3": (4, 2, 256, 16, grng.integers(1040, 2017, 8), None, 1024),
     }
     out = []
     for name, (K, G, D, ps, lens, pstart, window) in spec.items():
         lens = np.asarray(lens, np.int32)
-        B, MP = len(lens), MAX_SEQ // ps
+        if pstart is None:   # the engine's: slot b's first key is len - window
+            pstart = window_start_page(int(lens.min()) - window, ps)
+        B = len(lens)
+        MP = (GEMMA_MAX_SEQ if name == "gemma3" else MAX_SEQ) // ps
         kp, vp, pt = _pool(torch, rng, K, D, ps, MP, lens, dev)
         g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
         q = torch.randn((B, K, G, D), generator=g, device=dev) * D ** -0.5
@@ -240,13 +271,16 @@ def decode_cases(torch, dev):
         flops = 4 * int(keys.sum()) * K * G * D
         args = (q, kp, vp, pt, torch.tensor(lens, device=dev))
         op = ops.paged_decode_attention_gqa
-        main = name == "main"
+        main = name in ("main", "gemma3")
+        check = _idle_slot_is_zero if name == "page8_split_edges" else None
+        if main:
+            check = _all_of(_walk_bitwise(torch, op, args, kw),
+                            _start_bitwise(torch, op, args, kw,
+                                           window or 128, -window or -128))
         out.append(_paged_case(
             name, op, ops.paged_decode_attention_ref, args, kw, nbytes, flops,
-            check=_walk_bitwise(torch, op, args, kw) if main else
-            _idle_slot_is_zero if name == "page8_split_edges" else None,
-            report=_paged_standing("paged_decode_attention") if main
-            else None, ps=ps))
+            check=check, report=_paged_standing("paged_decode_attention")
+            if main else None, ps=ps, timed=main))
     return out
 
 
@@ -260,10 +294,17 @@ def prefill_cases(torch, dev):
     padding (G = 3), head_dim 256 in 64-row blocks (16-key tiles), and
     head_dim 18 (4-byte copies). "main" also checks that its output is
     bit-identical under the pages it needs and under the full table
-    width, and for each slot launched alone."""
+    width, and for each slot launched alone. "gemma3" is the gemma3-4b
+    pool's packed 16-token chunk on a local layer: 8 slots resident at
+    1024-2000 tokens, 4 kv heads of 256, G = 2, window 1024, the walk from
+    the engine's first page. "main" and "gemma3" also check that a window
+    walk gives the same bits from page 0 and from the engine's first page
+    ("main" under a window of 128)."""
     import numpy as np
     from repro_torch.kernels.paged_prefill_attention import ops
+    from repro_torch.serving.engine import window_start_page
     rng = np.random.default_rng(2)
+    grng = np.random.default_rng(22)    # the gemma3 case's contexts
     C = 16
     full = lambda n: np.full(8, n, np.int32)
     spec = {  # name: (K, G, D, ps, start, n_new, pages_start, window)
@@ -288,14 +329,18 @@ def prefill_cases(torch, dev):
                          0, 0),
         "head_dim_18": (8, 1, 18, 16, rng.integers(0, 900, 8), full(16), 0,
                         0),
+        "gemma3": (4, 2, 256, 16, grng.integers(1024, 2001, 8), full(16),
+                   None, 1024),
     }
     out = []
     for name, (K, G, D, ps, start, n_new, pstart, window) in spec.items():
         start = np.asarray(start, np.int32)
         n_new = np.asarray(n_new, np.int32)
         total = start + n_new
+        if pstart is None:   # the engine's: a chunk's first key is
+            pstart = window_start_page(int(start.min()) - window + 1, ps)
         B = len(start)
-        MP = MAX_SEQ // ps
+        MP = (GEMMA_MAX_SEQ if name == "gemma3" else MAX_SEQ) // ps
         kp, vp, pt = _pool(torch, rng, K, D, ps, MP, total, dev)
         g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
         q = torch.randn((B, K, C, G, D), generator=g, device=dev) * D ** -0.5
@@ -311,15 +356,18 @@ def prefill_cases(torch, dev):
         flops = 4 * int(sum(vis)) * K * G * D
         args = (q, kp, vp, pt, torch.tensor(start, device=dev),
                 torch.tensor(total, device=dev))
-        main = name == "main"
+        op = ops.paged_prefill_attention_gqa
+        main = name in ("main", "gemma3")
+        check = _idle_slot_is_zero if name == "page8_split_edge" else None
+        if main:
+            check = _all_of(_walk_bitwise(torch, op, args, kw),
+                            _start_bitwise(torch, op, args, kw,
+                                           window or 128, 1 - (window or 128)))
         out.append(_paged_case(
-            name, ops.paged_prefill_attention_gqa,
-            ops.paged_prefill_attention_ref, args, kw, nbytes, flops,
-            check=_walk_bitwise(torch, ops.paged_prefill_attention_gqa,
-                                args, kw) if main else
-            _idle_slot_is_zero if name == "page8_split_edge" else None,
+            name, op, ops.paged_prefill_attention_ref, args, kw, nbytes,
+            flops, check=check,
             report=_paged_standing("paged_prefill_attention") if main
-            else None, ps=ps))
+            else None, ps=ps, timed=main))
     return out
 
 
@@ -348,12 +396,56 @@ def _walk_bitwise(torch, op, args, kw):
     return check
 
 
+def _start_bitwise(torch, op, args, kw, window, offset):
+    """The check that a window walk (this case's own window, or ``window``
+    over its inputs) gives the same bits from page 0 as from the engine's
+    first page (``window_start_page``), packed and for each slot launched
+    alone from its own first page. A slot's earliest in-window key is
+    ``args[4][b] + offset``: len - window in decode, start - window + 1 in
+    prefill. ``args[4]`` holds decode's lengths or prefill's starts."""
+    from repro_torch.serving.engine import window_start_page
+
+    def check(got):
+        q, kp, vp, pt = args[:4]
+        ps = kp.shape[1]
+        need = lambda t: max(1, -(-int(t.max().item()) // ps))
+        first = lambda t: window_start_page(int(t.min().item()) + offset, ps)
+        base = dict(kw, window=window)
+        zero = op(*args, **dict(base, pages_start=0))
+        starts = [first(args[4])]
+        if not torch.equal(op(*args, **dict(base, pages_start=starts[0])),
+                           zero):
+            raise AssertionError(f"pages_start={starts[0]} changes the "
+                                 "bits of pages_start=0")
+        for b in range(q.shape[0]):
+            one = [t[b:b + 1] for t in args]
+            one[1], one[2] = kp, vp
+            p = first(one[4])
+            starts.append(p)
+            alone = op(*one, **dict(base, pages_start=p,
+                                    pages_bound=max(need(one[-1]), p + 1)))
+            if not torch.equal(alone[0], zero[b]):
+                raise AssertionError(f"slot {b} alone from page {p} differs "
+                                     "from the packed walk from page 0")
+        if max(starts) == 0:
+            raise AssertionError("no walk started past page 0")
+        return (f"window {window}: bit-identical from page 0 and from the "
+                f"engine's first page ({starts[0]} packed, "
+                f"{starts[1:]} alone)")
+    return check
+
+
+def _all_of(*checks):
+    """Several checks of one output, their reports joined."""
+    return lambda got: "; ".join(c(got) for c in checks)
+
+
 def _paged_standing(kname):
     """A paged kernel's standing at the main shape: its time as a share of
     its bytes bound and against its plain version."""
     def report(torch, c, ms, plain_ms, library_ms):
         bound_ms, by = _bound(c["nbytes"], c["flops"])
-        log(f"[kernels] {kname}[main] {bound_ms / ms:.3f} of the {by} bound "
+        log(f"[kernels] {kname}[{c['name']}] {bound_ms / ms:.3f} of the {by} bound "
             f"({bound_ms:.4f} ms), {ms / plain_ms:.3f}x its plain version's "
             f"time ({plain_ms:.4f} ms)")
     return report
@@ -368,9 +460,11 @@ def flash_cases(torch, dev):
     aligned, so the kernel copies 4 bytes at a time; head_dim 256
     (gemma3-4b's heads: the largest tiles). "main" is the full tier's
     dense prefill: 8 prompts of 512 tokens, 40 heads of 128, in the
-    model's (B, S, H, D) layout. The plain version expands kv to H heads
-    and runs on (B*H, S, D); the library yardstick is one SDPA call
-    (causal, scale 1 on the pre-scaled q)."""
+    model's (B, S, H, D) layout; "gemma3" the gemma3-4b dense prefill on a
+    local layer: 8 prompts of 2048 tokens, 8 heads of 256 over 4 kv heads,
+    window 1024. The plain version expands kv to H heads and runs on
+    (B*H, S, D); the library yardstick is one SDPA call (causal, scale 1
+    on the pre-scaled q; for "gemma3" a boolean window mask and GQA)."""
     import numpy as np
     from torch.nn import functional as F
     from repro_torch.kernels.flash_attention import ops
@@ -384,6 +478,7 @@ def flash_cases(torch, dev):
         "head_dim_24": (2, 130, 4, 4, 24, True, 0),
         "head_dim_20": (2, 77, 4, 4, 20, True, 0),
         "head_dim_256": (2, 512, 8, 4, 256, True, 0),
+        "gemma3": (8, 2048, 8, 4, 256, True, 1024),
     }
     g = torch.Generator(device=dev).manual_seed(3)
     out = []
@@ -414,14 +509,21 @@ def flash_cases(torch, dev):
             library = lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 is_causal=True, scale=1.0).transpose(1, 2)
+        elif name == "gemma3":
+            seen_t = torch.tensor(seen, device=dev)
+            library = lambda q=q, k=k, v=v, m=seen_t: \
+                F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    attn_mask=m, scale=1.0, enable_gqa=True).transpose(1, 2)
         desc = f"q {B}x{S}x{H}x{D}, kv heads {K} {kw}"
         if Dr != D:
             desc += f", rows {Dr} floats apart"
         out.append(_case(name, desc,
                          lambda q=q, k=k, v=v, kw=kw:
                              ops.flash_attention(q, k, v, **kw),
-                         plain, nbytes, flops, library,
-                         report=_flash_standing if name == "main" else None))
+                         plain, nbytes, flops, library, timed=library
+                         is not None, report=_flash_standing
+                         if library is not None else None))
     return out
 
 
@@ -447,7 +549,7 @@ def _flash_standing(torch, c, ms, plain_ms, library_ms):
         elif getattr(e, "device_type", None) is not None and \
                 str(e.device_type).endswith("CUDA"):
             kernels.append(e.key[:100])
-    log(f"[kernels] flash_attention[main] {bound_ms / ms:.3f} of the fp32 "
+    log(f"[kernels] flash_attention[{c['name']}] {bound_ms / ms:.3f} of the fp32 "
         f"bound ({bound_ms:.4f} ms), {ms / library_ms:.3f}x SDPA's time "
         f"({library_ms:.4f} ms); 3xTF32 tensor-core floor {tc_ms:.4f} ms "
         f"(3 x {c['flops']} flop at {PEAK_TF32_FLOP_PER_S / 1e12:g} TFLOP/s)")
@@ -462,9 +564,12 @@ def dense_decode_cases(torch, dev):
     24, and the windowed (attention-sink) layout whose first 512 keys are
     all invalid. "main" is the full tier's decode mid-generation: 8 rows,
     40 kv heads of 128 over the 544-position cache, 528 keys valid, read
-    in place from a layer's slice of the (L, B, S, K, D) cache. The plain
-    version regroups to (B*K, G, D); the library yardstick is one SDPA
-    call with a boolean mask from ``valid``."""
+    in place from a layer's slice of the (L, B, S, K, D) cache; "gemma3"
+    the gemma3-4b dense decode on a local layer mid-generation: 8 rows, 4
+    kv heads of 256, G = 2, over the 2080-position cache at position 2064,
+    the 1024-key window in ``valid``. The plain version regroups to
+    (B*K, G, D); the library yardstick is one SDPA call with a boolean
+    mask from ``valid`` (and GQA for "gemma3")."""
     import numpy as np
     from torch.nn import functional as F
     from repro_torch.kernels.decode_attention import ops
@@ -476,6 +581,7 @@ def dense_decode_cases(torch, dev):
         "gqa": (4, 300, 8, 4, 128, "random"),
         "head_dim_24": (4, 130, 4, 1, 24, "prefix"),
         "windowed_sink": (4, 600, 8, 2, 64, "late_window"),
+        "gemma3": (8, 2080, 4, 2, 256, "gemma3"),
     }
     g = torch.Generator(device=dev).manual_seed(5)
     out = []
@@ -492,6 +598,8 @@ def dense_decode_cases(torch, dev):
         elif layout == "random":
             valid = rng.random((B, S)) < 0.6
             valid[:, -1] = True
+        elif layout == "gemma3":
+            valid = np.repeat((pos <= 2064) & (2064 - pos < 1024), B, axis=0)
         else:
             valid = pos >= rng.integers(512, S, (B, 1))
         n_valid = int(valid.sum())
@@ -506,17 +614,18 @@ def dense_decode_cases(torch, dev):
                 valid.repeat_interleave(K, 0)).reshape(B, K * G, D)
 
         library = None
-        if name == "main":
-            library = lambda q=q, k=k, v=v, valid=valid: \
+        if name in ("main", "gemma3"):
+            library = lambda q=q, k=k, v=v, valid=valid, gqa=G > 1: \
                 F.scaled_dot_product_attention(
                     q[:, :, None], k.movedim(2, 1), v.movedim(2, 1),
                     attn_mask=valid.bool()[:, None, None, :],
-                    scale=1.0)[:, :, 0]
+                    scale=1.0, enable_gqa=gqa)[:, :, 0]
         out.append(_case(name, f"q {B}x{H}x{D}, cache {B}x{S}x{K}x{D}, "
                          f"{n_valid} valid keys",
                          lambda q=q, k=k, v=v, valid=valid:
                              ops.decode_attention_kv(q, k, v, valid),
-                         plain, nbytes, flops, library))
+                         plain, nbytes, flops, library,
+                         timed=library is not None))
     return out
 
 
@@ -755,17 +864,19 @@ def kernel_phase(torch):
             if c["name"] == "main":
                 row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                            bound_by=bound_by)
-            lib = ""
+            lib, lib_ms = "", None
             if c["library"] is not None:
                 lib_err = (c["library"]() - want).abs().max().item()
-                row["library_ms"] = _time_ms(torch, c["library"])
-                lib = (f", library {row['library_ms']:.4f} ms (max abs err "
+                lib_ms = _time_ms(torch, c["library"])
+                if c["name"] == "main":
+                    row["library_ms"] = lib_ms
+                lib = (f", library {lib_ms:.4f} ms (max abs err "
                        f"{lib_err:.3g})")
             log(f"[kernels] {kname}[{c['name']}] kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms{lib}, bound {bound_ms:.4f} ms "
                 f"({bound_by}: {c['nbytes']} B, {c['flops']} flop)")
             if c["report"] is not None:
-                c["report"](torch, c, ms, plain_ms, row["library_ms"])
+                c["report"](torch, c, ms, plain_ms, lib_ms)
         row["max_abs_err"] = worst
         rows.append(row)
     return rows
@@ -1116,6 +1227,372 @@ def ssm_phase(torch, card: str, smi: str, router):
                 launches=pool_launches + dense_launches)
 
 
+# ----------------------------------------------------------------- phase 4d
+def _watch_attention(torch, attention, log_to):
+    """Wrap the attention kernels' wrappers where the model calls them
+    (``repro_torch.models.attention``'s names) to count each call in
+    ``log_to`` (a Counter) under (tier, kernel, mode): the paged kernels'
+    (window > 0, pages_start > 0), flash attention's (window, head_dim);
+    dense decode's validity counts (the most valid keys of a row, a device
+    tensor, read after the run) go to ``log_to["valid", tier]``. The
+    tier is ``tier[0]``, set by the caller. Returns (tier, restore)."""
+    tier = [None]
+    names = ("paged_decode_attention_gqa", "paged_prefill_attention_gqa",
+             "flash_attention", "decode_attention_kv")
+    originals = {n: getattr(attention, n) for n in names}
+
+    def mode(n, args, kw):
+        if n == "flash_attention":
+            return kw.get("window", 0), args[0].shape[-1]
+        return kw.get("window", 0) > 0, kw.get("pages_start", 0) > 0
+
+    def watched(n, fn):
+        def run(*args, **kw):
+            if n == "decode_attention_kv":
+                log_to.setdefault(("valid", tier[0]), []).append(
+                    args[3].sum(-1, dtype=torch.int32).max())
+            else:
+                log_to[(tier[0], n) + mode(n, args, kw)] += 1
+            return fn(*args, **kw)
+        return run
+
+    for n, fn in originals.items():
+        setattr(attention, n, watched(n, fn))
+
+    def restore():
+        for n, fn in originals.items():
+            setattr(attention, n, fn)
+    return tier, restore
+
+
+def gemma_setup(torch):
+    """Phase 4d's models, router and prompts, on the card, from seeds: the
+    "half" and "full" gemma3-4b tiers, a router at DeBERTa-v3-large's
+    widths over gemma's vocabulary and 2048 positions gating at the
+    prompts' median score, and 16 prompts of 1040-1984 tokens as
+    (16, 2048) PAD-padded tokens and mask."""
+    import numpy as np
+    from repro_torch.configs.gemma3_4b import CONFIG as GEMMA
+    from repro_torch.core.routing import HybridRouter
+    from repro_torch.models.encoder import RouterConfig, init_router_encoder
+    from repro_torch.models.model import build_model
+    dev = torch.device("cuda")
+    cfgs = {"half": scaled_sibling(GEMMA, 2), "full": GEMMA}
+    bundles = {n: build_model(c) for n, c in cfgs.items()}
+    models = {n: bundles[n].init(torch.Generator(device=dev)
+                                 .manual_seed(300 + i), dev)
+              for i, n in enumerate(cfgs)}
+    rcfg = RouterConfig(vocab_size=GEMMA.vocab_size,
+                        **dict(DEBERTA_V3_LARGE, max_seq=GEMMA_MAX_SEQ))
+    probe = HybridRouter(init_router_encoder(
+        rcfg, torch.Generator(device=dev).manual_seed(307), dev), rcfg, 0.0)
+    rng = np.random.default_rng(30)
+    lens = rng.integers(1040, 1985, N_PROMPTS)
+    tokens = rng.integers(4, GEMMA.vocab_size, (N_PROMPTS, GEMMA_MAX_SEQ)
+                          ).astype(np.int32)
+    mask = (np.arange(GEMMA_MAX_SEQ)[None] < lens[:, None]).astype(np.float32)
+    tokens[mask == 0] = 0
+    router = probe.with_threshold(float(np.median(
+        probe.scores(tokens, mask).cpu().numpy())))
+    return dict(cfgs=cfgs, bundles=bundles, models=models, router=router,
+                tokens=tokens, mask=mask, lens=lens)
+
+
+def gemma_phase(torch, card: str, smi: str):
+    """Phase 4d, the sliding-window slice at the published widths and
+    depth: two gemma3-4b tiers ("full": the published config, 34 layers,
+    29 of them local with a 1024-token window; "half": scaled_sibling(., 2),
+    17 layers) behind a router at DeBERTa-v3-large's widths over gemma's
+    vocabulary and 2048 positions. 16 prompts of 1040-1984 tokens, so every
+    local layer's walk starts past page 0. Runs, in turn: the continuous
+    pool (K1 and K2 on both tiers, some launches windowed with a late
+    first page; no page leaked); the half tier over the whole stream under
+    the live and the static walk (the same greedy tokens); one-shot
+    admission of four prompts on the full tier (K4 at window 1024, head_dim
+    256; first-token logits against chunked admission's within
+    DEVICE_TOL); the dense hybrid path (routes as the pool did; K4 once
+    per layer per prefill, windowed on local layers; K5 once per layer per
+    decode step, local layers' validity within the window). Returns the
+    full model and the main paths' launches."""
+    import collections
+    import numpy as np
+    from repro_torch.core.routing import ThresholdPolicy
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.paged_decode_attention import ops as pdec
+    from repro_torch.kernels.paged_prefill_attention import ops as ppre
+    from repro_torch.models import attention
+    from repro_torch.serving.engine import ContinuousEngine, Engine
+    from repro_torch.serving.hybrid import HybridEngine
+    from repro_torch.serving.pool import ContinuousPoolEngine
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    setup = gemma_setup(torch)
+    torch.cuda.synchronize()
+    cfgs, bundles, models = setup["cfgs"], setup["bundles"], setup["models"]
+    router, tokens, mask = setup["router"], setup["tokens"], setup["mask"]
+    lens, GEMMA = setup["lens"], cfgs["full"]
+    W, Dh = GEMMA.sliding_window, GEMMA.resolved_head_dim
+    for name, cfg in cfgs.items():
+        n_local = sum(cfg.layer_window(j) > 0 for j in range(cfg.n_layers))
+        log(f"[gemma] tier {name}: {cfg.n_layers} layers ({n_local} local, "
+            f"window {cfg.sliding_window}), d_model {cfg.d_model}, "
+            f"{cfg.n_heads} heads of {cfg.resolved_head_dim} over "
+            f"{cfg.n_kv_heads} kv heads, d_ff {cfg.d_ff}, vocab "
+            f"{cfg.vocab_size}, {cfg.param_count() / 1e9:.2f} B params")
+    log(f"[gemma] random init and the router's threshold on the card: "
+        f"{time.monotonic() - t0:.1f} s")
+    prompts = [tokens[i, :n] for i, n in enumerate(lens)]
+    threshold = router.threshold
+    calls = collections.Counter()
+    tier, restore = _watch_attention(torch, attention, calls)
+    try:
+        # ---- the continuous pool
+        kw = dict(max_new_tokens=NEW_TOKENS, n_slots=N_SLOTS,
+                  max_seq=GEMMA_MAX_SEQ)
+        tiers = [(name, ContinuousEngine(bundles[name], models[name], **kw))
+                 for name in cfgs]
+        for name, eng in tiers:   # warm-up outside the counts
+            tier[0] = "warm-up"
+            eng.serve(tokens[:2, :48], seed=1)
+            eng.stats = type(eng.stats)()
+            eng._decode_bounds.clear()
+            eng._chunk_shapes.clear()
+            eng.step = _in_tier(tier, name, eng.step)
+        pool = ContinuousPoolEngine(ThresholdPolicy(router), tiers)
+        calls.clear()
+        pdec.paged_decode_attention_gqa.launches = 0
+        ppre.paged_prefill_attention_gqa.launches = 0
+        t0 = time.monotonic()
+        res = pool.serve(tokens, mask, seed=0)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = {"paged_decode_attention":
+                    pdec.paged_decode_attention_gqa.launches,
+                    "paged_prefill_attention":
+                    ppre.paged_prefill_attention_gqa.launches}
+        summary = pool.meter.summary()
+        for name, eng in tiers:
+            by_mode = {f"{k[1].split('_')[1]} window={int(k[2])} "
+                       f"late={int(k[3])}": n for k, n in sorted(calls.items())
+                       if k[0] == name}
+            log(f"[gemma] pool {name}: calls {summary[name]['calls']}, "
+                f"tokens {summary[name]['gen_tokens']}, decode steps "
+                f"{eng.stats.decode_steps}, prefill dispatches "
+                f"{eng.stats.prefill_dispatches}, calls by mode "
+                f"{by_mode}, free pages {eng.cache.free_pages} of "
+                f"{eng.cache.num_pages}")
+            log(f"[gemma] pool {name}: decode (bound, wstart) "
+                f"{sorted(eng._decode_bounds)}; prefill (batch, width, bound,"
+                f" wstart) {sorted(eng._chunk_shapes)}")
+            for k in ("paged_decode_attention_gqa",
+                      "paged_prefill_attention_gqa"):
+                if calls[(name, k, True, True)] <= 0 or \
+                        calls[(name, k, False, False)] <= 0:
+                    raise AssertionError(f"gemma pool tier {name}: {k} ran "
+                                         "no windowed late-start launch or "
+                                         "no global one")
+            if eng.cache.free_pages != eng.cache.num_pages - 1:
+                raise AssertionError(f"gemma pool tier {name}: pages leaked")
+        # the watch counts calls where the model makes them; the wrappers
+        # count their own launches: on the card the two must agree
+        watched = {"paged_decode_attention": sum(
+                       n for k, n in calls.items()
+                       if k[1] == "paged_decode_attention_gqa"),
+                   "paged_prefill_attention": sum(
+                       n for k, n in calls.items()
+                       if k[1] == "paged_prefill_attention_gqa")}
+        if watched != launches:
+            raise AssertionError(f"gemma pool: calls by mode {watched} != "
+                                 f"the wrappers' launches {launches}")
+        if not np.array_equal(res.tier_idx, (res.scores < threshold)) \
+                or sum(v["calls"] for v in summary.values()) != N_PROMPTS \
+                or not 0 < res.tier_idx.sum() < N_PROMPTS:
+            raise AssertionError(f"gemma pool: routing or calls {summary}")
+        if not (res.lengths >= 1).all() or res.responses.max() >= \
+                GEMMA.vocab_size or res.responses.min() < 0:
+            raise AssertionError("gemma pool: responses out of range")
+        n_tok = int(res.lengths.sum())
+        log(f"[gemma] pool: {N_PROMPTS} requests retired "
+            f"({np.bincount(res.tier_idx, minlength=2).tolist()} half/full),"
+            f" threshold {threshold:.6f}, K1 {launches['paged_decode_attention']}"
+            f" and K2 {launches['paged_prefill_attention']} launches, {n_tok} "
+            f"tokens in {wall:.3f} s = {n_tok / wall:.1f} tokens/s on {card} "
+            f"({smi})")
+
+        # ---- the half tier over the whole stream, live and static walks
+        live = tiers[0][1]
+        static = ContinuousEngine(bundles["half"], models["half"],
+                                  walk_bound="static", **kw)
+        outs = {}
+        for walk, eng in (("live", live), ("static", static)):
+            tier[0] = walk
+            t0 = time.monotonic()
+            reqs = [eng.submit(p) for p in prompts]
+            eng.run()
+            torch.cuda.synchronize()
+            outs[walk] = [r.out for r in reqs]
+            n_tok = sum(map(len, outs[walk]))
+            log(f"[gemma] half tier, {walk} walk: {n_tok} tokens in "
+                f"{time.monotonic() - t0:.3f} s, decode (bound, wstart) "
+                f"{sorted(eng._decode_bounds)}")
+        if outs["live"] != outs["static"]:
+            raise AssertionError("gemma half tier: the live and the static "
+                                 "walk emit different greedy tokens")
+        if static._decode_bounds != {(static.cache.max_pages_per_slot, 0)}:
+            raise AssertionError("the static walk started late")
+        log(f"[gemma] half tier: live and static walks emit the same greedy "
+            f"tokens for all {N_PROMPTS} prompts")
+        del static
+
+        # ---- one-shot admission against chunked, on the full tier
+        firsts = {}
+        chunked = tiers[1][1]
+        one_shot = ContinuousEngine(bundles["full"], models["full"],
+                                    prefill_chunk=0, **kw)
+        for how, eng in (("one-shot", one_shot), ("chunked", chunked)):
+            firsts[how] = _first_logits(eng)
+            tier[0] = how
+            reqs = [eng.submit(p, max_new_tokens=2) for p in prompts[:4]]
+            eng.run()
+            torch.cuda.synchronize()
+            firsts[how] = [firsts[how][r.rid] for r in reqs]
+        del one_shot, eng
+        n_local = sum(GEMMA.layer_window(j) > 0
+                      for j in range(GEMMA.n_layers))
+        want = {("one-shot", "flash_attention", W, Dh): 4 * n_local,
+                ("one-shot", "flash_attention", 0, Dh):
+                    4 * (GEMMA.n_layers - n_local)}
+        got = {k: calls[k] for k in want}
+        if got != want or any(k[:2] == ("one-shot",
+                                        "paged_prefill_attention_gqa")
+                              for k in calls):
+            raise AssertionError(f"one-shot admission launches {got} != "
+                                 f"{want}")
+        errs = [(a - b).abs().max().item()
+                for a, b in zip(firsts["one-shot"], firsts["chunked"])]
+        same = [int(a.argmax()) == int(b.argmax())
+                for a, b in zip(firsts["one-shot"], firsts["chunked"])]
+        log(f"[gemma] one-shot admission of 4 prompts ({lens[:4].tolist()} "
+            f"tokens) on the full tier: K4 launches {got}; first-token "
+            f"logits against chunked admission's: max abs err "
+            f"{max(errs):.3g} <= DEVICE_TOL {DEVICE_TOL} (each "
+            f"{[f'{e:.3g}' for e in errs]}), greedy first tokens agree "
+            f"{same}")
+        if not max(errs) <= DEVICE_TOL:
+            raise AssertionError(f"one-shot vs chunked first-token logits "
+                                 f"{max(errs)} > {DEVICE_TOL}")
+        del tiers, pool, live, chunked
+        gc.collect()     # the engines' wrapped methods hold them in cycles
+        torch.cuda.empty_cache()
+
+        # ---- the dense hybrid path on the same models and router
+        engines = {name: Engine(bundles[name], models[name],
+                                max_new_tokens=NEW_TOKENS) for name in cfgs}
+        for name, eng in engines.items():   # warm-up outside the counts
+            tier[0] = "warm-up"
+            eng.serve(tokens[:2, :48], seed=1)
+            eng.stats = type(eng.stats)()
+            eng.serve = _in_tier(tier, name, eng.serve)
+        hy = HybridEngine(router, engines["half"], engines["full"])
+        calls.clear()
+        fa.flash_attention.launches = 0
+        dec.decode_attention_kv.launches = 0
+        t0 = time.monotonic()
+        dres = hy.serve(tokens, mask, seed=0)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches.update(flash_attention=fa.flash_attention.launches,
+                        decode_attention=dec.decode_attention_kv.launches)
+        for name, cfg in cfgs.items():
+            L = cfg.n_layers
+            n_local = sum(cfg.layer_window(j) > 0 for j in range(L))
+            valid = torch.stack(calls[("valid", name)]).cpu().numpy()
+            got = {"flash local": calls[(name, "flash_attention", W, Dh)],
+                   "flash global": calls[(name, "flash_attention", 0, Dh)],
+                   "decode in window": int((valid <= W).sum()),
+                   "decode past window": int((valid > W).sum())}
+            want = {"flash local": n_local, "flash global": L - n_local,
+                    "decode in window": n_local * NEW_TOKENS,
+                    "decode past window": (L - n_local) * NEW_TOKENS}
+            log(f"[gemma] dense {name}: {engines[name].stats.requests} "
+                f"requests, calls {got} (expected {want}), KV slab "
+                f"{engines[name].stats.kv_high_water_bytes / 1e9:.3f} GB")
+            if got != want:
+                raise AssertionError(f"gemma dense tier {name}: {got} != "
+                                     f"{want}")
+        watched = {"flash_attention": sum(
+                       n for k, n in calls.items()
+                       if k[1:2] == ("flash_attention",)),
+                   "decode_attention": sum(
+                       len(v) for k, v in calls.items() if k[0] == "valid")}
+        if watched != {k: launches[k] for k in watched}:
+            raise AssertionError(f"gemma dense: calls {watched} != the "
+                                 f"wrappers' launches {launches}")
+        if launches["flash_attention"] != sum(c.n_layers for c in
+                                              cfgs.values()) \
+                or launches["decode_attention"] != NEW_TOKENS * sum(
+                    c.n_layers for c in cfgs.values()):
+            raise AssertionError(f"gemma dense launches {launches}")
+        if not np.array_equal(dres.routed_small, res.tier_idx == 0):
+            raise AssertionError("gemma: the dense hybrid path routes "
+                                 "differently from the pool")
+        if not (dres.lengths >= 1).all() or dres.responses.max() >= \
+                GEMMA.vocab_size or dres.responses.min() < 0:
+            raise AssertionError("gemma dense: responses out of range")
+        n_tok = int(dres.lengths.sum())
+        log(f"[gemma] dense: {N_PROMPTS} requests "
+            f"({int(dres.routed_small.sum())} half, "
+            f"{int((~dres.routed_small).sum())} full), {n_tok} tokens in "
+            f"{wall:.3f} s = {n_tok / wall:.1f} tokens/s on {card} ({smi})")
+        log(f"[gemma] peak memory in phase 4d: {_peak(torch)}")
+    finally:
+        restore()
+    return dict(model=models["full"], cfg=GEMMA, launches=launches)
+
+
+def _in_tier(tier, name, fn):
+    """``fn`` run with ``tier[0]`` set to ``name`` (the attention watch's
+    tier)."""
+    def run(*args, **kw):
+        tier[0] = name
+        return fn(*args, **kw)
+    return run
+
+
+def _first_logits(eng):
+    """Record each request's first-token logits on ``eng``: the rows of
+    the prefill logits (one-shot admission, ``bundle.prefill``) or of the
+    LM head over finished prompts (chunked admission, ``bundle.lm_head``),
+    in the order the engine then pushes their first tokens. Returns
+    {rid: logits (V,) on the card}, filled as the engine runs."""
+    pending, firsts = [], {}
+    bundle = eng.bundle
+
+    def prefill(*args, **kw):
+        logits, cache = bundle.prefill(*args, **kw)
+        pending.extend(logits)
+        return logits, cache
+
+    def lm_head(*args, **kw):
+        out = bundle.lm_head(*args, **kw)
+        pending.extend(out[:, 0])
+        return out
+
+    push = eng._push_token
+
+    def push_token(req, token):
+        if req.rid not in firsts:
+            firsts[req.rid] = pending.pop(0)
+        return push(req, token)
+
+    eng.bundle = dataclasses.replace(bundle, prefill=prefill,
+                                     lm_head=lm_head)
+    eng._push_token = push_token
+    return firsts
+
+
 # ------------------------------------------------------------------ phase 5
 def _compare(torch, tag, gpu_logits, cpu_logits):
     """Max abs error of card against CPU logits; greedy tokens must agree
@@ -1139,52 +1616,76 @@ def _compare(torch, tag, gpu_logits, cpu_logits):
                              f"{DEVICE_TOL}")
 
 
-def device_vs_cpu_phase(torch, full_model, full_cfg):
-    """A full tier at depth 1, full width, on the card and on the CPU,
-    same weights, same inputs: the paged path (one prefill chunk, two
-    decode steps; an SSM stack's state in recurrent-state rows 1 and 2)
-    and the dense path (decoder_prefill, two decoder_decode_step calls)."""
+def device_vs_cpu_phase(torch, full_model, full_cfg, depth=1,
+                        lens=(16, 11)):
+    """A full tier's first ``depth`` layers at full width, on the card and
+    on the CPU, same weights, same inputs: two prompts of ``lens`` tokens
+    through the paged path (16-token prefill chunks, two decode steps; an
+    SSM stack's state in recurrent-state rows 1 and 2; window layers walk
+    from the engine's first page, ``window_start_page``) and through the
+    dense path (decoder_prefill over both prompts padded to the longer
+    one, two decoder_decode_step calls)."""
     import numpy as np
     from repro_torch.models import decoder
-    cfg = dataclasses.replace(full_cfg, n_layers=1)
+    from repro_torch.serving.engine import window_start_page
+    cfg = dataclasses.replace(full_cfg, n_layers=depth)
     gpu = decoder.Decoder(cfg, device="meta")
     for name in ("embed", "ln_f", "head"):
         if hasattr(full_model, name):
             setattr(gpu, name, getattr(full_model, name))
-    gpu.layers = torch.nn.ModuleList([full_model.layers[0]])
+    gpu.layers = torch.nn.ModuleList(full_model.layers[:depth])
     cpu = decoder.Decoder(cfg, device="cpu")
     cpu.load_state_dict(gpu.state_dict())
 
     rng = np.random.default_rng(3)
-    C, ps, MP = 16, 16, 4
-    n_new = np.array([16, 11], np.int32)
-    chunk = rng.integers(4, cfg.vocab_size, (2, C)).astype(np.int64)
-    pt = np.array([[1, 2, 0, 0], [3, 4, 0, 0]], np.int32)
+    C, ps = 16, 16
+    lens = np.asarray(lens, np.int32)
+    S = int(lens.max())
+    tokens = rng.integers(4, cfg.vocab_size, (2, S)).astype(np.int64)
+    # each row's pages: the longer prompt and its two decoded tokens
+    n_pg = [-(-(S + 2) // ps)] * 2
+    MP = max(4, max(n_pg))
+    pt = np.zeros((2, MP), np.int32)
+    pt[0, :n_pg[0]] = np.arange(1, 1 + n_pg[0])
+    pt[1, :n_pg[1]] = np.arange(1 + n_pg[0], 1 + sum(n_pg))
+    w = cfg.sliding_window if cfg.has_window_layers else 0
     paged, dense = {}, {}
     with torch.no_grad():
         for dev, model in (("cuda", gpu), ("cpu", cpu)):
             T = lambda a: torch.tensor(a, device=dev)
-            cache = decoder.init_paged_decode_cache(cfg, 5, ps, dev)
+            cache = decoder.init_paged_decode_cache(cfg, 1 + sum(n_pg), ps,
+                                                    dev)
             if cfg.family == "ssm":
                 cache["rec"] = decoder.init_decoder_recurrent_state(cfg, 3,
                                                                     dev)
-            x = decoder.decoder_prefill_paged_chunk(
-                model, cache, T(chunk), T(pt), T(np.zeros(2, np.int32)),
-                T(n_new), cfg, state_rows=T(np.array([1, 2], np.int32)))
-            logits = [decoder._unembed(model, x, cfg)[:, 0]]
-            lens = n_new.copy()
+            last = [None, None]
+            for c0 in range(0, S, C):
+                n_new = np.clip(lens - c0, 0, C).astype(np.int32)
+                start = np.minimum(lens, c0).astype(np.int32)
+                live = n_new > 0
+                ws = window_start_page(int(start[live].min()) - (w - 1),
+                                       ps) if w else 0
+                x = decoder.decoder_prefill_paged_chunk(
+                    model, cache, T(tokens[:, c0:c0 + C]), T(pt), T(start),
+                    T(n_new), cfg, window_start=ws,
+                    state_rows=T(np.where(live, [1, 2], 0).astype(np.int32)))
+                for b in np.flatnonzero(live & (lens <= c0 + C)):
+                    last[b] = x[b]
+            logits = [decoder._unembed(model, torch.stack(last), cfg)[:, 0]]
+            sl = lens.copy()
             for step in range(2):
                 # both devices feed the card's greedy tokens
                 tok = (paged["cuda"][step] if dev == "cpu" else logits[-1]) \
                     .argmax(-1).cpu().numpy()
+                ws = window_start_page(int(sl.min()) + 1 - w, ps) if w else 0
                 logits.append(decoder.decoder_decode_step_paged(
-                    model, cache, T(tok[:, None]), T(pt), T(lens),
-                    T(np.ones(2, bool)), cfg))
-                lens = lens + 1
+                    model, cache, T(tok[:, None]), T(pt), T(sl),
+                    T(np.ones(2, bool)), cfg, window_start=ws))
+                sl = sl + 1
             paged[dev] = [t.float().cpu() for t in logits]
 
             last, cache = decoder.decoder_prefill(
-                model, {"tokens": T(chunk)}, cfg, max_seq=C + 2)
+                model, {"tokens": T(tokens)}, cfg, max_seq=S + 2)
             logits = [last]
             for step in range(2):
                 tok = (dense["cuda"][step] if dev == "cpu" else logits[-1]) \
@@ -1193,8 +1694,9 @@ def device_vs_cpu_phase(torch, full_model, full_cfg):
                     model, cache, T(tok[:, None]), cfg)
                 logits.append(out)
             dense[dev] = [t.float().cpu() for t in logits]
-    _compare(torch, f"{cfg.name} paged", paged["cuda"], paged["cpu"])
-    _compare(torch, f"{cfg.name} dense", dense["cuda"], dense["cpu"])
+    tag = f"{cfg.name} at depth {depth}, prompts of {lens.tolist()} tokens,"
+    _compare(torch, f"{tag} paged", paged["cuda"], paged["cpu"])
+    _compare(torch, f"{tag} dense", dense["cuda"], dense["cpu"])
 
 
 # ------------------------------------------------------------------ phase 6
@@ -1611,18 +2113,38 @@ def main() -> int:
                 **dense_hybrid_phase(torch, card, smi, pool_run)}
     ssm_run = ssm_phase(torch, card, smi, pool_run["router"])
     launches["ssd_chunk_scan"] = ssm_run["launches"]
-    for row in rows:
-        row["launches"] = launches[row["name"]]
+    # "launches": the first main path that runs the kernel (qwen1.5-32b's
+    # pool and dense path, mamba2-130m's for K3); "launches_by_path": each
+    # path's own count, zeroed just before that path ran
+    by_path = {n: {"mamba2-130m" if n == "ssd_chunk_scan"
+                   else "qwen1.5-32b": k} for n, k in launches.items()}
     device_vs_cpu_phase(torch, pool_run["models"]["full"],
                         pool_run["cfgs"]["full"])
     device_vs_cpu_phase(torch, ssm_run["model"], ssm_run["cfg"])
-    del pool_run, ssm_run   # phase 6 needs the card's memory
+    # phase 4d holds 3.88 B + 0.76 B params, their pools and a router over
+    # 2048 positions: it runs on the memory phases 4-4c held
+    del pool_run, ssm_run
+    gc.collect()     # the engines' wrapped methods hold them in cycles
+    torch.cuda.empty_cache()
+    gemma_run = gemma_phase(torch, card, smi)
+    for name, n in gemma_run["launches"].items():
+        by_path[name]["gemma3-4b"] = n
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+        row["launches_by_path"] = by_path[row["name"]]
+    # one local:global period of gemma3-4b (layers 0-4 local, 5 global),
+    # past the window: late walk starts on the card and on the CPU
+    device_vs_cpu_phase(torch, gemma_run["model"], gemma_run["cfg"],
+                        depth=6, lens=(1096, 1085))
+    del gemma_run   # phase 6 needs the card's memory
+    gc.collect()
     torch.cuda.empty_cache()
     router_training_phase(torch, card, smi)
     lm_training_phase(torch, card, smi)
     pipeline_phase(torch, card, smi)
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("name", "route", "source", "replaces", "launches",
+            "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     log(smi)
     log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     log(json.dumps({"ok": True, "device": {

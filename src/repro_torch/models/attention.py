@@ -198,7 +198,7 @@ def init_paged_kv_cache(cfg, num_pages: int, page_size: int, n_layers: int,
 
 def paged_decode_attention(attn: Attention, x_t, k_pages, v_pages,
                            page_table, seq_lens, active, cfg,
-                           pages_bound=None):
+                           pages_bound=None, *, window=0, pages_start=0):
     """One decode step against a paged KV cache (continuous batching).
 
     x_t: (B, 1, D) — one new token per serving slot. k_pages/v_pages:
@@ -207,9 +207,10 @@ def paged_decode_attention(attn: Attention, x_t, k_pages, v_pages,
     lands at index seq_lens); active: (B,) bool — inactive slots write to
     the reserved scratch page 0 and their output is garbage the engine
     masks. ``pages_bound``: live bound on the kernel's page walk (every
-    active slot's context must fit; None = the full table width). Global
-    attention: the kernel's window and first walked page stay 0 until the
-    sliding-window slice.
+    active slot's context must fit; None = the full table width).
+    ``window``: this layer's sliding window (0 = global); ``pages_start``:
+    the first walked page of a window layer (every active slot's first
+    in-window key must be ``>= pages_start * ps``; 0 when ``window`` is 0).
 
     The new K/V are written into ``k_pages``/``v_pages`` IN PLACE
     (``index_put_``): the reference's ``.at[].set`` on donated buffers
@@ -230,12 +231,14 @@ def paged_decode_attention(attn: Attention, x_t, k_pages, v_pages,
     lens = torch.clamp(seq_lens + 1, max=cap)                # incl. new token
     qg = (q[:, 0] * Dh ** -0.5).reshape(B, K, H // K, Dh)
     out = paged_decode_attention_gqa(qg, k_pages, v_pages, page_table, lens,
-                                     pages_bound=pages_bound)
+                                     pages_bound=pages_bound,
+                                     pages_start=pages_start, window=window)
     return _out_proj(attn, out.reshape(B, 1, H, Dh), B, 1, H, Dh)
 
 
 def paged_prefill_attention(attn: Attention, x, k_pages, v_pages,
-                            page_table, start, n_new, cfg, pages_bound=None):
+                            page_table, start, n_new, cfg, pages_bound=None,
+                            *, window=0, pages_start=0):
     """One chunked-prefill step against a paged KV cache.
 
     x: (B, C, D) — a fixed-width chunk of prompt activations per serving
@@ -249,7 +252,10 @@ def paged_prefill_attention(attn: Attention, x, k_pages, v_pages,
     each chunk query causally to the resident context plus the in-chunk
     keys through the paged prefill kernel. ``pages_bound``: live bound on
     the page walk (every ``start + n_new`` must fit; None = the full table
-    width). Returns out (B, C, D).
+    width). ``window``: this layer's sliding window (0 = global);
+    ``pages_start``: the first walked page of a window layer (every row's
+    earliest in-window key, ``start - window + 1``, must be
+    ``>= pages_start * ps``). Returns out (B, C, D).
     """
     B, C, _ = x.shape
     H, K, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
@@ -273,6 +279,7 @@ def paged_prefill_attention(attn: Attention, x, k_pages, v_pages,
     qg = (q * Dh ** -0.5).reshape(B, C, K, G, Dh).permute(0, 2, 1, 3, 4)
     out = paged_prefill_attention_gqa(qg.contiguous(), k_pages, v_pages,
                                       page_table, start, total,
-                                      pages_bound=pages_bound)
+                                      pages_bound=pages_bound,
+                                      pages_start=pages_start, window=window)
     out = out.permute(0, 2, 1, 3, 4).reshape(B, C, H, Dh)
     return _out_proj(attn, out, B, C, H, Dh)

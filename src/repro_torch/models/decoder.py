@@ -10,10 +10,14 @@ kernels take it as it is. The SSM family (``family="ssm"``, attention-free
 SSD blocks) keeps constant-size recurrent state instead: (L, B, ...) slabs
 in the dense cache, and per-slot rows of a recurrent-state pool
 (``cache["rec"]``, rows (n_slots + 1, L, ...)) on the paged path, whose
-page pools then have zero layers. Only global-attention dense stacks and
-SSM stacks are built so far (``models.model.build_model`` refuses the
-rest). ``decoder_forward`` is training's teacher-forced pass, for dense
-stacks: differentiable, and it launches no kernel.
+page pools then have zero layers. Dense stacks may mix global and
+sliding-window layers (gemma3's 5 local : 1 global): a window layer passes
+its static ``cfg.layer_window(i)`` to the kernels, and on the paged path
+starts its page walk at the engine's ``window_start`` (global layers walk
+from page 0). Dense and SSM stacks are built so far
+(``models.model.build_model`` refuses the rest). ``decoder_forward`` is
+training's teacher-forced pass, for dense stacks: differentiable, and it
+launches no kernel.
 """
 from __future__ import annotations
 
@@ -228,28 +232,33 @@ def init_decoder_recurrent_state(cfg, n_rows: int, device="cuda"):
 
 
 def _paged_chunk_attn_hidden(model: Decoder, cache, x, page_table, start,
-                             n_new, cfg, pages_bound):
+                             n_new, cfg, pages_bound, window_start):
     """Run every layer over the embedded chunk ``x`` (B, C, D) — each
     writing the chunk's K/V into its pool pages and attending causally to
-    resident context + in-chunk keys — then the final norm. Returns the
+    resident context + in-chunk keys, a window layer within its window
+    from page ``window_start`` on — then the final norm. Returns the
     post-norm hidden states (B, C, D) of every chunk position."""
     for i, layer in enumerate(model.layers):
+        w = cfg.layer_window(i)
         h = rmsnorm(layer.ln1, x, cfg.norm_eps)
         x = x + attn.paged_prefill_attention(
             layer.attn, h, cache["k_pages"][i], cache["v_pages"][i],
-            page_table, start, n_new, cfg, pages_bound)
+            page_table, start, n_new, cfg, pages_bound, window=w,
+            pages_start=window_start if w else 0)
         x = x + mlp(layer.mlp, rmsnorm(layer.ln2, x, cfg.norm_eps))
     return rmsnorm(model.ln_f, x, cfg.norm_eps)
 
 
 def decoder_prefill_paged_chunk(model: Decoder, cache, tokens, page_table,
                                 start, n_new, cfg, pages_bound=None,
-                                state_rows=None):
+                                window_start=0, state_rows=None):
     """One chunked-prefill step over the paged pool (continuous batching).
 
     tokens: (B, C) int — a fixed-width chunk of prompt tokens per serving
     slot, PAD-filled past ``n_new[b]``; page_table (B, MP) int32 rows
-    already cover positions ``start .. start + n_new - 1``. The pools in
+    already cover positions ``start .. start + n_new - 1``. Window layers
+    start their page walk at ``window_start`` (the engine's bucketed first
+    live window page; global layers walk from page 0). The pools in
     ``cache`` are updated in place. Returns x_last (B, 1, D), the
     final-norm hidden state of token ``start + n_new - 1``. The LM head is
     not applied here: only a prompt's final chunk needs logits, and the
@@ -267,7 +276,7 @@ def decoder_prefill_paged_chunk(model: Decoder, cache, tokens, page_table,
                               state_rows.long(), cfg)
     else:
         x = _paged_chunk_attn_hidden(model, cache, x, page_table, start,
-                                     n_new, cfg, pages_bound)
+                                     n_new, cfg, pages_bound, window_start)
     last = torch.clamp(n_new.long() - 1, 0, C - 1)
     return x[torch.arange(B, device=x.device), last][:, None]
 
@@ -298,13 +307,16 @@ def _ssm_chunk_hidden(model: Decoder, rec, x, start, n_new, rows, cfg):
 
 
 def decoder_decode_step_paged(model: Decoder, cache, token, page_table,
-                              seq_lens, active, cfg, pages_bound=None):
+                              seq_lens, active, cfg, pages_bound=None,
+                              window_start=0):
     """One continuous-batching decode step over the serving slots.
 
     token: (B, 1) int — per-slot next token; page_table (B, MP) int32,
     seq_lens (B,) int32 and active (B,) bool come from the engine's page
     allocator; ``pages_bound`` is the engine's live page bound (None = the
-    full table width). The pools in ``cache`` are updated in place.
+    full table width) and ``window_start`` the first page of the window
+    layers' walks (global layers walk from page 0). The pools in
+    ``cache`` are updated in place.
     The SSM family advances ``cache["rec"]`` rows 1..B in place instead
     (row 0 is the scratch row); rows of slots not in ``active`` keep their
     state, so a decode step never disturbs a slot still mid-prefill.
@@ -323,10 +335,12 @@ def decoder_decode_step_paged(model: Decoder, cache, token, page_table,
         x = rmsnorm(model.ln_f, x, cfg.norm_eps)
         return _unembed(model, x, cfg)[:, 0]
     for i, layer in enumerate(model.layers):
+        w = cfg.layer_window(i)
         h = rmsnorm(layer.ln1, x, cfg.norm_eps)
         x = x + attn.paged_decode_attention(
             layer.attn, h, cache["k_pages"][i], cache["v_pages"][i],
-            page_table, seq_lens, active, cfg, pages_bound)
+            page_table, seq_lens, active, cfg, pages_bound, window=w,
+            pages_start=window_start if w else 0)
         x = x + mlp(layer.mlp, rmsnorm(layer.ln2, x, cfg.norm_eps))
     x = rmsnorm(model.ln_f, x, cfg.norm_eps)
     return _unembed(model, x, cfg)[:, 0]

@@ -12,9 +12,10 @@ and paged serving paths of the dense and SSM families.
   init_cache(batch_size, max_seq, device="cuda") -> cache
   init_paged_cache(num_pages, page_size=None, device="cuda") -> pools
   prefill_paged_chunk(model, cache, tokens, page_table, start, n_new,
-                      pages_bound=None, state_rows=None) -> x_last (B, 1, D)
+                      pages_bound=None, window_start=0, state_rows=None)
+      -> x_last (B, 1, D)
   decode_step_paged(model, cache, token, page_table, seq_lens, active,
-                    pages_bound=None) -> logits (B, V)
+                    pages_bound=None, window_start=0) -> logits (B, V)
   lm_head(model, x (B, S, D)) -> logits (B, S, V)
   init_recurrent_state(n_rows, device="cuda") -> {"h", "conv"} row slabs
       (SSM family; None for attention stacks)
@@ -25,9 +26,11 @@ and paged serving paths of the dense and SSM families.
 Dense caches, page pools and recurrent-state rows are updated in place.
 The paged calls of the SSM family take ``cache["rec"]``, the recurrent
 state, beside the (zero-layer) pools, and ``state_rows`` names each
-prefill row's state row. Global-attention dense stacks and SSM stacks are
-built so far; the other families and sliding-window stacks raise and name
-the slice that brings them.
+prefill row's state row. ``window_start`` is the first page of the
+sliding-window layers' page walks (global layers walk from page 0). Dense
+stacks, global or mixed with sliding-window layers (gemma3), and SSM stacks
+are built so far; MoE layers and the other families raise and name the
+slice that brings them.
 """
 from __future__ import annotations
 
@@ -69,11 +72,12 @@ def build_model(cfg: ArchConfig) -> ModelBundle:
             f"{cfg.name}: family {cfg.family!r} is not ported yet — "
             + _LATER.get(cfg.family,
                          "only the dense and SSM families are ported"))
-    if cfg.n_experts or cfg.has_window_layers or not cfg.supports_paged_kv:
+    if cfg.n_experts or not cfg.supports_paged_kv:
         raise NotImplementedError(
-            f"{cfg.name}: only global-attention dense stacks are ported "
-            "yet — MoE layers come with the MoE slice, "
-            "sliding-window layers with the sliding-window slice")
+            f"{cfg.name}: only dense stacks without MoE layers are ported "
+            "yet — MoE layers come with the MoE slice, encoder-decoder "
+            "stacks and frontends with the encoder-decoder and frontends "
+            "slice")
     rec = None
     if cfg.family == "ssm":
         rec = lambda n_rows, device="cuda": \
@@ -92,13 +96,15 @@ def build_model(cfg: ArchConfig) -> ModelBundle:
             decoder.init_paged_decode_cache(
                 cfg, num_pages, page_size or cfg.kv_page_size, device),
         prefill_paged_chunk=lambda m, c, t, page_table, start, n_new,
-            pages_bound=None, state_rows=None:
+            pages_bound=None, window_start=0, state_rows=None:
             decoder.decoder_prefill_paged_chunk(
                 m, c, t, page_table, start, n_new, cfg, pages_bound,
-                state_rows),
+                window_start, state_rows),
         decode_step_paged=lambda m, c, t, page_table, seq_lens, active,
-            pages_bound=None: decoder.decoder_decode_step_paged(
-                m, c, t, page_table, seq_lens, active, cfg, pages_bound),
+            pages_bound=None, window_start=0:
+            decoder.decoder_decode_step_paged(
+                m, c, t, page_table, seq_lens, active, cfg, pages_bound,
+                window_start),
         lm_head=lambda m, x: decoder._unembed(m, x, cfg),
         forward=lambda m, batch: decoder.decoder_forward(m, batch, cfg),
         init_recurrent_state=rec,

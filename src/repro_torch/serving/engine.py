@@ -16,9 +16,13 @@
 
   1. ADMIT    pending requests claim free slots (state PREFILLING) while the
               pool can hold their full prompt minus the pages already
-              promised to other mid-prefill slots, with a bounded
-              head-of-line lookahead;
-  2. PREFILL  a per-step token budget (default: one chunk width per slot)
+              promised to other mid-prefill slots, with a head-of-line
+              lookahead of ``n_slots`` requests. One-shot admission
+              (``prefill_chunk=0``) instead prefills the whole prompt on
+              the dense path (the flash kernel), scatters its dense KV
+              cache into freshly allocated pages and samples the first
+              token, so the slot decodes this same step;
+  2. PREFILL  a per-step token budget (one chunk width per slot)
               is spent on PREFILLING slots in admission order, at most one
               chunk per slot per step, charged at each chunk's bucketed
               width. The due chunks are page-extended in one batched call,
@@ -40,10 +44,13 @@
 Live-bounded page walks (``walk_bound="live"``, the default): both kernels'
 page walks are bounded by the live maximum context of the dispatch,
 rounded up to a power of two of pages; ``walk_bound="static"`` walks the
-full table width (the parity baseline). ``decode_compiles`` and
+full table width (the parity baseline). Sliding-window layers also start
+their walk late: at the page holding the dispatch's earliest in-window
+key, floored to a power of two (``_window_start``; 0 under the static
+walk or without window layers). ``decode_compiles`` and
 ``prefill_compiles`` count the distinct (bound, wstart) and
 (batch, width, bound, wstart) launch shapes, the keys the reference jits
-on; wstart stays 0 until the sliding-window slice.
+on.
 
 SSM stacks keep constant-size per-slot recurrent state
 (``serving.cache.RecurrentStatePool``) beside zero-layer page pools:
@@ -53,14 +60,16 @@ slots.
 
 Greedy-exactness: at temperature 0 the engine emits, per request, the
 tokens of the reference engine on the same weights, whatever the
-admission interleaving (tests/test_torch_serving.py). Sampled rows draw
-from the engine's own ``torch.Generator``.
+admission interleaving (tests/test_torch_serving.py,
+tests/test_torch_window_serving.py). Each request samples at its own
+temperature (``submit(temperature=)``, else the engine's), so greedy and
+sampled rows share a step; sampled rows draw from the engine's own
+``torch.Generator`` (``set_rng_salt``, ``reseed``).
 
-Not ported yet, each with a later slice: one-shot prefill
-(``prefill_chunk=0``), priorities with preemption, deadlines and load
-shedding, shared-prefix reuse, speculative decoding and escalation. A
-prompt that could never fit the pool raises at submit, where the reference
-sheds it.
+Not ported yet, each with a later slice: priorities with preemption,
+deadlines and load shedding, shared-prefix reuse, speculative decoding
+and escalation. A prompt that could never fit the pool raises at submit,
+where the reference sheds it.
 """
 from __future__ import annotations
 
@@ -87,6 +96,18 @@ def _bucket(n: int) -> int:
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def window_start_page(min_first_key: int, page_size: int) -> int:
+    """First page of a sliding-window page walk whose earliest in-window
+    key is ``min_first_key``: the page holding it, floored to a power of
+    two (0 when that page is 0), so the walk covers every row's window
+    and the distinct walk starts stay few."""
+    page = max(min_first_key, 0) // page_size
+    b = 1
+    while b * 2 <= page:
+        b *= 2
+    return b if page else 0
 
 
 @dataclasses.dataclass
@@ -247,12 +268,14 @@ class ContinuousEngine:
         self.stats = ContinuousStats()
         self.n_slots = n_slots
         # chunked admission: prefill_chunk tokens per chunk (None -> the
-        # config's knob), one chunk width per slot of prefill per step
+        # config's knob; 0 -> one-shot whole-prompt prefill), one chunk
+        # width per slot of prefill per step
         if prefill_chunk is None:
             prefill_chunk = bundle.cfg.prefill_chunk
         if prefill_chunk < 0:
             raise ValueError(f"prefill_chunk={prefill_chunk}: chunked "
-                             "admission needs a non-negative size")
+                             "admission needs a non-negative size "
+                             "(0 disables chunking)")
         if prefill_chunk == 0 and self.rstate is not None:
             # one-shot admission scatters a dense KV cache into pages;
             # recurrent state has no page-shaped form to scatter, so SSM
@@ -260,10 +283,6 @@ class ContinuousEngine:
             raise ValueError(f"{bundle.cfg.name}: recurrent-state stacks "
                              "admit through chunked prefill; prefill_chunk "
                              "must be > 0")
-        if prefill_chunk == 0:
-            raise NotImplementedError(
-                "prefill_chunk=0: one-shot admission is not ported yet; it "
-                "comes with a later slice of the continuous engine")
         self.prefill_chunk = prefill_chunk
         self.prefill_budget = n_slots * prefill_chunk
         # packed prefill: up to prefill_pack PREFILLING slots stack into one
@@ -283,6 +302,9 @@ class ContinuousEngine:
         self._chunk_shapes: set = set()   # (batch, width, bound, wstart)
         self._decode_bounds: set = set()  # (bound, wstart)
         self._next_in = np.full((n_slots,), tok.PAD, np.int32)
+        # per-slot sampling temperature: a request's own (or the engine
+        # default) lands here at admission
+        self._temps = np.full((n_slots,), temperature, np.float32)
         self._rng_salt = 0
         self._serve_calls = 0
         self._gen = torch.Generator(device=self.device)
@@ -305,12 +327,18 @@ class ContinuousEngine:
         self._serve_calls += 1
 
     # -------------------------------------------------------------- requests
-    def submit(self, tokens: np.ndarray,
-               max_new_tokens: Optional[int] = None) -> Request:
+    def _req_temp(self, req: Request) -> float:
+        """A request's sampling temperature: its own, or the engine's."""
+        return self.temperature if req.temperature is None \
+            else req.temperature
+
+    def submit(self, tokens: np.ndarray, max_new_tokens: Optional[int] = None,
+               *, temperature: Optional[float] = None) -> Request:
         """Enqueue one request. ``tokens``: 1-d int prompt (no padding);
         ``max_new_tokens``: per-request output cap (None = the engine
-        default). Malformed requests and prompts that could never complete
-        in this pool raise."""
+        default); ``temperature``: this request's sampling temperature
+        (None = the engine default, 0 = greedy). Malformed requests and
+        prompts that could never complete in this pool raise."""
         tokens = np.asarray(tokens, np.int32).reshape(-1)
         if len(tokens) == 0:
             raise ValueError("empty prompt: a request needs at least one "
@@ -320,6 +348,9 @@ class ContinuousEngine:
         if max_new < 1:
             raise ValueError(f"max_new_tokens={max_new}: a request must be "
                              "allowed at least one output token")
+        if temperature is not None and temperature < 0:
+            raise ValueError(f"temperature={temperature}: negative "
+                             "temperatures are meaningless (0 = greedy)")
         cap = self.cache.max_pages_per_slot * self.cache.page_size
         # worst-case footprint if this request runs alone: prompt plus
         # every generated token but the last, bounded by the context cap
@@ -330,11 +361,13 @@ class ContinuousEngine:
                 f"slot context cap is {cap} tokens and the pool holds "
                 f"{self.cache.stats.num_pages} pages")
         return self.sched.submit(Request(tokens=tokens,
-                                         max_new_tokens=max_new))
+                                         max_new_tokens=max_new,
+                                         temperature=temperature))
 
     def _retire(self, slot: int, reason: str) -> Request:
         self.cache.free_slot(slot)
         self._next_in[slot] = tok.PAD
+        self._temps[slot] = self.temperature
         self.stats.retired += 1
         req = self.sched.retire(slot)
         req.finish_reason = reason
@@ -362,11 +395,14 @@ class ContinuousEngine:
                 - self.cache.owned_pages(slot)
         return r
 
-    def _admit(self) -> int:
+    def _admit(self, retired: List[Request]) -> int:
         """Claim free slots for pending requests in FIFO order, with a
-        head-of-line lookahead of ``n_slots`` requests: when the head
-        doesn't fit the pool right now, the first of the next queued
-        requests that does fit overtakes it. Returns the admissions."""
+        head-of-line lookahead of ``n_slots`` requests: when the
+        head doesn't fit the pool right now, the first of the next queued
+        requests that does fit overtakes it. Chunked mode just assigns the
+        slot (chunks run in ``_prefill_step``); one-shot mode prefills the
+        whole prompt now (``_prefill_one_shot``). Returns the
+        admissions."""
         admitted = 0
         while self.sched.pending and self.sched.has_free_slot:
             reserve = self._reserved_prefill_pages()
@@ -378,10 +414,42 @@ class ContinuousEngine:
             if idx is None:
                 self.stats.admission_stalls += 1
                 break
-            self.sched.admit(idx)
+            req = self.sched.admit(idx)
+            self._temps[req.slot] = self._req_temp(req)
             admitted += 1
             self.stats.admitted += 1
+            if not self.prefill_chunk:
+                self._prefill_one_shot(req, retired)
         return admitted
+
+    def _prefill_one_shot(self, req: Request,
+                          retired: List[Request]) -> None:
+        """One-shot admission: the whole prompt through the dense prefill
+        (``bundle.prefill``: the flash kernel), its (L, 1, Spad, K, D)
+        cache scattered in place into the pages that ``extend_slot``
+        gives the empty slot (Spad the prompt rounded up to whole pages,
+        so each position lands in the page and row chunked prefill would
+        write), then the first token sampled from the prefill logits. The
+        slot decodes this same step."""
+        n_tok = len(req.serve_tokens)
+        ps = self.cache.page_size
+        logits, kv = self.bundle.prefill(
+            self.params, {"tokens": self._tensor(req.serve_tokens[None])},
+            _round_up(n_tok, ps))
+        pages = self.cache.extend_slot(req.slot, n_tok)
+        idx = self._tensor(pages).long()
+        for name, dense in (("k_pages", kv["k"]), ("v_pages", kv["v"])):
+            L, _, _, K, D = dense.shape
+            self.cache.pool[name].index_copy_(
+                1, idx, dense[:, 0].reshape(L, len(pages), ps, K, D))
+        del kv     # the transient dense cache
+        self.stats.prefill_tokens += n_tok
+        req.prefill_pos = n_tok
+        req.state = DECODING
+        first = _sample_rows(self._gen, logits, [self._req_temp(req)])
+        done = self._push_token(req, int(first[0]))
+        if done is not None:
+            retired.append(done)
 
     # --------------------------------------------------------------- prefill
     def _pages_bound(self, max_tokens: int) -> int:
@@ -399,6 +467,16 @@ class ContinuousEngine:
         ragged tails at a power of two capped by the chunk width."""
         return self.prefill_chunk if remaining >= self.prefill_chunk \
             else min(_bucket(remaining), self.prefill_chunk)
+
+    def _window_start(self, min_first_key: int) -> int:
+        """First page of the sliding-window layers' page walk, for a
+        dispatch whose earliest in-window key (over the rows dispatched)
+        is ``min_first_key`` (``window_start_page``). 0 without window
+        layers or under the static walk."""
+        if not self.bundle.cfg.has_window_layers \
+                or self.walk_bound != "live":
+            return 0
+        return window_start_page(min_first_key, self.cache.page_size)
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         """A device copy of a host array (never an alias: the host side
@@ -420,7 +498,8 @@ class ContinuousEngine:
         page-table row and state row 0, so their K/V writes land on the
         reserved scratch page, their attention is fully masked, and their
         recurrent-state writes land on the reserved scratch row. The page
-        walk is bounded by the group's live maximum context."""
+        walk is bounded by the group's live maximum context, and window
+        layers start it at the real rows' first live window page."""
         B = _bucket(len(group))
         mp = self.cache.max_pages_per_slot
         chunk = np.full((B, width), tok.PAD, np.int32)
@@ -437,14 +516,18 @@ class ContinuousEngine:
             if self.rstate is not None:
                 rows[i] = self.rstate.rows(req.slot)
         bound = self._pages_bound(int((start + n_new).max()))
-        wstart = 0   # window-start walks come with the sliding-window slice
+        # the earliest key any real row's first chunk query sees under the
+        # window: min(start) - (window - 1); padding rows do not count
+        w = self.bundle.cfg.sliding_window
+        wstart = self._window_start(
+            int(start[:len(group)].min()) - max(w - 1, 0))
         if (B, width, bound, wstart) not in self._chunk_shapes:
             self._chunk_shapes.add((B, width, bound, wstart))
             self.stats.prefill_compiles += 1
         x_last = self.bundle.prefill_paged_chunk(
             self.params, self._model_cache(), self._tensor(chunk),
             self._tensor(pt), self._tensor(start), self._tensor(n_new),
-            pages_bound=bound, state_rows=None if self.rstate is None
+            pages_bound=bound, window_start=wstart, state_rows=None if self.rstate is None
             else self._tensor(rows))
         self.stats.prefill_dispatches += 1
         finishing = []
@@ -460,7 +543,7 @@ class ContinuousEngine:
             rows = [i for i, _ in finishing]
             logits = self.bundle.lm_head(self.params, x_last[rows])[:, 0]
             first = _sample_rows(self._gen, logits,
-                                 np.full(len(rows), self.temperature))
+                                 [self._req_temp(r) for _, r in finishing])
             for (_, req), token in zip(finishing, first.cpu().numpy()):
                 req.state = DECODING
                 done = self._push_token(req, int(token))
@@ -529,9 +612,11 @@ class ContinuousEngine:
         from training builds no graph."""
         t0 = time.monotonic()
         retired: List[Request] = []
-        progressed = self._admit()
-        prefilled = self._prefill_step(retired)
-        progressed += len(prefilled)
+        progressed = self._admit(retired)
+        prefilled: List[int] = []
+        if self.prefill_chunk:
+            prefilled = self._prefill_step(retired)
+            progressed += len(prefilled)
         cap = self.cache.max_pages_per_slot * self.cache.page_size
         # decode growth must not eat pages promised to mid-prefill slots
         reserve = self._reserved_prefill_pages()
@@ -551,16 +636,22 @@ class ContinuousEngine:
             # and their output is garbage the step masks
             bound = self._pages_bound(
                 int(self.cache.seq_lens[steppable].max()) + 1)
-            wstart = 0   # window-start walks come with the sliding-window slice
+            # window layers start their walk at the steppable slots' first
+            # live window page: slot b's earliest in-window key is
+            # (seq_lens[b] + 1) - window
+            wstart = self._window_start(
+                int(self.cache.seq_lens[steppable].min()) + 1
+                - self.bundle.cfg.sliding_window)
             if (bound, wstart) not in self._decode_bounds:
                 self._decode_bounds.add((bound, wstart))
                 self.stats.decode_compiles += 1
             logits = self.bundle.decode_step_paged(
                 self.params, self._model_cache(),
                 self._tensor(self._next_in[:, None]), pt, sl,
-                self._tensor(active), pages_bound=bound)
-            # idle rows take the argmax: no draw is spent on garbage
-            temps = np.where(active, self.temperature, 0.0)
+                self._tensor(active), pages_bound=bound, window_start=wstart)
+            # each slot at its request's temperature; idle rows take the
+            # argmax: no draw is spent on garbage
+            temps = np.where(active, self._temps, 0.0)
             nxt = _sample_rows(self._gen, logits, temps).cpu().numpy()
             self.cache.seq_lens[steppable] += 1
             for slot in steppable:

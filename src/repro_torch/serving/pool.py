@@ -14,7 +14,7 @@ all-priciest baseline.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Mapping, Sequence, Tuple, Union
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -73,12 +73,19 @@ class ContinuousPoolEngine:
     def has_work(self) -> bool:
         return any(e.sched.has_work for e in self.engines)
 
-    def submit(self, query_tokens: np.ndarray, query_mask: np.ndarray
+    def submit(self, query_tokens: np.ndarray, query_mask: np.ndarray,
+               max_new_tokens: Optional[np.ndarray] = None,
+               temperature: Optional[Union[float, np.ndarray]] = None
                ) -> Tuple[List[Request], np.ndarray, np.ndarray]:
         """Score and enqueue a batch of queries. Returns (requests,
         tier_idx, scores); requests retire later via step()/run(). Each
         row's PAD tail (from ``query_mask``) is dropped before enqueueing:
-        paged prefill only pays for real tokens."""
+        paged prefill only pays for real tokens.
+
+        ``max_new_tokens``: optional per-request output caps (N,).
+        ``temperature``: per-request sampling temperatures, a scalar for
+        the whole batch or an (N,) array (None = each engine's default,
+        0 = greedy)."""
         tier_idx, scores = self.policy.decide(query_tokens, query_mask)
         tier_idx = np.asarray(tier_idx, np.int64)
         if tier_idx.size and (tier_idx.min() < 0
@@ -91,10 +98,28 @@ class ContinuousPoolEngine:
             # holes must not drop real prompt tokens
             nz = np.flatnonzero(np.asarray(query_mask[i]))
             row = row[:int(nz[-1]) + 1] if len(nz) else row[:1]
-            req = self.engines[int(tier)].submit(row)
+            cap = None if max_new_tokens is None else int(max_new_tokens[i])
+            temp = None if temperature is None else float(
+                temperature[i] if np.ndim(temperature) else temperature)
+            req = self.engines[int(tier)].submit(row, max_new_tokens=cap,
+                                                 temperature=temp)
             self._tier_of[req.rid] = int(tier)
             reqs.append(req)
         return reqs, tier_idx, scores
+
+    def submit_to(self, tier: Union[int, str], tokens: np.ndarray,
+                  max_new_tokens: Optional[int] = None, *,
+                  temperature: Optional[float] = None) -> Request:
+        """Enqueue one request on a named (or indexed) tier, bypassing the
+        routing policy (targeted bursts, health probes). Accounting is
+        that of policy-routed traffic."""
+        t = self.names.index(tier) if isinstance(tier, str) else int(tier)
+        if not 0 <= t < self.n_tiers:
+            raise ValueError(f"tier {tier!r} not in pool {self.names}")
+        req = self.engines[t].submit(tokens, max_new_tokens=max_new_tokens,
+                                     temperature=temperature)
+        self._tier_of[req.rid] = t
+        return req
 
     def _account(self, retired: List[Request]):
         for req in retired:

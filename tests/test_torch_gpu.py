@@ -45,6 +45,9 @@ DECODE_MODES = {
     "rows_past_8": (3, 2, 12, 64, 16, 20, None, 0, 0),
     "head_dim_256_g2": (3, 2, 2, 256, 16, 20, None, 0, 0),
     "head_dim_98": (3, 2, 3, 98, 16, 20, 12, 0, 0),
+    # gemma3-4b's local layers: 4 kv heads of 256, G = 2, a window across
+    # splits walked from page 5, inside the first 128-key split
+    "gemma_window_late_start": (3, 4, 2, 256, 16, 32, None, 5, 300),
 }
 # decode modes whose lengths are set, not drawn: at the split edges
 DECODE_LENS = {"page8_split_edges": [127, 128, 129, 255, 256, 257, 0]}
@@ -67,6 +70,9 @@ PREFILL_MODES = {
     "rows_past_16": (3, 2, 5, 4, 18, 8, 12, None, 0, 0),
     "rows_64": (3, 1, 6, 6, 40, 16, 12, 9, 0, 0),
     "head_dim_256": (2, 1, 8, 8, 256, 16, 12, None, 0, 0),
+    # gemma3-4b's local layers at the pool's 16-token chunk: 4 kv heads of
+    # 256, G = 2 (32-row blocks), a window walked from page 5
+    "gemma_window_late_start": (3, 4, 16, 2, 256, 16, 32, None, 5, 300),
 }
 # modes whose totals are set, not drawn: chunks that end just past the
 # first split boundary (key 128)
@@ -90,6 +96,8 @@ FLASH_MODES = {
     "head_dim_24": (2, 70, 2, 2, 24, True, 0),
     "head_dim_20": (2, 37, 2, 2, 20, True, 0),
     "head_dim_256": (1, 24, 2, 1, 256, True, 0),
+    # gemma3-4b's local layers: windowed, head_dim 256, G = 2
+    "gemma_window": (1, 150, 4, 2, 256, True, 37),
 }
 # name -> (B, S, K, G, D, validity layout)
 DECODE_DENSE_MODES = {
@@ -381,6 +389,31 @@ def test_cuda_decode_live_walk_is_bitwise_static_walk(mode, cuda):
               window=kw["window"], pages_bound=None)
     torch.cuda.synchronize()
     assert torch.equal(live, full), mode
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("modes", [
+    ("window_late_start", "window_late_start"),
+    ("window_across_splits", "window_splits"),
+    ("gemma_window_late_start", "gemma_window_late_start")],
+    ids=lambda m: m[0])
+def test_cuda_window_walk_start_is_bitwise(modes, cuda):
+    """A window walk gives the same bits from page 0 and from a late first
+    page that still covers every row's window (the engine's
+    ``_window_start``), in both paged kernels (decode mode, prefill mode):
+    which keys a block sums depends on the window, not on where the walk
+    starts. The engine's live and static walks rest on this."""
+    for mode, case, op in ((modes[0], decode_case,
+                            dec_ops.paged_decode_attention_gqa),
+                           (modes[1], prefill_case,
+                            pre_ops.paged_prefill_attention_gqa)):
+        args, kw = case(mode)
+        dev = to_torch(args, cuda)
+        assert kw["pages_start"] > 0 and kw["window"] > 0
+        late = op(*dev, **kw)
+        first = op(*dev, **dict(kw, pages_start=0))
+        torch.cuda.synchronize()
+        assert torch.equal(late, first), (mode, op.__name__)
 
 
 @pytest.mark.gpu

@@ -247,11 +247,16 @@ def test_bridge_rejects_a_tree_that_does_not_fit():
 @pytest.mark.parametrize("family", ["moe", "window", "hybrid", "vlm",
                                     "audio"])
 def test_build_model_names_the_slice_for_other_families(family):
-    """What is not ported yet raises and names its slice. The SSM family is
-    built since its slice landed; a sliding-window dense stack takes its
-    case here."""
-    cfg = tiny_cfg("dense", sliding_window=4, local_global_ratio=1) \
-        if family == "window" else tiny_cfg(family)
+    """What is not ported yet raises and names its slice. The SSM family
+    and sliding-window dense stacks are built since their slices landed;
+    the "window" case builds one and then holds a window stack with MoE
+    layers to the MoE slice."""
+    cfg = tiny_cfg(family)
+    if family == "window":
+        window = dict(sliding_window=4, local_global_ratio=1)
+        assert build_model(_port_cfg(tiny_cfg("dense", **window))).cfg \
+            .has_window_layers
+        cfg = tiny_cfg("dense", n_experts=4, top_k=2, **window)
     with pytest.raises(NotImplementedError, match="slice"):
         build_model(_port_cfg(cfg))
 

@@ -57,8 +57,10 @@ def _synchronous(eng):
     """Make a reference engine wait for each jitted dispatch. Its CPU
     async dispatch races the host arrays it hands over, so repeated
     identical runs can emit different greedy tokens (ROADMAP.md, Queue 3);
-    waiting changes no value, only removes the race."""
-    for name in ("_prefill_chunk_fn", "_decode", "_lm_head"):
+    waiting changes no value, only removes the race. One-shot admission's
+    dispatches (``_prefill``, ``_scatter``) wait too."""
+    for name in ("_prefill_chunk_fn", "_decode", "_lm_head", "_prefill",
+                 "_scatter"):
         fn = getattr(eng, name)
         setattr(eng, name,
                 lambda *a, fn=fn: jax.block_until_ready(fn(*a)))
@@ -173,10 +175,13 @@ def test_engine_dispatch_variants_agree_within_the_port(dense):
 
 
 def test_engine_refuses_what_is_not_ported(dense):
+    """A request the engine cannot serve raises: a negative temperature,
+    and a prompt that could never complete (the reference sheds it, a
+    robustness feature of a later slice)."""
     _, _, bundle, model = dense
-    with pytest.raises(NotImplementedError, match="one-shot"):
-        ContinuousEngine(bundle, model, prefill_chunk=0)
     eng = ContinuousEngine(bundle, model, max_seq=16, n_slots=1)
+    with pytest.raises(ValueError, match="negative"):
+        eng.submit(np.arange(4, 8, dtype=np.int32), temperature=-0.1)
     with pytest.raises(ValueError, match="never complete"):
         eng.submit(np.arange(4, 40, dtype=np.int32))
 

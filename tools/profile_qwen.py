@@ -136,11 +136,15 @@ def build_paths(torch, cs):
             "dense": lambda: hy.serve(tokens, mask, seed=0)}
 
 
-def profile_path(torch, profile_ssm, tag, fn):
+def profile_path(torch, profile_ssm, tag, fn, prefix="qwen"):
+    """Warm ``fn`` (a serve), time it, trace it (device activity), and
+    trace it once more with host ops to name the host op behind each of
+    the five largest kernels; the traces are build/profile/
+    ``{prefix}_{tag}*.json``. Returns the numbers."""
     from torch.profiler import ProfilerActivity, profile
     fn()   # warm-up: allocator, cuBLAS handles, kernel loads
     wall, res = profile_ssm._wall_ms(torch, fn)
-    busy, by_name = profile_ssm._profiled(torch, f"qwen_{tag}", fn)
+    busy, by_name = profile_ssm._profiled(torch, f"{prefix}_{tag}", fn)
     n_tok = int(res.lengths.sum())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     shares = {}
@@ -169,7 +173,7 @@ def profile_path(torch, profile_ssm, tag, fn):
 
     # the host ops behind the five largest kernels, from a traced serve
     # with host ops and shapes
-    trace = profile_ssm.OUT / f"qwen_{tag}_ops.json"
+    trace = profile_ssm.OUT / f"{prefix}_{tag}_ops.json"
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
