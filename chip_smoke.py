@@ -557,19 +557,97 @@ def _flash_standing(torch, c, ms, plain_ms, library_ms):
         f"device kernels {sorted(set(kernels)) or 'none seen'}")
 
 
+def _dense_plain(torch, ops, q, k, v, valid):
+    """The dense decode plain version on the production layout: regrouped
+    to (B*K, G, D), returned as (B, H, D)."""
+    B, S, K, D = k.shape
+    G = q.shape[1] // K
+    return ops.decode_attention_ref(
+        q.reshape(B * K, G, D), k.movedim(2, 1).reshape(B * K, S, D),
+        v.movedim(2, 1).reshape(B * K, S, D),
+        valid.repeat_interleave(K, 0)).reshape(B, K * G, D)
+
+
+def _dense_exact(torch, ops, q, k, v, valid):
+    """The check of the dense decode kernel's exact contracts, bit for bit:
+    each row launched alone gets the bits it gets in the batch, and the rows
+    get the same bits with 256 invalid positions (random K and V) appended
+    to the cache, which adds two empty splits and lengthens the last."""
+    def check(got):
+        for b in range(q.shape[0]):
+            alone = ops.decode_attention_kv(q[b:b + 1], k[b:b + 1],
+                                            v[b:b + 1], valid[b:b + 1])
+            if not torch.equal(alone[0], got[b]):
+                raise AssertionError(f"row {b} alone differs from batched")
+        B, S, K, D = k.shape
+        g = torch.Generator(device=q.device).manual_seed(9)
+        tail = lambda t: torch.cat([t, torch.randn(
+            (B, 256, K, D), generator=g, device=q.device)], 1)
+        longer = torch.cat([valid, torch.zeros(
+            (B, 256), dtype=torch.int8, device=q.device)], 1)
+        if not torch.equal(ops.decode_attention_kv(q, tail(k), tail(v),
+                                                   longer), got):
+            raise AssertionError("256 invalid trailing positions change "
+                                 "the bits")
+        return (f"bit-identical for each of {B} rows alone and with 256 "
+                "invalid positions appended")
+    return check
+
+
+def _no_valid_row(torch, ops, q, k, v, valid):
+    """The check of a case whose first row has no valid key: that row is
+    the mean of V over its S keys (K's heads repeated over their groups),
+    over several splits (the merging block writes it) and, on the first 100
+    keys, in one split (the split's own block writes it)."""
+    def check(got):
+        if valid[0].any():
+            raise AssertionError("the case's first row has a valid key")
+        K = k.shape[2]
+        G = q.shape[1] // K
+        errs = []
+        for n in (k.shape[1], 100):
+            out = ops.decode_attention_kv(q, k[:, :n], v[:, :n],
+                                          valid[:, :n].contiguous())
+            mean = v[0, :n].mean(0).repeat_interleave(G, 0)
+            want = _dense_plain(torch, ops, q, k[:, :n], v[:, :n],
+                                valid[:, :n])
+            errs.append(max((out[0] - mean).abs().max().item(),
+                            (out - want).abs().max().item()))
+            if not errs[-1] <= KERNEL_TOL:
+                raise AssertionError(f"S = {n}: max abs err {errs[-1]}")
+        return (f"the no-valid row is the mean of V (max abs err "
+                f"{errs[0]:.3g} over {k.shape[1]} keys, {errs[1]:.3g} over "
+                "100)")
+    return check
+
+
+def _dense_standing(torch, c, ms, plain_ms, library_ms):
+    """The dense decode kernel's standing at a timed shape: its device time
+    per call from the profiler (CUDA events around back-to-back calls of a
+    kernel this short time the host wrapper), the device time of the
+    memset that zeroes its split counts, and its share of the bound."""
+    bound_ms, by = _bound(c["nbytes"], c["flops"])
+    device_ms = _device_ms(torch, c["kernel"], "decode_kernel")
+    memset_ms = _device_ms(torch, c["kernel"], "Memset (Device)")
+    log(f"[kernels] decode_attention[{c['name']}] device {device_ms:.4f} ms "
+        f"(events {ms:.4f}; the counts' memset {memset_ms:.4f}): "
+        f"{bound_ms / device_ms:.3f} of the {by} bound ({bound_ms:.4f} ms)")
+
+
 def dense_decode_cases(torch, dev):
     """Dense-cache decode, one case per launch mode of the JAX package's
     decode probe and beside it (analysis/pallas_check.py::_probe_decode):
     a valid prefix, irregular S, G > 1 under a random validity, head_dim
     24, and the windowed (attention-sink) layout whose first 512 keys are
-    all invalid. "main" is the full tier's decode mid-generation: 8 rows,
-    40 kv heads of 128 over the 544-position cache, 528 keys valid, read
-    in place from a layer's slice of the (L, B, S, K, D) cache; "gemma3"
-    the gemma3-4b dense decode on a local layer mid-generation: 8 rows, 4
-    kv heads of 256, G = 2, over the 2080-position cache at position 2064,
-    the 1024-key window in ``valid``. The plain version regroups to
-    (B*K, G, D); the library yardstick is one SDPA call with a boolean
-    mask from ``valid`` (and GQA for "gemma3")."""
+    all invalid; a first row with no valid key (``_no_valid_row``). "main"
+    is the full tier's decode mid-generation: 8 rows, 40 kv heads of 128
+    over the 544-position cache, 528 keys valid, read in place from a
+    layer's slice of the (L, B, S, K, D) cache; "gemma3" the gemma3-4b
+    dense decode on a local layer mid-generation: 8 rows, 4 kv heads of
+    256, G = 2, over the 2080-position cache at position 2064, the 1024-key
+    window in ``valid`` (also checked bit for bit, ``_dense_exact``). The
+    plain version regroups to (B*K, G, D); the library yardstick is one
+    SDPA call with a boolean mask from ``valid`` (and GQA for "gemma3")."""
     import numpy as np
     from torch.nn import functional as F
     from repro_torch.kernels.decode_attention import ops
@@ -582,6 +660,7 @@ def dense_decode_cases(torch, dev):
         "head_dim_24": (4, 130, 4, 1, 24, "prefix"),
         "windowed_sink": (4, 600, 8, 2, 64, "late_window"),
         "gemma3": (8, 2080, 4, 2, 256, "gemma3"),
+        "no_valid_row": (4, 300, 8, 2, 128, "no_valid_row"),
     }
     g = torch.Generator(device=dev).manual_seed(5)
     out = []
@@ -593,8 +672,10 @@ def dense_decode_cases(torch, dev):
         pos = np.arange(S)[None]
         if layout == "main":
             valid = np.repeat(pos <= 527, B, axis=0)
-        elif layout == "prefix":
+        elif layout in ("prefix", "no_valid_row"):
             valid = pos <= rng.integers(0, S, (B, 1))
+            if layout == "no_valid_row":
+                valid[0] = False
         elif layout == "random":
             valid = rng.random((B, S)) < 0.6
             valid[:, -1] = True
@@ -606,13 +687,6 @@ def dense_decode_cases(torch, dev):
         valid = torch.tensor(valid.astype(np.int8), device=dev)
         nbytes = 4 * (2 * q.numel() + 2 * n_valid * K * D) + B * S
         flops = 4 * n_valid * K * G * D
-
-        def plain(q=q, k=k, v=v, valid=valid, B=B, S=S, K=K, G=G, D=D):
-            return ops.decode_attention_ref(
-                q.reshape(B * K, G, D), k.movedim(2, 1).reshape(B * K, S, D),
-                v.movedim(2, 1).reshape(B * K, S, D),
-                valid.repeat_interleave(K, 0)).reshape(B, K * G, D)
-
         library = None
         if name in ("main", "gemma3"):
             library = lambda q=q, k=k, v=v, valid=valid, gqa=G > 1: \
@@ -620,12 +694,20 @@ def dense_decode_cases(torch, dev):
                     q[:, :, None], k.movedim(2, 1), v.movedim(2, 1),
                     attn_mask=valid.bool()[:, None, None, :],
                     scale=1.0, enable_gqa=gqa)[:, :, 0]
+        check = None
+        if name == "gemma3":
+            check = _dense_exact(torch, ops, q, k, v, valid)
+        elif layout == "no_valid_row":
+            check = _no_valid_row(torch, ops, q, k, v, valid)
         out.append(_case(name, f"q {B}x{H}x{D}, cache {B}x{S}x{K}x{D}, "
                          f"{n_valid} valid keys",
                          lambda q=q, k=k, v=v, valid=valid:
                              ops.decode_attention_kv(q, k, v, valid),
-                         plain, nbytes, flops, library,
-                         timed=library is not None))
+                         lambda q=q, k=k, v=v, valid=valid:
+                             _dense_plain(torch, ops, q, k, v, valid),
+                         nbytes, flops, library, check=check,
+                         timed=library is not None,
+                         report=_dense_standing if library else None))
     return out
 
 

@@ -18,10 +18,11 @@ from __future__ import annotations
 
 import torch
 
-from ..common import check_inputs, launch
+from ..common import check_inputs, launch, query
 from .ref import decode_attention_ref
 
-MAX_HEAD_DIM = 256   # a block's shared memory then stays under 67 KB
+MAX_HEAD_DIM = 256   # 8 columns a lane
+NAME = "decode_attention"
 
 
 def decode_attention_kv(q, k, v, valid):
@@ -44,7 +45,7 @@ def decode_attention_kv(q, k, v, valid):
         vg = v.movedim(2, 1).reshape(B * K, S, D)
         vmask = valid.repeat_interleave(K, dim=0).to(torch.int8)
         return decode_attention_ref(qg, kg, vg, vmask).reshape(B, H, D)
-    check_inputs("decode_attention", {"q": q, "k": k, "v": v},
+    check_inputs(NAME, {"q": q, "k": k, "v": v},
                  {"valid": valid}, strided=("k", "v"), int_dtype=torch.int8)
     if v.stride() != k.stride():
         raise ValueError("decode_attention: k and v must share strides")
@@ -52,8 +53,14 @@ def decode_attention_kv(q, k, v, valid):
         raise ValueError(f"head_dim {D} outside [1, {MAX_HEAD_DIM}]")
     out = torch.empty_like(q)
     if out.numel():
-        launch("decode_attention", "decode_attention_f32", q, k, v, valid,
-               out, B, S, K, G, D, *k.stride()[:3])
+        # each split's partial (m, l, accumulator) and the counts of
+        # finished splits, where S spans more than one split: the kernel's
+        # source says how much, and the launch zeroes the counts on its
+        # stream
+        n = query(NAME, "decode_attention_workspace_bytes", B, S, K, G, D)
+        ws = torch.empty(n, dtype=torch.uint8, device=q.device) if n else out
+        launch(NAME, "decode_attention_f32", q, k, v, valid, out, ws, B, S,
+               K, G, D, *k.stride()[:3])
         decode_attention_kv.launches += 1
     return out
 

@@ -109,6 +109,13 @@ DECODE_DENSE_MODES = {
     # the windowed (attention-sink) layout at a position where every sink
     # key is masked: the first 512 keys, a whole TPU key block, are invalid
     "windowed_sink": (2, 600, 2, 2, 16, "late_window"),
+    # what the CUDA kernel's split walk (128-key splits) makes distinct: a
+    # 250-key window in the middle of the cache with whole splits masked on
+    # both sides, at gemma3-4b's head_dim 256 and G = 2 (its local layers);
+    # a row with no valid key at all over 3 splits (S <= 512, so the TPU
+    # kernel does not pad it)
+    "window_long": (2, 600, 2, 2, 256, "window"),
+    "no_valid_row": (3, 300, 2, 2, 64, "no_valid_row"),
 }
 
 
@@ -222,7 +229,10 @@ def decode_dense_case(name, seed=0):
     """Inputs of one dense decode mode in the production layout: q (B, H,
     D) pre-scaled, the raw cache k and v (B, S, K, D) and valid (B, S)
     int8, as numpy arrays. Every row has at least one valid key, as on the
-    decode path (the key at the current position)."""
+    decode path (the key at the current position), but the first row of
+    "no_valid_row", which has none: the TPU kernel, both refs and the plain
+    version give it the mean of V over its S keys. "window" rows see a
+    250-key window starting at key 140-199."""
     B, S, K, G, D, layout = DECODE_DENSE_MODES[name]
     rng = np.random.default_rng(seed)
     q = (rng.standard_normal((B, K * G, D)) * D ** -0.5).astype(np.float32)
@@ -234,6 +244,12 @@ def decode_dense_case(name, seed=0):
     elif layout == "random":
         valid = rng.random((B, S)) < 0.6
         valid[:, -1] = True
+    elif layout == "window":
+        lo = rng.integers(140, 200, (B, 1))
+        valid = (pos >= lo) & (pos < lo + 250)
+    elif layout == "no_valid_row":
+        valid = pos <= rng.integers(0, S, (B, 1))
+        valid[0] = False
     else:
         valid = pos >= rng.integers(512, S, (B, 1))
     return q, k, v, valid.astype(np.int8)
@@ -582,6 +598,76 @@ def test_cuda_decode_attention_matches_plain_version(mode, cuda):
         err = (got[:, 0].reshape(B * K, 1, D) - want).abs().max().item()
         assert err <= GPU_TOL, mode
     torch.cuda.synchronize()
+
+
+def _dense_plain(q, k, v, valid):
+    """The dense decode plain version in the production layout: (B, H, D)
+    from q (B, H, D), k and v (B, S, K, D), valid (B, S)."""
+    B, S, K, D = k.shape
+    G = q.shape[1] // K
+    return dense_dec_ops.decode_attention_ref(
+        q.reshape(B * K, G, D), k.movedim(2, 1).reshape(B * K, S, D),
+        v.movedim(2, 1).reshape(B * K, S, D),
+        valid.repeat_interleave(K, 0)).reshape(B, K * G, D)
+
+
+@pytest.mark.gpu
+def test_cuda_decode_attention_exact_contracts(cuda):
+    """The dense decode kernel's exact contracts, bit for bit: each row
+    launched alone gets the bits it gets in the batch, and the rows get the
+    same bits with 256 invalid positions (random K and V) appended to the
+    cache, which adds two empty splits and lengthens the last. At gemma3-4b's
+    local-layer decode (8 rows, 4 kv heads of 256, G = 2, the 1024-key
+    window at position 2064 of a 2080-position slab), on window_long and
+    on irregular_s (one split grown to three)."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    B, S, K, G, D = 8, 2080, 4, 2, 256
+    q = torch.randn((B, K * G, D), generator=g, device=cuda) * D ** -0.5
+    k = torch.randn((B, S, K, D), generator=g, device=cuda)
+    v = torch.randn((B, S, K, D), generator=g, device=cuda)
+    pos = torch.arange(S, device=cuda)
+    valid = ((pos <= 2064) & (2064 - pos < 1024)).to(torch.int8)
+    cases = [("gemma3", (q, k, v, valid[None].expand(B, S).contiguous()))]
+    cases += [(m, to_torch(decode_dense_case(m), cuda))
+              for m in ("window_long", "irregular_s")]
+    op = dense_dec_ops.decode_attention_kv
+    for name, (q, k, v, valid) in cases:
+        got = op(q, k, v, valid)
+        assert (got - _dense_plain(q, k, v, valid)).abs().max().item() \
+            <= GPU_TOL, name
+        for b in range(q.shape[0]):
+            alone = op(q[b:b + 1], k[b:b + 1], v[b:b + 1], valid[b:b + 1])
+            torch.cuda.synchronize()
+            assert torch.equal(alone[0], got[b]), (name, b)
+        B, S, K, D = k.shape
+        tail = lambda t: torch.cat([t, torch.randn(
+            (B, 256, K, D), generator=g, device=cuda)], 1)
+        longer = torch.cat([valid, torch.zeros(
+            (B, 256), dtype=torch.int8, device=cuda)], 1)
+        wide = op(q, tail(k), tail(v), longer)
+        torch.cuda.synchronize()
+        assert torch.equal(wide, got), name
+
+
+@pytest.mark.gpu
+def test_cuda_decode_attention_launch_zeroes_its_split_counts(cuda):
+    """The dense decode launch zeroes its counts of finished splits itself:
+    over a workspace whose every byte is 0xff (every count non-zero), the
+    kernel still merges every row block's splits and matches the plain
+    version."""
+    q, k, v, valid = to_torch(decode_dense_case("window_long"), cuda)
+    B, S, K, D = k.shape
+    G = q.shape[1] // K
+    name = dense_dec_ops.NAME
+    n = common.query(name, "decode_attention_workspace_bytes", B, S, K, G, D)
+    assert n > 0, "the case must span more than one split"
+    ws = torch.full((n,), 0xFF, dtype=torch.uint8, device=cuda)
+    out = torch.full_like(q, float("nan"))
+    common.launch(name, "decode_attention_f32", q, k, v, valid, out, ws, B,
+                  S, K, G, D, *k.stride()[:3])
+    torch.cuda.synchronize()
+    err = (out - _dense_plain(q, k, v, valid)).abs().max().item()
+    assert err <= GPU_TOL
 
 
 @pytest.mark.gpu

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Where the time goes on the port's gemma3-4b paths, on one CUDA card.
 
-Run from the root of a checkout:  python3 tools/profile_gemma.py
+Run from the root of a checkout:  python3 tools/profile_gemma.py [pool] [dense]
 
 chip_smoke.py phase 4d's traffic: two gemma3-4b tiers ("full": the
 published config, 34 layers, 29 of them local with a 1024-token window;
 "half": scaled_sibling(., 2), 17 layers) behind a router at
 DeBERTa-v3-large's widths over gemma's vocabulary and 2048 positions, 16
 prompts of 1040-1984 tokens, 32 new tokens each, through the routed pool
-(paged K1, K2) and through the dense hybrid path (K4, K5). First the
+(paged K1, K2) and through the dense hybrid path (K4, K5), or through the
+paths named (both where none is). First the
 router's scoring of the 16 prompts alone (wall time), then for each path
 what tools/profile_qwen.py measures: a warm-up serve, a timed serve, a
 serve traced with device activity only (busy time, idle share, device
@@ -67,6 +68,7 @@ def main() -> int:
     import chip_smoke as cs
     import profile_qwen
     import profile_ssm
+    tags = sys.argv[1:] or ["pool", "dense"]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     profile_ssm.OUT.mkdir(parents=True, exist_ok=True)
@@ -89,7 +91,7 @@ def main() -> int:
     result = dict(card=smi, router_ms=walls,
                   serve={tag: profile_qwen.profile_path(
                       torch, profile_ssm, tag, fn, prefix="gemma")
-                      for tag, fn in paths.items()})
+                      for tag, fn in paths.items() if tag in tags})
     log(json.dumps(result))
     return 0
 

@@ -145,6 +145,11 @@ def profile_path(torch, profile_ssm, tag, fn, prefix="qwen"):
     fn()   # warm-up: allocator, cuBLAS handles, kernel loads
     wall, res = profile_ssm._wall_ms(torch, fn)
     busy, by_name = profile_ssm._profiled(torch, f"{prefix}_{tag}", fn)
+    # device memsets (not in the busy time or the kernels): the counts the
+    # split kernels zero before a launch, and the serve's own
+    memsets = [e["dur"] / 1e3 for e in json.loads(
+        (profile_ssm.OUT / f"{prefix}_{tag}.json").read_text())["traceEvents"]
+        if e.get("ph") == "X" and e.get("cat") == "gpu_memset"]
     n_tok = int(res.lengths.sum())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     shares = {}
@@ -156,6 +161,7 @@ def profile_path(torch, profile_ssm, tag, fn, prefix="qwen"):
     out = dict(wall_ms=wall, tokens=n_tok, tokens_per_s=n_tok / wall * 1e3,
                busy_ms=busy, idle_share=1.0 - busy / wall,
                n_kernel_launches=sum(v[0] for v in by_name.values()),
+               memsets=dict(count=len(memsets), device_ms=sum(memsets)),
                port_kernels={k: dict(launches=n, device_ms=t,
                                      busy_share=t / busy)
                              for k, (n, t) in shares.items()},
@@ -164,7 +170,8 @@ def profile_path(torch, profile_ssm, tag, fn, prefix="qwen"):
     log(f"[{tag}] {n_tok} tokens in {wall:.1f} ms = "
         f"{out['tokens_per_s']:.1f} tokens/s; traced serve: device busy "
         f"{busy:.1f} ms, idle share {out['idle_share']:.3f}, "
-        f"{out['n_kernel_launches']} kernel launches")
+        f"{out['n_kernel_launches']} kernel launches, {len(memsets)} "
+        f"memsets ({sum(memsets):.3f} ms)")
     for k, v in sorted(out["port_kernels"].items()):
         log(f"[{tag}]   {k}: {v['device_ms']:.3f} ms in {v['launches']} "
             f"launches, {v['busy_share']:.3f} of the busy time")
