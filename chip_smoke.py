@@ -44,6 +44,18 @@ and prints no result line):
    head_dim 256) agree with chunked admission's first-token logits; the
    dense hybrid path routes as the pool did (K4 once per layer per
    prefill, K5 once per layer per decode step, local layers windowed).
+   4e. The pool under load (after 4b, on phase 4's tiers, router and
+   prompts, fresh pools): an escalation monitor on "half", observe-only
+   (the tokens must be phase 4's), then at a threshold calibrated to
+   escalate a quarter of half's streams, then at 0 (all escalate after 4
+   tokens); each escalated continuation must equal the full tier's
+   greedy output from prompt + emitted prefix, and the meter must bill
+   16 calls and split the tokens exactly. Then a fault schedule: a
+   priority-5 burst on "full" (it preempts), page pressure on "half", a
+   stall of "full", a request with a zero deadline and a 1024-token
+   prompt; the harness's invariants must hold and every preempted stream
+   emit phase 4's tokens. K1 and K2 must launch on every tier of every
+   serve.
 5. The card against the CPU: the qwen and mamba2 full tiers at depth 1
    (before phase 4d, which runs on the memory phases 4-4c held), and
    gemma3-4b at depth 6 (one local:global period, after phase 4d) on
@@ -66,7 +78,8 @@ seeded torch.Generators; nothing is downloaded. The last two lines are a
 JSON object listing the kernels and the result line. A kernel's
 "launches" there are those of the first main path that runs it (qwen1.5-32b
 for K1, K2, K4 and K5, mamba2-130m for K3), and "launches_by_path" holds
-each path's own count, read just after that path ran from 0.
+each path's own count, read just after that path ran from 0
+("qwen1.5-32b-faults": phase 4e's pool serves).
 """
 from __future__ import annotations
 
@@ -1085,7 +1098,9 @@ def main_path_phase(torch, card: str, smi: str):
         f"{wall:.3f} s = {n_tok / wall:.1f} tokens/s on {card} ({smi})")
     return dict(models=models, cfgs={"half": half_cfg, "full": full_cfg},
                 router=probe.with_threshold(threshold), tokens=tokens,
-                mask=mask, tier_idx=res.tier_idx, launches=launches)
+                mask=mask, lens=lens, tier_idx=res.tier_idx,
+                responses=res.responses, lengths=res.lengths,
+                launches=launches)
 
 
 # ----------------------------------------------------------------- phase 4b
@@ -1154,6 +1169,264 @@ def dense_hybrid_phase(torch, card: str, smi: str, pool_run: dict):
         f"{int((~res.routed_small).sum())} full), {n_tok} tokens in "
         f"{wall:.3f} s = {n_tok / wall:.1f} tokens/s on {card} ({smi})")
     return launches
+
+
+# ----------------------------------------------------------------- phase 4e
+ESC_BUDGET = 0.25     # the calibrated dial's escalation-fraction budget
+
+
+def _margins_at(torch, bundle, model, context):
+    """Top-2 margins of the next-token logits after ``context`` on a
+    fresh engine with phase 4's geometry, computed the two ways a stream
+    gets them: by prefill of the whole context (a resumed or escalated
+    stream) and by one decode step after prefilling all but its last
+    token (an uncontended stream)."""
+    import numpy as np
+    from repro_torch.serving.engine import ContinuousEngine
+    margins = []
+    for by_decode in (False, True):
+        eng = ContinuousEngine(bundle, model, max_new_tokens=2,
+                               n_slots=N_SLOTS, max_seq=MAX_SEQ)
+        rows = []
+        if by_decode:
+            def decode(params, cache, tokens, *a, **kw):
+                tokens = torch.full_like(tokens, int(context[-1]))
+                out = bundle.decode_step_paged(params, cache, tokens,
+                                               *a, **kw)
+                rows.append(out[0])
+                return out
+            eng.bundle = dataclasses.replace(bundle,
+                                             decode_step_paged=decode)
+            eng.submit(np.asarray(context[:-1], np.int32))
+        else:
+            firsts = _first_logits(eng)
+            req = eng.submit(np.asarray(context, np.int32))
+        eng.run()
+        logits = rows[0] if by_decode else firsts[req.rid]
+        top2 = logits.float().topk(2).values
+        margins.append(float(top2[0] - top2[1]))
+    return margins
+
+
+def _exact_or_fail(torch, tag, bundle, model, prompt, got, want):
+    """``got`` must equal ``want`` token for token. Otherwise print the
+    first diverging position and the top-2 margins there, and fail."""
+    if got == want:
+        return
+    j = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+             min(len(got), len(want)))
+    by_prefill, by_decode = _margins_at(
+        torch, bundle, model, list(prompt) + list(got[:j]))
+    log(f"[faults] {tag}: first divergence at output position {j}: "
+        f"{[int(t) for t in got[j:j + 1]]} against "
+        f"{[int(t) for t in want[j:j + 1]]}; top-2 logit margin "
+        f"there {by_prefill:.3g} by prefill, {by_decode:.3g} by decode")
+    raise AssertionError(f"{tag}: tokens differ from position {j}")
+
+
+def fault_phase(torch, card: str, smi: str, pool_run: dict):
+    """Phase 4e, the pool under load, on phase 4's two qwen1.5-32b tiers,
+    router and prompts, each pool over fresh engines of phase 4's
+    geometry. (a) The escalation dial: an observe-only monitor on "half"
+    (the tokens must be phase 4's), a threshold calibrated to escalate at
+    most ESC_BUDGET of half's streams, then threshold 0 (every half stream
+    escalates at 4 tokens); each escalated continuation must equal the
+    full tier's greedy output from prompt + emitted prefix, and the meter
+    must bill 16 calls and split the tokens without loss. (b) A fault
+    schedule over the pool, each prompt on its phase-4 tier: a
+    priority-5 burst of 4 of full's prompts once its shortest prompt
+    decodes (so it preempts), page pressure on half leaving about two
+    prompts' worth of pages for 20 steps, full stalled for 5 steps, a
+    request with deadline_s=0 ("deadline") and a 1024-token prompt
+    ("rejected"); the invariants must hold and every preempted stream
+    emit phase 4's tokens. (c) K1 and K2 launch on every tier of every
+    serve. Returns the launches of the pools' serves."""
+    import numpy as np
+    from repro_torch.core.routing import ThresholdPolicy
+    from repro_torch.core.thresholds import calibrate_abort_threshold
+    from repro_torch.data import tokenizer as tok
+    from repro_torch.kernels.paged_decode_attention import ops as dec
+    from repro_torch.kernels.paged_prefill_attention import ops as pre
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import faults
+    from repro_torch.serving.engine import ContinuousEngine, EscalationMonitor
+    from repro_torch.serving.pool import ContinuousPoolEngine
+
+    counters = {"paged_decode_attention": dec.paged_decode_attention_gqa,
+                "paged_prefill_attention": pre.paged_prefill_attention_gqa}
+    totals = {k: 0 for k in counters}
+    bundles = {n: build_model(c) for n, c in pool_run["cfgs"].items()}
+    models = pool_run["models"]
+    tokens, lens = pool_run["tokens"], pool_run["lens"]
+    prompts = [tokens[i, :int(lens[i])] for i in range(N_PROMPTS)]
+    phase4 = [list(pool_run["responses"][i, :int(pool_run["lengths"][i])])
+              for i in range(N_PROMPTS)]
+
+    def engine(name):
+        return ContinuousEngine(bundles[name], models[name],
+                                max_new_tokens=NEW_TOKENS, n_slots=N_SLOTS,
+                                max_seq=MAX_SEQ)
+
+    def counted_pool(escalation=None):
+        """A pool over fresh engines, each tier's K1 and K2 launches
+        counted."""
+        per_tier = {n: {k: 0 for k in counters} for n in ("half", "full")}
+        tiers = []
+        for name in ("half", "full"):
+            eng = engine(name)
+            eng.step = _counting(counters, per_tier, name, eng.step)
+            tiers.append((name, eng))
+        pool = ContinuousPoolEngine(ThresholdPolicy(pool_run["router"]),
+                                    tiers, escalation=escalation)
+        return pool, per_tier
+
+    def check_launches(tag, pool, per_tier):
+        for t, name in enumerate(pool.names):
+            if pool.meter.calls[t] or pool.meter.tokens[t]:
+                for k, n in per_tier[name].items():
+                    if n <= 0:
+                        raise AssertionError(f"{tag}: tier {name}: {k} "
+                                             "never launched")
+            for k, n in per_tier[name].items():
+                totals[k] += n
+        log(f"[faults] {tag}: kernel launches {per_tier}")
+
+    def check_meter(tag, pool, reqs):
+        m = pool.meter
+        if m.total_calls != N_PROMPTS:
+            raise AssertionError(f"{tag}: {m.total_calls} calls, not "
+                                 f"{N_PROMPTS}")
+        if m.tokens.sum() != sum(r.n_generated for r in reqs):
+            raise AssertionError(f"{tag}: token split {m.tokens} does not "
+                                 "sum to the streams' tokens")
+        if m.escalations[0] != len(pool.escalation_log):
+            raise AssertionError(f"{tag}: {m.escalations} escalations "
+                                 f"against {len(pool.escalation_log)} "
+                                 "hand-offs")
+
+    def check_continuations(tag, pool, reqs):
+        """Each escalated stream's tokens after its hand-off against the
+        full tier's greedy output from prompt + emitted prefix (a fresh
+        engine, all continuations submitted together)."""
+        ref = engine("full")
+        index = {r.rid: i for i, r in enumerate(reqs)}
+        runs = []
+        for rid, _, _, k in pool.escalation_log:
+            i = index[rid]
+            cont = np.concatenate([prompts[i],
+                                   np.asarray(reqs[i].out[:k], np.int32)])
+            runs.append((i, k, cont, ref.submit(
+                cont, max_new_tokens=NEW_TOKENS - k)))
+        ref.run()
+        for i, k, cont, r in runs:
+            got = reqs[i].out[k:]
+            _exact_or_fail(torch, f"{tag} prompt {i} after {k} tokens",
+                           bundles["full"], models["full"], cont, got,
+                           r.out[:len(got)])
+        return len(runs)
+
+    t0 = time.monotonic()
+    # (a) the escalation dial
+    pool, per_tier = counted_pool()
+    for eng in pool.engines[:1]:
+        eng.escalation = EscalationMonitor(abort_threshold=None)
+    reqs, tier_idx, _ = pool.submit(tokens, pool_run["mask"])
+    pool.run()
+    if not np.array_equal(tier_idx, pool_run["tier_idx"]):
+        raise AssertionError("the pool routes differently from phase 4")
+    for i, r in enumerate(reqs):
+        _exact_or_fail(torch, f"observe-only prompt {i}",
+                       bundles[pool.names[tier_idx[i]]],
+                       models[pool.names[tier_idx[i]]], prompts[i], r.out,
+                       phase4[i])
+    check_launches("observe-only", pool, per_tier)
+    half = [r for r, t in zip(reqs, tier_idx) if t == 0]
+    peaks = [r.esc_peak_score for r in half]
+    thr = calibrate_abort_threshold(peaks, ESC_BUDGET)
+    log(f"[faults] observe-only: {len(half)} half streams, peaks "
+        f"{min(peaks):.4f}-{max(peaks):.4f}; threshold at a "
+        f"{ESC_BUDGET} budget: {thr:.6f}")
+    for tag, mon in (("calibrated", EscalationMonitor(abort_threshold=thr)),
+                     ("threshold-0", EscalationMonitor(abort_threshold=0.0,
+                                                       min_tokens=4))):
+        pool, per_tier = counted_pool(escalation=[mon])
+        reqs, _, _ = pool.submit(tokens, pool_run["mask"])
+        pool.run()
+        check_meter(tag, pool, reqs)
+        n = check_continuations(tag, pool, reqs)
+        check_launches(tag, pool, per_tier)
+        frac = n / len(half)
+        log(f"[faults] {tag}: {n} of {len(half)} half streams escalated "
+            f"({frac:.3f}; budget {ESC_BUDGET if tag == 'calibrated' else 1.0}), "
+            f"continuations greedy-exact on the full tier; meter calls "
+            f"{pool.meter.calls.tolist()}, tokens "
+            f"{pool.meter.tokens.tolist()}, esc_tokens "
+            f"{pool.meter.esc_tokens.tolist()}")
+        if tag == "calibrated" and frac > ESC_BUDGET:
+            raise AssertionError(f"calibrated dial escalated {frac} > "
+                                 f"{ESC_BUDGET}")
+        stayed = [i for i, r in enumerate(reqs) if tier_idx[i] == 0
+                  and not r.escalations and tok.EOS not in r.out[:4]]
+        if tag == "threshold-0" and stayed:
+            raise AssertionError(f"threshold 0 left half streams {stayed} "
+                                 "on half past 4 tokens")
+
+    # (b) the fault schedule
+    pool, per_tier = counted_pool()
+    full_idx = [i for i in range(N_PROMPTS) if pool_run["tier_idx"][i]]
+    chunk = pool.engine("full").prefill_chunk
+    burst_step = -(-int(min(lens[i] for i in full_idx)) // chunk) + 1
+    burst = tuple(prompts[i] for i in sorted(
+        full_idx, key=lambda i: lens[i])[:4])
+    half_cache = pool.engine("half").cache
+    two = 2 * half_cache.pages_for(int(np.mean(
+        [lens[i] for i in range(N_PROMPTS) if not pool_run["tier_idx"][i]])))
+    h = faults.FaultHarness(pool, [
+        faults.PagePressure("half", start=0, steps=20,
+                            pages=half_cache.free_pages - two),
+        faults.AdmissionBurst(step=burst_step, prompts=burst, tier="full",
+                              priority=5),
+        faults.TierStall("full", start=burst_step + 2, steps=5),
+    ])
+    base = [h.submit(pool.names[pool_run["tier_idx"][i]], prompts[i])
+            for i in range(N_PROMPTS)]
+    rng = np.random.default_rng(4)
+    late = h.submit("half", prompts[0], deadline_s=0.0)
+    huge = h.submit("full", rng.integers(4, pool_run["cfgs"]["full"]
+                                         .vocab_size, MAX_SEQ)
+                    .astype(np.int32))
+    h.run()
+    bad = h.check_invariants()
+    if bad:
+        raise AssertionError(f"fault schedule invariants: {bad}")
+    if late.finish_reason != "deadline" or huge.finish_reason != "rejected":
+        raise AssertionError(f"deadline request {late.finish_reason!r}, "
+                             f"1024-token prompt {huge.finish_reason!r}")
+    st = {n: pool.engine(n).stats for n in pool.names}
+    if st["full"].preemptions <= 0:
+        raise AssertionError("the burst preempted nothing")
+    preempted = [(i, r) for i, r in enumerate(base) if r.preemptions]
+    for i, r in preempted:
+        if r.finish_reason not in ("eos", "length"):
+            raise AssertionError(f"preempted prompt {i} finished "
+                                 f"{r.finish_reason!r}")
+        name = pool.names[pool_run["tier_idx"][i]]
+        _exact_or_fail(torch, f"preempted prompt {i}", bundles[name],
+                       models[name], prompts[i], r.out, phase4[i])
+    check_launches("faults", pool, per_tier)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    log(f"[faults] schedule: {len(h.retired)} retired; preempted streams "
+        f"{len(preempted)} (greedy-exact against phase 4); "
+        + "; ".join(f"{n}: preemptions {s.preemptions}, reprefill_tokens "
+                    f"{s.reprefill_tokens}, stall_steps {s.stall_steps}, "
+                    f"admission_stalls {s.admission_stalls}, sheds "
+                    f"{s.sheds}, deadline_misses {s.deadline_misses}"
+                    for n, s in st.items())
+        + f"; meter {pool.meter.summary()}")
+    log(f"[faults] phase wall {wall:.3f} s on {card} ({smi}); K1 and K2 "
+        f"launches over the pools' serves {totals}")
+    return totals
 
 
 # ----------------------------------------------------------------- phase 4c
@@ -2193,6 +2466,7 @@ def main() -> int:
     pool_run = main_path_phase(torch, card, smi)
     launches = {**pool_run["launches"],
                 **dense_hybrid_phase(torch, card, smi, pool_run)}
+    fault_launches = fault_phase(torch, card, smi, pool_run)
     ssm_run = ssm_phase(torch, card, smi, pool_run["router"])
     launches["ssd_chunk_scan"] = ssm_run["launches"]
     # "launches": the first main path that runs the kernel (qwen1.5-32b's
@@ -2200,6 +2474,8 @@ def main() -> int:
     # path's own count, zeroed just before that path ran
     by_path = {n: {"mamba2-130m" if n == "ssd_chunk_scan"
                    else "qwen1.5-32b": k} for n, k in launches.items()}
+    for name, n in fault_launches.items():
+        by_path[name]["qwen1.5-32b-faults"] = n
     device_vs_cpu_phase(torch, pool_run["models"]["full"],
                         pool_run["cfgs"]["full"])
     device_vs_cpu_phase(torch, ssm_run["model"], ssm_run["cfg"])

@@ -271,9 +271,20 @@ class TierMeter:
     tokens — §2.3 charges generated tokens). For K=2 both reduce to the
     paper's "fraction routed to the small model".
 
-    ``summary`` reports the reference's full column set. The robustness,
-    speculative and escalation columns stay zero until the slices that
-    record them are ported.
+    Side columns, each an (n_tiers,) array attribute:
+
+    * ``sheds``: requests load-shed ("rejected") on their tier. Not calls:
+      they consumed no service. ``deadline_misses`` are calls that also
+      missed; ``preemptions`` and ``reprefill_tokens`` the recompute cost
+      of evictions (``record_shed``, ``record_robustness``).
+    * ``escalations`` and ``esc_tokens``: streams that left the tier
+      mid-decode for the one above, and the tokens they emitted here,
+      which also bill to this tier's ``tokens`` (``record_escalation``).
+      The call lands once, at the tier that finishes the request, so the
+      calls-weighted advantage stays undiluted while the token split is
+      honest.
+    * ``drafted``, ``accepted``, ``rejected``: speculative decoding's
+      columns, zero until that slice is ported.
     """
 
     _SIDE = ("sheds", "deadline_misses", "preemptions", "reprefill_tokens",
@@ -287,8 +298,8 @@ class TierMeter:
         self.names: Tuple[str, ...] = tuple(names)
         self.calls = np.zeros(len(self.names), np.int64)
         self.tokens = np.zeros(len(self.names), np.int64)
-        self.side = {k: np.zeros(len(self.names), np.int64)
-                     for k in self._SIDE}
+        for k in self._SIDE:
+            setattr(self, k, np.zeros(len(self.names), np.int64))
 
     @property
     def n_tiers(self) -> int:
@@ -307,12 +318,49 @@ class TierMeter:
         self.tokens += np.bincount(tier, weights=lens,
                                    minlength=self.n_tiers).astype(np.int64)
 
+    def _check_tier(self, tier: int) -> int:
+        tier = int(tier)
+        if not 0 <= tier < self.n_tiers:
+            raise ValueError(f"tier index out of range for {self.names}: "
+                             f"{tier}")
+        return tier
+
+    def record_shed(self, tier_idx: int):
+        """Record one load-shed request on its assigned tier (no call)."""
+        self.sheds[self._check_tier(tier_idx)] += 1
+
+    def record_robustness(self, tier_idx: int, preemptions: int = 0,
+                          reprefill_tokens: int = 0,
+                          deadline_miss: bool = False):
+        """Fold one served request's robustness tallies into its tier, at
+        retirement beside ``record``."""
+        t = self._check_tier(tier_idx)
+        self.preemptions[t] += preemptions
+        self.reprefill_tokens[t] += reprefill_tokens
+        if deadline_miss:
+            self.deadline_misses[t] += 1
+
+    def record_escalation(self, from_tier: int, gen_tokens: int):
+        """Record one stream leaving ``from_tier`` mid-decode after
+        emitting ``gen_tokens`` tokens there since its last hand-off: they
+        bill to that tier's tokens now, and no call is recorded (the call
+        lands at the final tier, whose ``record`` subtracts these)."""
+        t = self._check_tier(from_tier)
+        if t == self.n_tiers - 1:
+            raise ValueError(f"cannot escalate off the priciest tier "
+                             f"{self.names[-1]!r}: there is nothing above")
+        if gen_tokens < 0:
+            raise ValueError(f"negative escalated token count {gen_tokens}")
+        self.escalations[t] += 1
+        self.esc_tokens[t] += int(gen_tokens)
+        self.tokens[t] += int(gen_tokens)
+
     def reset(self):
         """Zero the counters — e.g. after a warmup pass."""
         self.calls[:] = 0
         self.tokens[:] = 0
-        for v in self.side.values():
-            v[:] = 0
+        for k in self._SIDE:
+            getattr(self, k)[:] = 0
 
     @property
     def total_calls(self) -> int:
@@ -340,7 +388,7 @@ class TierMeter:
         (cheapest first) — the reference's ``TierMeter.summary`` layout."""
         return {name: {"calls": int(self.calls[t]),
                        "gen_tokens": int(self.tokens[t]),
-                       **{k: int(v[t]) for k, v in self.side.items()}}
+                       **{k: int(getattr(self, k)[t]) for k in self._SIDE}}
                 for t, name in enumerate(self.names)}
 
 

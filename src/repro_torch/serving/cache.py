@@ -12,8 +12,13 @@ of the table as device tensors.
 Page 0 is reserved: inactive slots' writes and fully masked reads land
 there, so the step never needs a branch on slot liveness.
 
+Pages may also be held outside any slot (``hold_pages``: the fault
+harness's page pressure, a co-tenant, a shrinking quota) until
+``release_pages`` gives them back; held pages count as in use.
+
 The reference's shared-prefix tree (refcounted pages, copy-on-write) comes
-with the prefix-sharing slice; here every page has exactly one owner.
+with the prefix-sharing slice; here every page has exactly one owner, a
+slot or an external hold, or is free.
 """
 from __future__ import annotations
 
@@ -95,6 +100,7 @@ class PagedKVCache:
         self.seq_lens = np.zeros((n_slots,), np.int32)
         self._free = list(range(num_pages - 1, 0, -1))  # pop() -> 1, 2, ...
         self._owned: dict[int, list[int]] = {s: [] for s in range(n_slots)}
+        self.held_pages = 0       # pages taken out by hold_pages
         self.stats = CacheStats(num_pages=num_pages - 1, page_size=page_size)
 
     # ------------------------------------------------------------- allocation
@@ -187,6 +193,47 @@ class PagedKVCache:
         self.seq_lens[slot] = 0
         self._mark_usage()
 
+    # ------------------------------------------------------- external holds
+    def hold_pages(self, n: int) -> np.ndarray:
+        """Take up to ``n`` free pages out of circulation (page pressure).
+        Held pages count as in use and shrink every admission and extension
+        decision until ``release_pages`` returns them; the engine waits out
+        a stall while pages are held instead of preempting or raising.
+        Returns the held page ids."""
+        take = [self._free.pop() for _ in range(min(n, len(self._free)))]
+        self.held_pages += len(take)
+        self._mark_usage()
+        return np.asarray(take, np.int32)
+
+    def release_pages(self, pages) -> None:
+        """Return pages taken by ``hold_pages`` to the free list."""
+        pages = [int(p) for p in np.asarray(pages).reshape(-1)]
+        if len(pages) > self.held_pages:
+            raise ValueError(f"releasing {len(pages)} pages but only "
+                             f"{self.held_pages} are held")
+        self._free.extend(reversed(pages))
+        self.held_pages -= len(pages)
+        self._mark_usage()
+
+    def check_pages(self) -> list:
+        """Page audit; returns human-readable violations (empty =
+        consistent): no page both free and owned, none owned twice, and
+        free + held + owned pages make the whole pool."""
+        bad: list = []
+        owned = [p for pages in self._owned.values() for p in pages]
+        if len(set(owned)) != len(owned):
+            bad.append("a page is owned by two slots")
+        if set(owned) & set(self._free):
+            bad.append("an owned page is on the free list")
+        if len(set(self._free)) != len(self._free):
+            bad.append("a page is on the free list twice")
+        total = len(self._free) + self.held_pages + len(owned)
+        if total != self.num_pages - 1:
+            bad.append(f"free {len(self._free)} + held {self.held_pages} + "
+                       f"owned {len(owned)} pages != the pool's "
+                       f"{self.num_pages - 1}")
+        return bad
+
     # ------------------------------------------------------------------ views
     def device_tables(self, device):
         """(page_table, seq_lens) as int32 tensors on ``device``.
@@ -202,3 +249,11 @@ class PagedKVCache:
         in_use = self.stats.num_pages - len(self._free)
         self.stats.pages_in_use = in_use
         self.stats.high_water_pages = max(self.stats.high_water_pages, in_use)
+
+    @property
+    def fragmentation(self) -> float:
+        """Fraction of allocated token slots not holding a token (the tail
+        waste of partly filled last pages)."""
+        alloc = sum(len(p) for p in self._owned.values()) * self.page_size
+        used = int(self.seq_lens.sum())
+        return (alloc - used) / alloc if alloc else 0.0

@@ -66,14 +66,35 @@ temperature (``submit(temperature=)``, else the engine's), so greedy and
 sampled rows share a step; sampled rows draw from the engine's own
 ``torch.Generator`` (``set_rng_salt``, ``reseed``).
 
-Not ported yet, each with a later slice: priorities with preemption,
-deadlines and load shedding, shared-prefix reuse, speculative decoding
-and escalation. A prompt that could never fit the pool raises at submit,
-where the reference sheds it.
+Under load (tests/test_torch_preemption.py): requests carry a
+``priority`` (higher admits first, FIFO within a class), a ``deadline_s``
+from submission and a ``timeout_s`` from first admission; an expired
+request retires "deadline", mid-stream if need be. When no slot or no
+pages are free and a strictly higher-priority request waits, the
+lowest-priority, latest DECODING slot is PREEMPTED: its pages are freed and prompt + emitted
+tokens re-queue as one chunked prefill, whose last chunk samples the
+token decode would have emitted next (greedy-exact across evictions; a
+request preempted ``max_preemptions`` times becomes immune). A prompt
+that could never fit the pool, and the loser of a full bounded queue
+(``max_pending``), retire "rejected" at submit and surface through the
+next ``step``. A step where nothing can progress climbs the stall
+ladder: it waits while pages are held outside any slot
+(``PagedKVCache.hold_pages``), else evicts one running slot
+(``_resolve_stall``), else raises.
+
+Escalation (tests/test_torch_escalation.py): with an
+``EscalationMonitor`` set, every decode step also scores each slot's
+uncertainty from the logits it sampled from, and a stream whose smoothed
+score reaches the monitor's threshold is cancelled like a preemption
+but lands in the escalated buffer, for the pool to re-admit one tier up.
+
+Not ported yet, each with a later slice: shared-prefix reuse and
+speculative decoding.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Dict, List, Optional
 
@@ -84,7 +105,8 @@ from repro_torch.data import tokenizer as tok
 from repro_torch.models.model import ModelBundle
 from .cache import PagedKVCache, RecurrentStatePool
 from .generate import _sample_rows, _stream_seed, build_generate_fn
-from .scheduler import DECODING, ContinuousScheduler, Request
+from .scheduler import (DECODING, DONE as SCHED_DONE, ContinuousScheduler,
+                        Request)
 
 
 def _bucket(n: int) -> int:
@@ -226,7 +248,60 @@ class ContinuousStats:
     prefill_stalls: int = 0      # chunk extensions deferred for pool space
     occupancy_sum: int = 0       # busy slots summed over steps
     admission_stalls: int = 0    # admissions deferred for page-pool space
+    preemptions: int = 0         # DECODING slots evicted (prompt + emitted
+                                 # tokens re-queued)
+    reprefill_tokens: int = 0    # tokens queued for re-prefill by evictions
+    escalations: int = 0         # DECODING slots cancelled up a tier (the
+                                 # re-prefill is the upper tier's cost)
+    sheds: int = 0               # requests retired "rejected"
+    deadline_misses: int = 0     # requests retired "deadline"
+    stall_steps: int = 0         # zero-progress steps waited out while
+                                 # pages were held (hold_pages)
     wall_s: float = 0.0
+
+
+# the escalation monitor's smoothing weight on a stream's newest score
+ESC_EMA = 0.5
+
+
+@dataclasses.dataclass
+class EscalationMonitor:
+    """Mid-stream quality watch over one tier's decode logits.
+
+    Each decode step scores every slot's next-token distribution
+    (``uncertainty``: the mean of normalised entropy and 1 - top-2 margin,
+    both in [0, 1]); the monitor smooths it per stream with weight
+    ``ESC_EMA`` on the newest step and records each stream's peak in
+    ``Request.esc_peak_score``. With ``abort_threshold=None`` that is all
+    (the observe-only pass whose peaks
+    ``core.thresholds.calibrate_abort_threshold`` turns into a
+    threshold). With a threshold, a DECODING stream whose smoothed score
+    reaches it after ``min_tokens`` emitted tokens is cancelled (pages
+    freed, prompt + emitted tokens kept as ``serve_tokens``) into the
+    engine's escalated buffer, which the pool re-admits one tier up.
+    Monitors belong on a pool's tiers below the priciest.
+    """
+    abort_threshold: Optional[float] = None   # None = observe-only
+    min_tokens: int = 4     # emitted tokens before a stream may abort
+
+    def __post_init__(self):
+        if self.min_tokens < 1:
+            raise ValueError(f"min_tokens={self.min_tokens}: a stream must "
+                             "emit at least one token before escalating "
+                             "(its prefix is the hand-off payload)")
+
+
+def uncertainty(logits: torch.Tensor) -> torch.Tensor:
+    """Per-row uncertainty of (B, V) next-token logits: the mean of the
+    entropy normalised by log V and 1 - (top-1 - top-2 probability), in
+    [0, 1]. V is the padded vocab, as the reference takes it; padded
+    columns hold the most negative finite logit, so their probability is
+    0 and they add nothing."""
+    lg = logits.reshape(logits.shape[0], -1).float()
+    p = torch.softmax(lg, dim=-1)
+    ent = -(p * torch.log(p + 1e-9)).sum(-1) / math.log(lg.shape[-1])
+    top2 = torch.topk(p, 2, dim=-1).values
+    return 0.5 * ent + 0.5 * (1.0 - (top2[:, 0] - top2[:, 1]))
 
 
 class ContinuousEngine:
@@ -248,7 +323,10 @@ class ContinuousEngine:
                  num_pages: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
                  prefill_pack: Optional[int] = None,
-                 walk_bound: str = "live"):
+                 walk_bound: str = "live",
+                 max_pending: Optional[int] = None,
+                 max_preemptions: int = 3,
+                 escalation: Optional[EscalationMonitor] = None):
         self.bundle = bundle
         self.params = params
         self.device = next(params.parameters()).device
@@ -299,6 +377,25 @@ class ContinuousEngine:
             raise ValueError(f"walk_bound={walk_bound!r}: expected 'live' "
                              "or 'static'")
         self.walk_bound = walk_bound
+        # under load: a bounded pending queue that sheds (None =
+        # unbounded) and a per-request preemption cap (a request evicted
+        # this often becomes immune, so none starves)
+        if max_pending is not None and max_pending < 1:
+            raise ValueError(f"max_pending={max_pending}: a bounded queue "
+                             "needs room for at least one request")
+        if max_preemptions < 0:
+            raise ValueError(f"max_preemptions={max_preemptions}: the "
+                             "preemption cap must be non-negative")
+        self.max_pending = max_pending
+        self.max_preemptions = max_preemptions
+        self._shed_buf: List[Request] = []   # retired outside step(), for
+                                             # the next step/run result
+        # mid-stream escalation: the monitor (settable any time, None =
+        # off), each slot's smoothed score, and the streams cancelled up a
+        # tier since the pool last drained them
+        self.escalation = escalation
+        self._esc_score = np.zeros((n_slots,), np.float32)
+        self._escalated_buf: List[Request] = []
         self._chunk_shapes: set = set()   # (batch, width, bound, wstart)
         self._decode_bounds: set = set()  # (bound, wstart)
         self._next_in = np.full((n_slots,), tok.PAD, np.int32)
@@ -333,12 +430,22 @@ class ContinuousEngine:
             else req.temperature
 
     def submit(self, tokens: np.ndarray, max_new_tokens: Optional[int] = None,
-               *, temperature: Optional[float] = None) -> Request:
+               *, priority: int = 0, deadline_s: Optional[float] = None,
+               timeout_s: Optional[float] = None,
+               temperature: Optional[float] = None) -> Request:
         """Enqueue one request. ``tokens``: 1-d int prompt (no padding);
         ``max_new_tokens``: per-request output cap (None = the engine
-        default); ``temperature``: this request's sampling temperature
-        (None = the engine default, 0 = greedy). Malformed requests and
-        prompts that could never complete in this pool raise."""
+        default); ``priority``: admission class (higher first);
+        ``deadline_s`` / ``timeout_s``: seconds from submission / from
+        first admission before the request retires "deadline";
+        ``temperature``: this request's sampling temperature (None = the
+        engine default, 0 = greedy).
+
+        Malformed requests raise. A prompt that could never complete in
+        this pool (past the slot's context cap, or a worst-case footprint
+        past the whole pool) and the loser of a full bounded queue are
+        shed: they come back done, finish reason "rejected", and surface
+        through the next ``step``."""
         tokens = np.asarray(tokens, np.int32).reshape(-1)
         if len(tokens) == 0:
             raise ValueError("empty prompt: a request needs at least one "
@@ -351,27 +458,193 @@ class ContinuousEngine:
         if temperature is not None and temperature < 0:
             raise ValueError(f"temperature={temperature}: negative "
                              "temperatures are meaningless (0 = greedy)")
-        cap = self.cache.max_pages_per_slot * self.cache.page_size
-        # worst-case footprint if this request runs alone: prompt plus
-        # every generated token but the last, bounded by the context cap
-        peak = self.cache.pages_for(min(len(tokens) + max_new - 1, cap))
-        if len(tokens) + 1 > cap or peak > self.cache.stats.num_pages:
-            raise ValueError(
-                f"prompt of {len(tokens)} tokens can never complete: the "
-                f"slot context cap is {cap} tokens and the pool holds "
-                f"{self.cache.stats.num_pages} pages")
-        return self.sched.submit(Request(tokens=tokens,
-                                         max_new_tokens=max_new,
-                                         temperature=temperature))
+        req = Request(tokens=tokens, max_new_tokens=max_new,
+                      priority=priority, deadline_s=deadline_s,
+                      timeout_s=timeout_s, temperature=temperature)
+        req.submit_t = time.monotonic()
+        if not self._could_fit(len(tokens), max_new):
+            return self._shed(req)
+        if self.max_pending is not None \
+                and len(self.sched.pending) >= self.max_pending:
+            # full queue: shed the least urgent of (arrival, worst queued),
+            # lowest priority and latest arrival first, so a high-priority
+            # burst displaces stale low-priority backlog
+            victim = min(self.sched.pending,
+                         key=lambda r: (r.priority, -r.rid))
+            if (victim.priority, -victim.rid) < (req.priority, -req.rid):
+                self.sched.drop_pending(victim)
+                self._shed(victim)
+            else:
+                return self._shed(req)
+        return self.sched.submit(req)
 
-    def _retire(self, slot: int, reason: str) -> Request:
+    def _could_fit(self, n_tokens: int, max_new: int) -> bool:
+        """Whether a request of ``n_tokens`` to prefill and ``max_new``
+        tokens still to emit could complete alone in this pool: its worst
+        case is every token but the last written, bounded by the slot's
+        context cap."""
+        cap = self.cache.max_pages_per_slot * self.cache.page_size
+        peak = self.cache.pages_for(min(n_tokens + max_new - 1, cap))
+        return n_tokens + 1 <= cap and peak <= self.cache.stats.num_pages
+
+    def _finish_unslotted(self, req: Request, reason: str,
+                          sink: Optional[List[Request]] = None) -> Request:
+        """Retire a request that holds no slot (shed at submit, expired in
+        the queue) into ``sink`` when mid-step, else into the shed buffer
+        for the next step()/run() result."""
+        req.done = True
+        req.state = SCHED_DONE
+        req.finish_reason = reason
+        req.finish_t = time.monotonic()
+        (self._shed_buf if sink is None else sink).append(req)
+        return req
+
+    def _shed(self, req: Request) -> Request:
+        self.stats.sheds += 1
+        return self._finish_unslotted(req, "rejected")
+
+    def drain_shed(self) -> List[Request]:
+        """Requests retired outside a step since the last drain. step()
+        and run() fold them into their results; a pool drains them every
+        step for its accounting."""
+        out, self._shed_buf = self._shed_buf, []
+        return out
+
+    def _release_slot(self, slot: int) -> None:
+        """Free ``slot``'s pages and per-slot state (retire, preempt and
+        escalate alike)."""
         self.cache.free_slot(slot)
         self._next_in[slot] = tok.PAD
         self._temps[slot] = self.temperature
+        self._esc_score[slot] = 0.0
+
+    def _retire(self, slot: int, reason: str) -> Request:
+        self._release_slot(slot)
         self.stats.retired += 1
         req = self.sched.retire(slot)
         req.finish_reason = reason
+        if reason == "deadline":
+            self.stats.deadline_misses += 1
         return req
+
+    def _evict(self, slot: int) -> Request:
+        """Free a DECODING slot and rebuild its request's prefill source as
+        prompt + emitted tokens (preemption and escalation alike). The
+        resumed prefill's last chunk samples the token decode would have
+        emitted next. It fits: a live slot has at most max_new - 1 emitted
+        tokens and seq_lens + 1 <= the context cap, so serve_tokens stays
+        inside the bounds submit checked."""
+        req = self.sched.running[slot]
+        self._release_slot(slot)
+        req.serve_tokens = np.concatenate(
+            [req.tokens, np.asarray(req.out, np.int32)])
+        req.prefill_pos = 0
+        return req
+
+    def _preempt(self, slot: int) -> Request:
+        """Evict ``slot`` mid-decode back into this engine's queue
+        (recompute from pages)."""
+        req = self._evict(slot)
+        req.preemptions += 1
+        req.reprefill_tokens += len(req.serve_tokens)
+        self.stats.preemptions += 1
+        self.stats.reprefill_tokens += len(req.serve_tokens)
+        return self.sched.preempt(slot)
+
+    def _escalate(self, slot: int) -> Request:
+        """Cancel ``slot`` mid-decode for the tier above: evicted as by
+        ``_preempt``, but the request leaves this tier. Its re-prefill runs
+        on (and is billed to) the upper tier, so no reprefill_tokens are
+        charged here."""
+        req = self._evict(slot)
+        req.escalations += 1
+        self.stats.escalations += 1
+        return self.sched.escalate(slot)
+
+    def _watch_escalation(self, slots: List[int], unc: np.ndarray) -> None:
+        """Feed this step's per-slot uncertainty to the monitor: smooth it
+        per stream, track each stream's peak, and escalate a DECODING
+        stream whose smoothed score reached the threshold. Runs after the
+        step's retirements, so a stream that just finished never
+        escalates."""
+        mon = self.escalation
+        for slot in slots:
+            req = self.sched.running.get(slot)
+            if req is None or req.state != DECODING:
+                continue
+            s = ESC_EMA * float(unc[slot]) \
+                + (1.0 - ESC_EMA) * float(self._esc_score[slot])
+            self._esc_score[slot] = s
+            req.esc_peak_score = max(req.esc_peak_score, s)
+            if mon.abort_threshold is not None \
+                    and req.n_generated >= mon.min_tokens \
+                    and s >= mon.abort_threshold:
+                self._escalated_buf.append(self._escalate(slot))
+
+    def drain_escalated(self) -> List[Request]:
+        """Streams cancelled up a tier since the last drain; the pool hands
+        each to the next tier's ``resubmit``."""
+        out, self._escalated_buf = self._escalated_buf, []
+        return out
+
+    def resubmit(self, req: Request) -> Request:
+        """Take an escalated stream from the tier below: re-queue it for an
+        ordinary admission, its prompt + emitted tokens prefilled as one
+        chunk stream. The bounded queue does not apply (the pool already
+        admitted it); the capacity shed does."""
+        if not self._could_fit(len(req.serve_tokens),
+                               req.max_new_tokens - req.n_generated):
+            return self._shed(req)
+        return self.sched.requeue(req)
+
+    def _preemptible(self, floor_priority: Optional[int] = None) -> List[int]:
+        """DECODING slots that may be evicted: under the preemption cap
+        and, given ``floor_priority``, of strictly lower priority.
+        Mid-prefill slots never are: the pages they would free, their
+        re-admission needs again at once."""
+        return [slot for slot, req in self.sched.running.items()
+                if req.state == DECODING
+                and req.preemptions < self.max_preemptions
+                and (floor_priority is None
+                     or req.priority < floor_priority)]
+
+    def _preempt_lowest(self, victims: List[int]) -> None:
+        """Preempt the lowest-priority, latest-arriving of ``victims``."""
+        self._preempt(min(victims, key=lambda s: (
+            self.sched.running[s].priority, -self.sched.running[s].rid)))
+
+    def _try_preempt(self, incoming: Request) -> bool:
+        """Evict a slot for ``incoming`` (of strictly higher priority).
+        Returns whether one was freed."""
+        victims = self._preemptible(floor_priority=incoming.priority)
+        if victims:
+            self._preempt_lowest(victims)
+        return bool(victims)
+
+    def _resolve_stall(self) -> bool:
+        """A zero-progress step's escape: evict one running slot (any
+        priority, lowest first) when someone else waits for its pages,
+        pending work or a second stuck slot. A lone request that cannot
+        step gains nothing by evicting itself."""
+        if not self.sched.pending and len(self.sched.running) < 2:
+            return False
+        victims = self._preemptible()
+        if victims:
+            self._preempt_lowest(victims)
+        return bool(victims)
+
+    def _expire(self, retired: List[Request]) -> None:
+        """Retire every request past its deadline or timeout, "deadline":
+        queued ones dropped, running ones mid-stream (their emitted tokens
+        kept)."""
+        now = time.monotonic()
+        for req in [r for r in self.sched.pending if r.expired(now)]:
+            self.sched.drop_pending(req)
+            self.stats.deadline_misses += 1
+            self._finish_unslotted(req, "deadline", sink=retired)
+        for slot in [s for s, r in self.sched.running.items()
+                     if r.expired(now)]:
+            retired.append(self._retire(slot, "deadline"))
 
     def _push_token(self, req: Request, token: int) -> Optional[Request]:
         """Record an emitted token; retire on EOS / request cap."""
@@ -396,15 +669,22 @@ class ContinuousEngine:
         return r
 
     def _admit(self, retired: List[Request]) -> int:
-        """Claim free slots for pending requests in FIFO order, with a
-        head-of-line lookahead of ``n_slots`` requests: when the
-        head doesn't fit the pool right now, the first of the next queued
-        requests that does fit overtakes it. Chunked mode just assigns the
-        slot (chunks run in ``_prefill_step``); one-shot mode prefills the
-        whole prompt now (``_prefill_one_shot``). Returns the
-        admissions."""
+        """Claim free slots for pending requests, priority then FIFO, with
+        a head-of-line lookahead of ``n_slots`` requests: when the head
+        doesn't fit the pool right now, the first of the next queued
+        requests that does fit overtakes it. When no slot is free, or
+        nothing in the window fits, and the head outranks a DECODING slot,
+        that slot is preempted for it. Chunked mode just assigns the slot
+        (chunks run in ``_prefill_step``); one-shot mode prefills the whole
+        prompt now (``_prefill_one_shot``). Returns admissions plus
+        preemptions made for the head."""
         admitted = 0
-        while self.sched.pending and self.sched.has_free_slot:
+        while self.sched.pending:
+            if not self.sched.has_free_slot:
+                if self._try_preempt(self.sched.pending[0]):
+                    admitted += 1   # a slot was freed for the head
+                    continue
+                break
             reserve = self._reserved_prefill_pages()
             idx = next(
                 (i for i, r in enumerate(
@@ -413,6 +693,8 @@ class ContinuousEngine:
                                          reserve=reserve)), None)
             if idx is None:
                 self.stats.admission_stalls += 1
+                if self._try_preempt(self.sched.pending[0]):
+                    continue   # pages freed: scan the window again
                 break
             req = self.sched.admit(idx)
             self._temps[req.slot] = self._req_temp(req)
@@ -606,12 +888,16 @@ class ContinuousEngine:
     # ------------------------------------------------------------------ step
     @torch.no_grad()
     def step(self) -> List[Request]:
-        """Admit, advance prefill chunks under the step budget, decode one
-        token per DECODING slot, and retire. Returns the requests completed
-        during this step. Runs without autograd, so serving a module fresh
-        from training builds no graph."""
+        """Retire expired requests, admit (preempting where priority
+        demands), advance prefill chunks under the step budget, decode one
+        token per DECODING slot, retire, and let the escalation monitor
+        see the decoded slots. Returns the requests completed during this
+        step, those shed since the last step included. Runs without
+        autograd, so serving a module fresh from training builds no
+        graph."""
         t0 = time.monotonic()
-        retired: List[Request] = []
+        retired: List[Request] = self.drain_shed()
+        self._expire(retired)
         progressed = self._admit(retired)
         prefilled: List[int] = []
         if self.prefill_chunk:
@@ -652,7 +938,16 @@ class ContinuousEngine:
             # each slot at its request's temperature; idle rows take the
             # argmax: no draw is spent on garbage
             temps = np.where(active, self._temps, 0.0)
-            nxt = _sample_rows(self._gen, logits, temps).cpu().numpy()
+            nxt = _sample_rows(self._gen, logits, temps)
+            if self.escalation is not None:
+                # the monitor's scores ride the tokens' one copy to the
+                # host, as int32 bits
+                both = torch.cat([nxt, uncertainty(logits).view(torch.int32)])
+                both = both.cpu().numpy()
+                nxt, unc = both[:self.n_slots], \
+                    both[self.n_slots:].view(np.float32)
+            else:
+                nxt = nxt.cpu().numpy()
             self.cache.seq_lens[steppable] += 1
             for slot in steppable:
                 self.stats.decode_tokens += 1
@@ -661,15 +956,24 @@ class ContinuousEngine:
                 if done is not None:
                     retired.append(done)
             self.stats.decode_steps += 1
+            if self.escalation is not None:
+                self._watch_escalation(steppable, unc)
         elif not progressed and not retired \
                 and (self.sched.running or self.sched.pending):
             # nothing decoded, no prefill advanced, nothing admitted or
-            # retired, yet work remains: occupied slots all stalled on
-            # pages, or a pending request can't admit into an idle pool.
-            # Without preemption (a later slice) neither can resolve
-            raise RuntimeError(
-                "page pool deadlock: no slot could step and no request "
-                "could admit or retire; provision more pages")
+            # retired, yet work remains. The ladder: pages held outside any
+            # slot make it back-pressure, so wait; else evict a running
+            # slot if that unwedges anyone; else occupied slots all stalled
+            # on pages, or a pending request can't admit into an otherwise
+            # idle pool, and neither can ever resolve
+            if self.cache.held_pages:
+                self.stats.stall_steps += 1
+            elif self._resolve_stall():
+                progressed += 1
+            else:
+                raise RuntimeError(
+                    "page pool deadlock: no slot could step and no request "
+                    "could admit or retire; provision more pages")
         if steppable or progressed or retired:
             self.stats.steps += 1
             self.stats.occupancy_sum += len(set(steppable) | set(prefilled))
@@ -681,8 +985,9 @@ class ContinuousEngine:
         return retired
 
     def run(self) -> List[Request]:
-        """Drain the queue; returns all requests retired during the drain."""
-        done: List[Request] = []
+        """Drain the queue; returns all requests retired during the drain,
+        those shed at submit included."""
+        done: List[Request] = self.drain_shed()
         while self.sched.has_work:
             done.extend(self.step())
         return done

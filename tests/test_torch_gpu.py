@@ -862,3 +862,19 @@ def test_cuda_cascade_pool_launches_paged_kernels(cuda):
     for name, eng in engines:
         assert per_tier[name][0] > 0 and per_tier[name][1] > 0, per_tier
         assert eng.cache.free_pages == eng.cache.num_pages - 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["burst", "escalation-storm"])
+def test_cuda_fault_scenarios(name, cuda):
+    """The port's burst and escalation-storm chaos scenarios on the card,
+    through both paged kernels: every invariant holds, and preempted and
+    escalated streams emit the tokens of uncontended runs (the scenarios'
+    own checks)."""
+    from repro_torch.serving import faults
+    d0 = dec_ops.paged_decode_attention_gqa.launches
+    p0 = pre_ops.paged_prefill_attention_gqa.launches
+    h = faults.SCENARIOS[name](verbose=False, device="cuda")
+    assert h.check_invariants() == []
+    assert dec_ops.paged_decode_attention_gqa.launches > d0
+    assert pre_ops.paged_prefill_attention_gqa.launches > p0

@@ -175,15 +175,18 @@ def test_engine_dispatch_variants_agree_within_the_port(dense):
 
 
 def test_engine_refuses_what_is_not_ported(dense):
-    """A request the engine cannot serve raises: a negative temperature,
-    and a prompt that could never complete (the reference sheds it, a
-    robustness feature of a later slice)."""
-    _, _, bundle, model = dense
+    """A malformed request raises (a negative temperature); a prompt that
+    could never complete is refused as the reference refuses it: shed,
+    finish reason "rejected", surfacing through the next step."""
+    m, p, bundle, model = dense
     eng = ContinuousEngine(bundle, model, max_seq=16, n_slots=1)
     with pytest.raises(ValueError, match="negative"):
         eng.submit(np.arange(4, 8, dtype=np.int32), temperature=-0.1)
-    with pytest.raises(ValueError, match="never complete"):
-        eng.submit(np.arange(4, 40, dtype=np.int32))
+    ref = JaxEngine(m, p, max_seq=16, n_slots=1)
+    for e in (eng, ref):
+        req = e.submit(np.arange(4, 40, dtype=np.int32))
+        assert req.done and req.finish_reason == "rejected"
+        assert e.step() == [req] and e.stats.sheds == 1
 
 
 # ------------------------------------------------------------------ pool
