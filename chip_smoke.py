@@ -56,6 +56,19 @@ and prints no result line):
    prompt; the harness's invariants must hold and every preempted stream
    emit phase 4's tokens. K1 and K2 must launch on every tier of every
    serve.
+   4f. Shared-prefix reuse and speculation (after 4e, on phase 4's tiers,
+   router and prompts): the full tier serves 16 prompts behind one
+   256-token system prompt, a fork prompt sharing 264 tokens (a
+   copy-on-write split inside a page) and 8 second turns, with
+   prefix_cache=0 and 64: the same tokens, prefix hits on the second wave
+   and the turns, at least one COW split, fewer K2 launches with the
+   tree (K2 from starts past pages mapped from the tree), clean refcounts
+   after the drain. Then speculation at gamma 4, greedy: a pool with
+   "half" drafting for "full" (it must route as phase 4 did and emit its
+   tokens) and "full" drafting on its own module (its full-tier tokens):
+   K2 as the verify chunk (gamma + 1 rows a slot) and the draft mirror's
+   prefill, K1 as the draft's micro-steps (exactly layers x verify
+   chunks and layers x micro-steps), every pool and mirror drained clean.
 5. The card against the CPU: the qwen and mamba2 full tiers at depth 1
    (before phase 4d, which runs on the memory phases 4-4c held), and
    gemma3-4b at depth 6 (one local:global period, after phase 4d) on
@@ -79,7 +92,11 @@ JSON object listing the kernels and the result line. A kernel's
 "launches" there are those of the first main path that runs it (qwen1.5-32b
 for K1, K2, K4 and K5, mamba2-130m for K3), and "launches_by_path" holds
 each path's own count, read just after that path ran from 0
-("qwen1.5-32b-faults": phase 4e's pool serves).
+("qwen1.5-32b-faults": phase 4e's pool serves; "qwen1.5-32b-prefix":
+phase 4f's serves through the tree; "qwen1.5-32b-spec": its speculative
+serves, whose K2 launches as the verify chunk and the draft mirror's
+prefill are "qwen1.5-32b-spec-verify" and "-spec-mirror", and whose K1
+launches as the draft's micro-steps "qwen1.5-32b-spec-draft").
 """
 from __future__ import annotations
 
@@ -1046,10 +1063,10 @@ def main_path_phase(torch, card: str, smi: str):
     per_tier = {name: {"decode": 0, "prefill": 0} for name, _ in tiers}
 
     def counted(name, step):
-        def run():
+        def run(*args, **kw):
             d0, p0 = dec.paged_decode_attention_gqa.launches, \
                 pre.paged_prefill_attention_gqa.launches
-            out = step()
+            out = step(*args, **kw)
             per_tier[name]["decode"] += \
                 dec.paged_decode_attention_gqa.launches - d0
             per_tier[name]["prefill"] += \
@@ -1100,7 +1117,7 @@ def main_path_phase(torch, card: str, smi: str):
                 router=probe.with_threshold(threshold), tokens=tokens,
                 mask=mask, lens=lens, tier_idx=res.tier_idx,
                 responses=res.responses, lengths=res.lengths,
-                launches=launches)
+                launches=launches, wall=wall)
 
 
 # ----------------------------------------------------------------- phase 4b
@@ -1427,6 +1444,285 @@ def fault_phase(torch, card: str, smi: str, pool_run: dict):
     log(f"[faults] phase wall {wall:.3f} s on {card} ({smi}); K1 and K2 "
         f"launches over the pools' serves {totals}")
     return totals
+
+
+# ----------------------------------------------------------------- phase 4f
+SYS_TOKENS = 256      # the shared system prompt: 16 whole pages
+SUFFIX_CAP = 256      # each phase-4 prompt cut to at most this after it
+FORK_SHARED = 264     # the fork prompt's shared head: half a page past sys
+PREFIX_PAGES = 64     # the tree's page budget (prefix_cache)
+TURN_TOKENS = 32      # new tokens a second-turn prompt adds
+SPEC_GAMMA = 4        # drafted tokens a speculative round
+
+
+def _counted_bundle(bundle, counters, into, **labels):
+    """``bundle`` with each function named in ``labels`` adding the
+    kernel launches during its call to ``into[label]``."""
+    repl = {}
+    for fn_name, label in labels.items():
+        fn = getattr(bundle, fn_name)
+
+        def run(*args, fn=fn, label=label, **kw):
+            before = {k: w.launches for k, w in counters.items()}
+            out = fn(*args, **kw)
+            for k, w in counters.items():
+                into[label][k] += w.launches - before[k]
+            return out
+        repl[fn_name] = run
+    return dataclasses.replace(bundle, **repl)
+
+
+def prefix_spec_phase(torch, card: str, smi: str, pool_run: dict):
+    """Phase 4f on phase 4's two qwen1.5-32b tiers, router and prompts.
+
+    (a) Shared-prefix reuse on "full": 16 prompts, a seeded 256-token
+    system prompt followed by each phase-4 prompt cut to 256 tokens, and a
+    fork prompt sharing the longest first-slot stream's first 264 tokens
+    (submitted ninth, so it admits while that stream still maps its
+    pages, and forks inside a page: a COW split); then a second turn of 8
+    streams (prompt + response + 32 new tokens). Served with
+    prefix_cache=0 and with PREFIX_PAGES, 8 slots, 16-token chunks: the
+    tokens must agree, the tree serve must hit on the second wave and
+    turn and launch fewer K2, split at least one page, and drain to clean
+    refcounts with only the tree's residents in use.
+    (b) Speculation at gamma SPEC_GAMMA, greedy: a pool over phase 4's
+    tiers with "half" drafting for "full" must route as phase 4 did and
+    emit its tokens; "full" drafting on its own bundle and module
+    (self-speculation) must emit phase 4's full-tier tokens. K2 runs as
+    the verify chunk (C = gamma + 1) and the draft mirror's prefill, K1
+    as the draft's micro-steps; every pool and mirror must drain clean.
+    Each serve's launches are read with the counts set to 0 just before
+    it. Returns {kernel: {path: launches}}."""
+    import numpy as np
+    from repro_torch.core.routing import ThresholdPolicy
+    from repro_torch.kernels.paged_decode_attention import ops as dec
+    from repro_torch.kernels.paged_prefill_attention import ops as pre
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import ContinuousEngine
+    from repro_torch.serving.pool import ContinuousPoolEngine
+
+    counters = {"paged_decode_attention": dec.paged_decode_attention_gqa,
+                "paged_prefill_attention": pre.paged_prefill_attention_gqa}
+    K1, K2 = counters
+
+    def zero():
+        for w in counters.values():
+            w.launches = 0
+
+    def read():
+        return {k: w.launches for k, w in counters.items()}
+
+    cfgs, models = pool_run["cfgs"], pool_run["models"]
+    bundles = {n: build_model(c) for n, c in cfgs.items()}
+    tokens, lens = pool_run["tokens"], pool_run["lens"]
+    prompts = [tokens[i, :int(lens[i])] for i in range(N_PROMPTS)]
+    phase4 = [list(pool_run["responses"][i, :int(pool_run["lengths"][i])])
+              for i in range(N_PROMPTS)]
+    vocab = cfgs["full"].vocab_size
+    by_path = {K1: {}, K2: {}}
+    t_phase = time.monotonic()
+
+    # (a) shared-prefix reuse on the full tier
+    rng = np.random.default_rng(23)
+    sys_prompt = rng.integers(4, vocab, SYS_TOKENS).astype(np.int32)
+    wave = [np.concatenate([sys_prompt, p[:SUFFIX_CAP]]) for p in prompts]
+    parent = max(range(N_SLOTS), key=lambda i: (len(wave[i]), -i))
+    fork = np.concatenate([wave[parent][:FORK_SHARED],
+                           rng.integers(4, vocab, 40).astype(np.int32)])
+    wave.insert(N_SLOTS, fork)
+    turn_of = list(range(N_SLOTS + 1, N_SLOTS + 9))
+    new_text = rng.integers(4, vocab, (len(turn_of), TURN_TOKENS)
+                            ).astype(np.int32)
+
+    def prefix_serve(prefix_cache):
+        eng = ContinuousEngine(bundles["full"], models["full"],
+                               max_new_tokens=NEW_TOKENS, n_slots=N_SLOTS,
+                               max_seq=MAX_SEQ, prefix_cache=prefix_cache)
+        out = {}
+        zero()
+        t0 = time.monotonic()
+        first = [eng.submit(p) for p in wave]
+        eng.run()
+        torch.cuda.synchronize()
+        out["wave"] = (read(), time.monotonic() - t0)
+        hits_wave = eng.stats.prefix_hits
+        turn = [np.concatenate([wave[i], np.asarray(first[i].out, np.int32),
+                                t]) for i, t in zip(turn_of, new_text)]
+        zero()
+        t0 = time.monotonic()
+        second = [eng.submit(p) for p in turn]
+        eng.run()
+        torch.cuda.synchronize()
+        out["turn"] = (read(), time.monotonic() - t0)
+        c = eng.cache
+        resident = c.prefix.resident if c.prefix is not None else 0
+        bad = c.check_refcounts() + c.check_pages()
+        if bad or c.stats.pages_in_use != resident:
+            raise AssertionError(f"prefix_cache={prefix_cache}: after the "
+                                 f"drain {c.stats.pages_in_use} pages in use"
+                                 f" against {resident} tree residents; "
+                                 f"{bad}")
+        return eng, first, turn, second, out, hits_wave
+
+    runs = {pc: prefix_serve(pc) for pc in (0, PREFIX_PAGES)}
+    (plain, p_first, p_turn, p_second, p_out, _), \
+        (shared, s_first, s_turn, s_second, s_out, hits_wave) = \
+        runs[0], runs[PREFIX_PAGES]
+    for tag, srcs, got, want in (("wave", wave, s_first, p_first),
+                                 ("turn", p_turn, s_second, p_second)):
+        for i, (src, g, w) in enumerate(zip(srcs, got, want)):
+            _exact_or_fail(torch, f"prefix {tag} prompt {i}",
+                           bundles["full"], models["full"], src, g.out,
+                           w.out)
+    st = shared.stats
+    k2 = {pc: sum(o[K2] for o, _ in runs[pc][4].values()) for pc in runs}
+    log(f"[prefix] full tier, {len(wave)} prompts of "
+        f"{min(map(len, wave))}-{max(map(len, wave))} tokens (a "
+        f"{SYS_TOKENS}-token system prompt; the fork shares {FORK_SHARED} "
+        f"with prompt {parent}), then {len(turn_of)} second turns: tokens "
+        f"equal with prefix_cache=0 and {PREFIX_PAGES}; prefix_hits "
+        f"{st.prefix_hits} ({hits_wave} in the first serve), misses "
+        f"{st.prefix_misses}, hit tokens {st.prefix_hit_tokens}, hit pages "
+        f"{st.prefix_hit_pages}, cow_splits {st.cow_splits}, tree evictions "
+        f"{shared.cache.prefix.stats.evicted_pages}, residents "
+        f"{shared.cache.prefix.resident}")
+    for pc, (eng, _, _, _, out, _) in runs.items():
+        log(f"[prefix] prefix_cache={pc}: launches and wall by serve "
+            + "; ".join(f"{k} {o} {w:.3f} s" for k, (o, w) in out.items())
+            + f"; prefill tokens {eng.stats.prefill_tokens}, dispatches "
+            f"{eng.stats.prefill_dispatches} on {card} ({smi})")
+    if st.cow_splits < 1:
+        raise AssertionError("the fork prompt split no page")
+    if hits_wave < 1 or st.prefix_hits <= hits_wave:
+        raise AssertionError(f"prefix hits {hits_wave} in the first serve, "
+                             f"{st.prefix_hits} after the second turn")
+    if not k2[PREFIX_PAGES] < k2[0]:
+        raise AssertionError(f"K2 launches with the tree {k2[PREFIX_PAGES]}"
+                             f" not below {k2[0]} without")
+    for k in counters:
+        by_path[k]["qwen1.5-32b-prefix"] = sum(
+            o[k] for o, _ in s_out.values())
+
+    # (b) speculation
+    def labels():
+        return {n: {k: 0 for k in counters} for n in
+                ("prefill", "decode", "verify", "draft", "mirror")}
+
+    def count_spec(eng, into):
+        eng.bundle = _counted_bundle(
+            eng.bundle, counters, into, prefill_paged_chunk="prefill",
+            decode_step_paged="decode", verify_paged_chunk="verify")
+        eng.draft_bundle = _counted_bundle(
+            eng.draft_bundle, counters, into, prefill_paged_chunk="mirror",
+            decode_step_paged="draft")
+
+    def check_spec(tag, eng, into, draft_layers):
+        st = eng.stats
+        want = {"verify": (K2, st.verify_steps * eng.bundle.cfg.n_layers),
+                "draft": (K1, st.draft_steps * draft_layers)}
+        for label, (k, n) in want.items():
+            if into[label][k] != n or n <= 0:
+                raise AssertionError(f"{tag}: {label} launched {k} "
+                                     f"{into[label][k]} times, not {n}")
+        for c in (eng.cache, eng.draft_cache):
+            if c.free_pages != c.num_pages - 1 or c.check_refcounts():
+                raise AssertionError(f"{tag}: a pool or its draft mirror "
+                                     "did not drain clean")
+
+    def spec_line(tag, eng, into, wall, n_tok):
+        st = eng.stats
+        log(f"[spec] {tag}: spec rounds {st.spec_rounds}, acceptance rate "
+            f"{st.acceptance_rate:.4f} ({st.accepted_tokens} of "
+            f"{st.drafted_tokens} drafted), spec_fallbacks "
+            f"{st.spec_fallbacks}, verify chunks {st.verify_steps}, draft "
+            f"micro-steps {st.draft_steps}, plain decode steps "
+            f"{st.decode_steps}; launches {into}; {n_tok} tokens in "
+            f"{wall:.3f} s (phase 4's serve {pool_run['wall']:.3f} s) on "
+            f"{card} ({smi})")
+
+    spec_launches = {k: 0 for k in counters}
+    engines = [(n, ContinuousEngine(bundles[n], models[n],
+                                    max_new_tokens=NEW_TOKENS,
+                                    n_slots=N_SLOTS, max_seq=MAX_SEQ))
+               for n in ("half", "full")]
+    pool = ContinuousPoolEngine(ThresholdPolicy(pool_run["router"]),
+                                engines, spec_gamma=SPEC_GAMMA)
+    if pool.plan.pairs != ((0, 1),):
+        raise AssertionError(f"step plan {pool.plan}")
+    into = labels()
+    count_spec(pool.engine("full"), into)
+    zero()
+    t0 = time.monotonic()
+    res = pool.serve(tokens, pool_run["mask"], seed=0)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    got = read()
+    if not np.array_equal(res.tier_idx, pool_run["tier_idx"]):
+        raise AssertionError("the speculative pool routes differently from "
+                             "phase 4")
+    for i in range(N_PROMPTS):
+        name = pool.names[res.tier_idx[i]]
+        _exact_or_fail(torch, f"spec pool prompt {i}", bundles[name],
+                       models[name], prompts[i],
+                       list(res.responses[i, :int(res.lengths[i])]),
+                       phase4[i])
+    check_spec("spec pool", pool.engine("full"), into,
+               cfgs["half"].n_layers)
+    half = pool.engine("half")
+    if half.cache.free_pages != half.cache.num_pages - 1:
+        raise AssertionError("spec pool: the half tier leaked pages")
+    spec_line("pool, half drafts for full", pool.engine("full"), into, wall,
+              int(res.lengths.sum()))
+    log(f"[spec] pool meter: drafted {pool.meter.drafted.tolist()}, "
+        f"accepted {pool.meter.accepted.tolist()}, rejected "
+        f"{pool.meter.rejected.tolist()}; all launches {got}")
+    for k in counters:
+        spec_launches[k] += got[k]
+    verify_k2 = into["verify"][K2]
+    mirror_k2 = into["mirror"][K2]
+    draft_k1 = into["draft"][K1]
+
+    full_idx = [i for i in range(N_PROMPTS) if pool_run["tier_idx"][i]]
+    eng = ContinuousEngine(bundles["full"], models["full"],
+                           max_new_tokens=NEW_TOKENS, n_slots=N_SLOTS,
+                           max_seq=MAX_SEQ)
+    eng.attach_draft(eng.bundle, eng.params, gamma=SPEC_GAMMA)
+    if eng.draft_params is not eng.params:
+        raise AssertionError("self-speculation holds a second module")
+    into = labels()
+    count_spec(eng, into)
+    zero()
+    t0 = time.monotonic()
+    reqs = [eng.submit(prompts[i]) for i in full_idx]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    got = read()
+    for i, r in zip(full_idx, reqs):
+        _exact_or_fail(torch, f"self-spec prompt {i}", bundles["full"],
+                       models["full"], prompts[i], r.out, phase4[i])
+    check_spec("self-spec", eng, into, cfgs["full"].n_layers)
+    st = eng.stats
+    n_tok = sum(r.n_generated for r in reqs)
+    spec_line("self-speculation on full", eng, into, wall, n_tok)
+    log(f"[spec] self-speculation: verify chunks a token "
+        f"{st.verify_steps / n_tok:.4f}, slot-rounds a decoded token "
+        f"{st.drafted_tokens / SPEC_GAMMA / st.decode_tokens:.4f} "
+        f"(1/(gamma+1) = {1 / (SPEC_GAMMA + 1):.4f} at full acceptance); "
+        f"all launches {got}")
+    for k in counters:
+        spec_launches[k] += got[k]
+    verify_k2 += into["verify"][K2]
+    mirror_k2 += into["mirror"][K2]
+    draft_k1 += into["draft"][K1]
+    by_path[K1]["qwen1.5-32b-spec"] = spec_launches[K1]
+    by_path[K1]["qwen1.5-32b-spec-draft"] = draft_k1
+    by_path[K2]["qwen1.5-32b-spec"] = spec_launches[K2]
+    by_path[K2]["qwen1.5-32b-spec-verify"] = verify_k2
+    by_path[K2]["qwen1.5-32b-spec-mirror"] = mirror_k2
+    log(f"[spec] phase 4f wall {time.monotonic() - t_phase:.3f} s on {card} "
+        f"({smi}); launches by path {by_path}")
+    return by_path
 
 
 # ----------------------------------------------------------------- phase 4c
@@ -2467,6 +2763,7 @@ def main() -> int:
     launches = {**pool_run["launches"],
                 **dense_hybrid_phase(torch, card, smi, pool_run)}
     fault_launches = fault_phase(torch, card, smi, pool_run)
+    shared_launches = prefix_spec_phase(torch, card, smi, pool_run)
     ssm_run = ssm_phase(torch, card, smi, pool_run["router"])
     launches["ssd_chunk_scan"] = ssm_run["launches"]
     # "launches": the first main path that runs the kernel (qwen1.5-32b's
@@ -2476,6 +2773,8 @@ def main() -> int:
                    else "qwen1.5-32b": k} for n, k in launches.items()}
     for name, n in fault_launches.items():
         by_path[name]["qwen1.5-32b-faults"] = n
+    for name, paths in shared_launches.items():
+        by_path[name].update(paths)
     device_vs_cpu_phase(torch, pool_run["models"]["full"],
                         pool_run["cfgs"]["full"])
     device_vs_cpu_phase(torch, ssm_run["model"], ssm_run["cfg"])

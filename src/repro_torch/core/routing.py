@@ -284,7 +284,10 @@ class TierMeter:
       calls-weighted advantage stays undiluted while the token split is
       honest.
     * ``drafted``, ``accepted``, ``rejected``: speculative decoding's
-      columns, zero until that slice is ported.
+      ledger (``record_spec``): candidate tokens a draft tier's model ran
+      bill to that tier's ``drafted``; the ones its target emitted
+      verbatim or rolled back to the target's ``accepted`` and
+      ``rejected``.
     """
 
     _SIDE = ("sheds", "deadline_misses", "preemptions", "reprefill_tokens",
@@ -339,6 +342,21 @@ class TierMeter:
         self.reprefill_tokens[t] += reprefill_tokens
         if deadline_miss:
             self.deadline_misses[t] += 1
+
+    def record_spec(self, draft_tier: int, target_tier: int, *,
+                    drafted: int, accepted: int, rejected: int):
+        """Fold one served request's speculative ledger into the meter, at
+        retirement beside ``record``: ``drafted`` candidate tokens ran on
+        ``draft_tier``'s model, of which ``accepted`` were emitted verbatim
+        by ``target_tier`` and ``rejected`` rolled back."""
+        d, t = self._check_tier(draft_tier), self._check_tier(target_tier)
+        if drafted != accepted + rejected:
+            raise ValueError(f"speculative ledger does not balance: "
+                             f"{drafted} drafted != {accepted} accepted + "
+                             f"{rejected} rejected")
+        self.drafted[d] += drafted
+        self.accepted[t] += accepted
+        self.rejected[t] += rejected
 
     def record_escalation(self, from_tier: int, gen_tokens: int):
         """Record one stream leaving ``from_tier`` mid-decode after

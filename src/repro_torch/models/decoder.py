@@ -281,6 +281,29 @@ def decoder_prefill_paged_chunk(model: Decoder, cache, tokens, page_table,
     return x[torch.arange(B, device=x.device), last][:, None]
 
 
+def decoder_verify_paged_chunk(model: Decoder, cache, tokens, page_table,
+                               start, n_new, cfg, pages_bound=None,
+                               window_start=0):
+    """Speculative-verify chunk: the compute of the chunked paged prefill
+    (the chunk's K/V land in the pool pages, every position attends
+    causally to resident context + in-chunk keys; one paged prefill
+    launch a layer) returning the post-norm hidden states (B, C, D) of
+    EVERY chunk position. Row c scores the next token after position
+    ``start + c`` (``ModelBundle.lm_head`` gives (B, C, V) logits): one
+    launch a layer scores a γ-token draft chunk. Rows past ``n_new[b]``
+    are PAD garbage the caller ignores.
+
+    Only stacks that can roll a rejected suffix back verify
+    (``PagedKVCache.truncate_slot``); recurrent state cannot, so the SSM
+    family raises."""
+    if cfg.family == "ssm":
+        raise ValueError(f"{cfg.name}: recurrent state cannot roll back a "
+                         "rejected draft suffix; ssm stacks do not verify")
+    x = embed(model.embed, tokens)
+    return _paged_chunk_attn_hidden(model, cache, x, page_table, start,
+                                    n_new, cfg, pages_bound, window_start)
+
+
 def _ssm_chunk_hidden(model: Decoder, rec, x, start, n_new, rows, cfg):
     """The SSM layers over the embedded chunk ``x`` (B, C, D), streaming
     each row's state from ``rec`` row ``rows[b]`` and writing it back, then

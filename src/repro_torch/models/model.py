@@ -17,6 +17,11 @@ and paged serving paths of the dense and SSM families.
   decode_step_paged(model, cache, token, page_table, seq_lens, active,
                     pages_bound=None, window_start=0) -> logits (B, V)
   lm_head(model, x (B, S, D)) -> logits (B, S, V)
+  verify_paged_chunk(model, cache, tokens, page_table, start, n_new,
+                     pages_bound=None, window_start=0) -> x (B, C, D)
+      the speculative verify chunk: prefill_paged_chunk's compute and
+      K/V writes, every position's hidden state kept (None for stacks
+      that cannot roll back a rejected suffix: SSM and window stacks)
   init_recurrent_state(n_rows, device="cuda") -> {"h", "conv"} row slabs
       (SSM family; None for attention stacks)
   forward(model, batch {"tokens": (B, S)}) -> (logits (B, S, V), aux)
@@ -64,6 +69,7 @@ class ModelBundle:
     lm_head: Callable
     init_recurrent_state: Optional[Callable] = None
     forward: Optional[Callable] = None
+    verify_paged_chunk: Optional[Callable] = None
 
 
 def build_model(cfg: ArchConfig) -> ModelBundle:
@@ -78,7 +84,13 @@ def build_model(cfg: ArchConfig) -> ModelBundle:
             "yet — MoE layers come with the MoE slice, encoder-decoder "
             "stacks and frontends with the encoder-decoder and frontends "
             "slice")
-    rec = None
+    rec = verify = None
+    if cfg.family != "ssm" and not cfg.has_window_layers:
+        verify = lambda m, c, t, page_table, start, n_new, \
+            pages_bound=None, window_start=0: \
+            decoder.decoder_verify_paged_chunk(
+                m, c, t, page_table, start, n_new, cfg, pages_bound,
+                window_start)
     if cfg.family == "ssm":
         rec = lambda n_rows, device="cuda": \
             decoder.init_decoder_recurrent_state(cfg, n_rows, device)
@@ -108,4 +120,5 @@ def build_model(cfg: ArchConfig) -> ModelBundle:
         lm_head=lambda m, x: decoder._unembed(m, x, cfg),
         forward=lambda m, batch: decoder.decoder_forward(m, batch, cfg),
         init_recurrent_state=rec,
+        verify_paged_chunk=verify,
     )

@@ -12,13 +12,22 @@ of the table as device tensors.
 Page 0 is reserved: inactive slots' writes and fully masked reads land
 there, so the step never needs a branch on slot liveness.
 
+Pages are refcounted (``ref``): a private page has count 1, its slot.
+Shared-prefix serving (``serving.prefix.PrefixTree``, built with
+``prefix_pages > 0``) raises counts: one per slot mapping the page
+read-only, plus one while the tree holds it. Every free path (retirement,
+preemption, speculative rollback through ``truncate_slot``, deadline
+cancellation, tree eviction) goes through the one refcount-aware
+``_release``, and a page rejoins the free list only when its last
+reference drops. A slot's first write into a page it does not own alone
+is a copy-on-write split (``cow_page``; the engine copies the page's K/V
+on the device), and an allocation the free list cannot cover evicts
+unreferenced tree pages (LRU) before it reports a stall.
+
 Pages may also be held outside any slot (``hold_pages``: the fault
 harness's page pressure, a co-tenant, a shrinking quota) until
-``release_pages`` gives them back; held pages count as in use.
-
-The reference's shared-prefix tree (refcounted pages, copy-on-write) comes
-with the prefix-sharing slice; here every page has exactly one owner, a
-slot or an external hold, or is free.
+``release_pages`` gives them back; held pages count as in use, and come
+only from the free list, never from the tree.
 """
 from __future__ import annotations
 
@@ -26,6 +35,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from .prefix import PrefixTree
 
 
 @dataclasses.dataclass
@@ -37,6 +48,8 @@ class CacheStats:
     allocs: int = 0               # slot admissions
     appends: int = 0              # decode-time page extensions
     oom_denials: int = 0          # admissions/extensions refused for space
+    truncations: int = 0          # pages released by truncate_slot (rollback)
+    cow_splits: int = 0           # copy-on-write page copies performed
 
 
 class RecurrentStatePool:
@@ -86,10 +99,6 @@ class PagedKVCache:
     def __init__(self, bundle, n_slots: int, num_pages: int, page_size: int,
                  max_pages_per_slot: int, prefix_pages: int = 0,
                  device="cuda"):
-        if prefix_pages:
-            raise NotImplementedError(
-                "prefix_pages > 0: shared-prefix KV reuse is not ported yet "
-                "(it comes with the prefix-sharing slice)")
         self.pool = bundle.init_paged_cache(num_pages, page_size,
                                             device=device)
         self.n_slots = n_slots
@@ -101,6 +110,12 @@ class PagedKVCache:
         self._free = list(range(num_pages - 1, 0, -1))  # pop() -> 1, 2, ...
         self._owned: dict[int, list[int]] = {s: [] for s in range(n_slots)}
         self.held_pages = 0       # pages taken out by hold_pages
+        # per-page reference counts: 0 = free or held, 1 = owned by one
+        # slot (or resident in the tree alone), > 1 = shared
+        self.ref = np.zeros((num_pages,), np.int32)
+        # the shared-prefix tree; prefix_pages caps its resident pages, 0
+        # disables sharing
+        self.prefix = PrefixTree(self, prefix_pages) if prefix_pages else None
         self.stats = CacheStats(num_pages=num_pages - 1, page_size=page_size)
 
     # ------------------------------------------------------------- allocation
@@ -109,20 +124,49 @@ class PagedKVCache:
         ``page_size``)."""
         return -(-n_tokens // self.page_size)
 
-    def can_admit(self, n_tokens: int, reserve: int = 0) -> bool:
+    def can_admit(self, n_tokens: int, reserve: int = 0,
+                  hit_pages: int = 0) -> bool:
         """Can a fresh request of ``n_tokens`` be admitted now? ``reserve``
         discounts pages promised to slots still mid-prefill (chunked
         admission allocates incrementally, so their remaining prompt pages
-        are not yet in ``pages_in_use``)."""
+        are not yet in ``pages_in_use``); ``hit_pages`` discounts full
+        pages a prefix-tree walk would map shared instead of allocating.
+        Evictable tree pages count as free: allocation reclaims them."""
         n = self.pages_for(max(n_tokens, 1))
-        return n <= len(self._free) - reserve and n <= self.max_pages_per_slot
+        avail = len(self._free) - reserve
+        if self.prefix is not None:
+            avail += self.prefix.evictable()
+        return n - hit_pages <= avail and n <= self.max_pages_per_slot
 
     def _take(self, n: int):
-        """Pop ``n`` fresh pages off the free list, or None (nothing
-        taken) when the pool can't cover ``n``."""
+        """Pop ``n`` fresh pages off the free list at refcount 1, evicting
+        unreferenced tree pages (LRU) to cover a shortfall, or None
+        (nothing taken) when even that cannot cover ``n``."""
+        if n > len(self._free) and self.prefix is not None:
+            self.prefix.evict(n - len(self._free))
         if n > len(self._free):
             return None
-        return [self._free.pop() for _ in range(n)]
+        pages = [self._free.pop() for _ in range(n)]
+        for p in pages:
+            self.ref[p] = 1
+        return pages
+
+    def _release(self, pages) -> list:
+        """The one refcount-aware free path: each page loses one reference
+        and rejoins the free list (in the reference's order) only when its
+        last one drops. Returns the pages freed."""
+        freed = []
+        for p in pages:
+            p = int(p)
+            r = int(self.ref[p]) - 1
+            if r < 0:
+                raise AssertionError(f"page {p}: released below zero "
+                                     "references — double free")
+            self.ref[p] = r
+            if r == 0:
+                freed.append(p)
+        self._free.extend(reversed(freed))
+        return freed
 
     def owned_pages(self, slot: int) -> int:
         """Pages currently allocated to ``slot`` (0 for a free slot)."""
@@ -132,6 +176,76 @@ class PagedKVCache:
     def free_pages(self) -> int:
         """Pages currently on the free list."""
         return len(self._free)
+
+    def map_shared(self, slot: int, pages, n_tokens: int) -> None:
+        """Map resident (prefix-tree) pages read-only into an empty slot:
+        each gains a reference, the slot's table points at them and
+        ``seq_lens`` jumps to ``n_tokens``, with no prefill chunk run. The
+        last page may be matched in part (a mid-page fork); the slot's
+        first write into a page it does not own alone must ``cow_page``
+        first."""
+        assert not self._owned[slot], f"slot {slot} already owns pages"
+        pages = [int(p) for p in pages]
+        assert len(pages) <= self.max_pages_per_slot
+        for i, p in enumerate(pages):
+            self.ref[p] += 1
+            self.page_table[slot, i] = p
+        self.page_table[slot, len(pages):] = 0
+        self._owned[slot] = pages
+        self.seq_lens[slot] = n_tokens
+        self.stats.allocs += 1
+        self._mark_usage()
+
+    def page_is_shared(self, slot: int, pos: int) -> bool:
+        """Is the page holding position ``pos`` of ``slot`` referenced
+        beyond this slot? Writing it needs ``cow_page`` first."""
+        idx = pos // self.page_size
+        owned = self._owned[slot]
+        return idx < len(owned) and int(self.ref[owned[idx]]) > 1
+
+    def cow_page(self, slot: int, pos: int):
+        """Copy-on-write split of the shared page holding ``pos``: a
+        private page replaces it in the slot's table and the shared one
+        loses this slot's reference. The caller copies the page's K/V src
+        -> dst on the device before any write lands. Returns (src, dst),
+        or None when no page is free even after tree eviction (nothing
+        changed: a stall)."""
+        idx = pos // self.page_size
+        src = self._owned[slot][idx]
+        assert int(self.ref[src]) > 1, f"page {src} is not shared"
+        got = self._take(1)
+        if got is None:
+            self.stats.oom_denials += 1
+            return None
+        dst = got[0]
+        self._owned[slot][idx] = dst
+        self.page_table[slot, idx] = dst
+        self._release([src])
+        self.stats.cow_splits += 1
+        self._mark_usage()
+        return src, dst
+
+    def prefix_publish(self, slot: int, tokens, upto: int) -> int:
+        """Publish ``slot``'s completed full pages covering
+        ``tokens[:upto]`` into the tree (deduplicated against resident
+        prefixes): after each prefill chunk lands, and just before a
+        retirement, preemption or escalation frees the slot. Returns the
+        pages inserted."""
+        if self.prefix is None:
+            return 0
+        n_full = upto // self.page_size
+        if n_full == 0:
+            return 0
+        return self.prefix.publish(tokens[:n_full * self.page_size],
+                                   self._owned[slot][:n_full])
+
+    def drop_prefix(self) -> None:
+        """Detach the tree, releasing its references (pages slots still map
+        survive until those slots free)."""
+        if self.prefix is not None:
+            self.prefix.clear()
+            self.prefix = None
+            self._mark_usage()
 
     def extend_slot(self, slot: int, n_new: int):
         """Extend ``slot`` by ``n_new`` tokens (one chunked-prefill step):
@@ -163,18 +277,44 @@ class PagedKVCache:
         row the pool can't satisfy gets None while the rest proceed."""
         return [self.extend_slot(s, n) for s, n in zip(slots, n_news)]
 
+    def truncate_slot(self, slot: int, n_tokens: int):
+        """Roll ``slot`` back to ``n_tokens`` resident tokens, the inverse
+        of ``extend_slot`` (speculative rollback): ``seq_lens`` rewinds and
+        the pages past ``pages_for(n_tokens)`` lose this slot's reference
+        (their table entries return to the scratch page 0). A page another
+        holder still references (the tree, a sibling slot) stays resident.
+        A no-op at or above the page boundary ``n_tokens`` needs. Returns
+        the tail page ids released from the slot (np.int32)."""
+        cur = int(self.seq_lens[slot])
+        if not 0 <= n_tokens <= cur:
+            raise ValueError(f"truncate_slot(slot={slot}, "
+                             f"n_tokens={n_tokens}): slot holds {cur} tokens"
+                             f" — truncation can only rewind, never extend")
+        owned = self._owned[slot]
+        keep = self.pages_for(n_tokens)
+        tail = owned[keep:]
+        self._release(tail)
+        del owned[keep:]
+        self.page_table[slot, keep:] = 0
+        self.seq_lens[slot] = n_tokens
+        self.stats.truncations += len(tail)
+        self._mark_usage()
+        return np.asarray(tail, np.int32)
+
     def ensure_append(self, slot: int, reserve: int = 0) -> bool:
         """Guarantee room for one more token in ``slot`` (the next decode
         step's write). Allocates a fresh page at a page boundary. Returns
-        False when the pool is exhausted or the slot hit its page cap — the
-        engine then skips the slot this step. ``reserve`` discounts pages
-        promised to mid-prefill slots."""
+        False when the pool (evictable tree pages included) is exhausted
+        or the slot hit its page cap — the engine then skips the slot this
+        step. ``reserve`` discounts pages promised to mid-prefill slots."""
         used = int(self.seq_lens[slot])
         owned = self._owned[slot]
         if used < len(owned) * self.page_size:
             return True
-        if len(owned) >= self.max_pages_per_slot \
-                or len(self._free) - reserve < 1:
+        avail = len(self._free)
+        if self.prefix is not None:
+            avail += self.prefix.evictable()
+        if len(owned) >= self.max_pages_per_slot or avail - reserve < 1:
             self.stats.oom_denials += 1
             return False
         page = self._take(1)[0]
@@ -185,9 +325,9 @@ class PagedKVCache:
         return True
 
     def free_slot(self, slot: int):
-        """Return the slot's pages to the free list (in the reference's
-        order, so both allocators hand out the same page ids)."""
-        self._free.extend(reversed(self._owned[slot]))
+        """Release the slot's pages (refcount-aware: shared pages stay for
+        the tree and the sibling slots still mapping them)."""
+        self._release(self._owned[slot])
         self._owned[slot] = []
         self.page_table[slot, :] = 0
         self.seq_lens[slot] = 0
@@ -217,21 +357,55 @@ class PagedKVCache:
 
     def check_pages(self) -> list:
         """Page audit; returns human-readable violations (empty =
-        consistent): no page both free and owned, none owned twice, and
-        free + held + owned pages make the whole pool."""
+        consistent): no slot maps a page twice, no live page (mapped by a
+        slot or resident in the tree) is on the free list, no page is on
+        it twice, and free + held + live pages make the whole pool."""
         bad: list = []
-        owned = [p for pages in self._owned.values() for p in pages]
-        if len(set(owned)) != len(owned):
-            bad.append("a page is owned by two slots")
-        if set(owned) & set(self._free):
-            bad.append("an owned page is on the free list")
+        if any(len(set(pages)) != len(pages)
+               for pages in self._owned.values()):
+            bad.append("a slot maps a page twice")
+        live = {p for pages in self._owned.values() for p in pages}
+        if self.prefix is not None:
+            live |= set(self.prefix.resident_page_ids())
+        if live & set(self._free):
+            bad.append("a live page is on the free list")
         if len(set(self._free)) != len(self._free):
             bad.append("a page is on the free list twice")
-        total = len(self._free) + self.held_pages + len(owned)
+        total = len(self._free) + self.held_pages + len(live)
         if total != self.num_pages - 1:
             bad.append(f"free {len(self._free)} + held {self.held_pages} + "
-                       f"owned {len(owned)} pages != the pool's "
+                       f"live {len(live)} pages != the pool's "
                        f"{self.num_pages - 1}")
+        return bad
+
+    def check_refcounts(self) -> list:
+        """Reference audit; returns human-readable violations (empty =
+        consistent): each page's count equals the slots mapping it plus
+        one if the tree holds it, no page with references is on the free
+        list, and the zero-reference pages off the free list are exactly
+        the held ones."""
+        bad: list = []
+        expect = np.zeros((self.num_pages,), np.int64)
+        for owned in self._owned.values():
+            for p in owned:
+                expect[p] += 1
+        if self.prefix is not None:
+            for p in self.prefix.resident_page_ids():
+                expect[p] += 1
+        free_set = set(self._free)
+        unaccounted = 0
+        for p in range(1, self.num_pages):
+            r = int(self.ref[p])
+            if r != int(expect[p]):
+                bad.append(f"page {p}: refcount {r} but {int(expect[p])} "
+                           "live references (slots + prefix tree)")
+            if r > 0 and p in free_set:
+                bad.append(f"page {p}: on the free list with refcount {r}")
+            if r == 0 and p not in free_set:
+                unaccounted += 1
+        if unaccounted != self.held_pages:
+            bad.append(f"{unaccounted} zero-reference pages off the free "
+                       f"list but {self.held_pages} held externally")
         return bad
 
     # ------------------------------------------------------------------ views

@@ -88,8 +88,30 @@ uncertainty from the logits it sampled from, and a stream whose smoothed
 score reaches the monitor's threshold is cancelled like a preemption
 but lands in the escalated buffer, for the pool to re-admit one tier up.
 
-Not ported yet, each with a later slice: shared-prefix reuse and
-speculative decoding.
+Shared-prefix KV reuse (``prefix_cache > 0``; tests/
+test_torch_prefix_sharing.py): the cache keeps a page-granular radix tree
+(``serving.prefix``) over refcounted pages. Admission walks it with the
+prompt (all but its last token) and maps the longest cached prefix
+read-only into the slot, so those chunks never launch; completed full
+pages are published after each chunk and when a slot frees. A slot's
+first write into a page it shares (a fork inside a page) splits it
+copy-on-write: a private page, and a device copy of the page's K/V
+queued before the launch that writes it. SSM, window and one-shot tiers
+refuse, with the reason in ``prefix_reason``, and serve unshared.
+
+Cross-tier speculative decoding (``attach_draft``; tests/
+test_torch_speculative.py): a cheap draft model gets a second paged cache
+over the same slot geometry, mirrored chunk by chunk. Each step then runs
+a round over the eligible DECODING slots: the draft decodes γ candidates
+(catching up first on tokens it has not seen), the target scores the
+chunk [next token, candidates] in one verify chunk (a paged prefill
+launch a layer), each slot emits its accepted prefix plus the target's
+own next token, and both caches roll the rejected suffix back
+(``truncate_slot``). Greedy rows accept while the candidate is the
+target's argmax, so they emit the non-speculative tokens; sampled rows
+use the standard accept/reject rule (``_spec_accept_sampled``), whose
+emitted tokens follow the target's distribution. Speculative slots bypass
+the escalation monitor; a slot the round cannot fit plain-decodes.
 """
 from __future__ import annotations
 
@@ -105,8 +127,8 @@ from repro_torch.data import tokenizer as tok
 from repro_torch.models.model import ModelBundle
 from .cache import PagedKVCache, RecurrentStatePool
 from .generate import _sample_rows, _stream_seed, build_generate_fn
-from .scheduler import (DECODING, DONE as SCHED_DONE, ContinuousScheduler,
-                        Request)
+from .scheduler import (DECODING, DONE as SCHED_DONE, DRAFTING, VERIFYING,
+                        ContinuousScheduler, Request)
 
 
 def _bucket(n: int) -> int:
@@ -257,7 +279,31 @@ class ContinuousStats:
     deadline_misses: int = 0     # requests retired "deadline"
     stall_steps: int = 0         # zero-progress steps waited out while
                                  # pages were held (hold_pages)
+    # cross-tier speculative decoding (attach_draft; all zero otherwise)
+    spec_rounds: int = 0         # speculative rounds run (draft + verify)
+    draft_steps: int = 0         # draft micro-step decodes
+    verify_steps: int = 0        # target verify chunks
+    drafted_tokens: int = 0      # candidate tokens the draft proposed
+    accepted_tokens: int = 0     # draft tokens the target emitted verbatim
+    rejected_tokens: int = 0     # draft tokens rolled back (truncate_slot)
+    spec_fallbacks: int = 0      # steps where a speculative engine plain-
+                                 # decoded a slot (draft tier stalled, page
+                                 # pressure, context cap)
+    # shared-prefix KV reuse (prefix_cache > 0; all zero otherwise)
+    prefix_hits: int = 0         # admissions that mapped >= 1 cached token
+    prefix_misses: int = 0       # admissions the tree had nothing for
+    prefix_hit_tokens: int = 0   # prompt tokens whose prefill was skipped
+    prefix_hit_pages: int = 0    # pages mapped read-only at admission
+    cow_splits: int = 0          # copy-on-write page copies made
     wall_s: float = 0.0
+
+    @property
+    def acceptance_rate(self) -> float:
+        """Fraction of drafted tokens the target accepted verbatim (a
+        round emits 1 + acceptance_rate * gamma tokens at the
+        deterministic limit)."""
+        return self.accepted_tokens / self.drafted_tokens \
+            if self.drafted_tokens else 0.0
 
 
 # the escalation monitor's smoothing weight on a stream's newest score
@@ -326,7 +372,12 @@ class ContinuousEngine:
                  walk_bound: str = "live",
                  max_pending: Optional[int] = None,
                  max_preemptions: int = 3,
+                 prefix_cache: int = 0,
                  escalation: Optional[EscalationMonitor] = None):
+        if prefix_cache < 0:
+            raise ValueError(f"prefix_cache={prefix_cache}: the prefix "
+                             "tree's page budget must be non-negative "
+                             "(0 disables sharing)")
         self.bundle = bundle
         self.params = params
         self.device = next(params.parameters()).device
@@ -334,9 +385,36 @@ class ContinuousEngine:
         self.temperature = temperature
         ps = page_size or bundle.cfg.kv_page_size
         mp = _round_up(max_seq, ps) // ps
+        # shared-prefix reuse: a tier that cannot share records why and
+        # serves unshared (never an error: a pool mixes both kinds). The
+        # one-shot test needs the chunk size resolved below
+        self.prefix_reason: Optional[str] = None
+        if prefix_cache:
+            chunk_eff = bundle.cfg.prefill_chunk if prefill_chunk is None \
+                else prefill_chunk
+            if bundle.init_recurrent_state is not None:
+                self.prefix_reason = (
+                    "recurrent state: SSM/hybrid state is position-dependent "
+                    "and has no page form to share — prefixes recompute")
+            elif bundle.cfg.has_window_layers:
+                self.prefix_reason = (
+                    "sliding-window layers: K/V behind the window horizon "
+                    "is never written, so cached pages are incomplete — "
+                    "prefixes recompute")
+            elif chunk_eff == 0:
+                self.prefix_reason = (
+                    "one-shot prefill: admission scatters whole prompts "
+                    "into fresh pages with no fork point — prefixes "
+                    "recompute (set prefill_chunk > 0 to share)")
+            if self.prefix_reason is not None:
+                prefix_cache = 0
+        self.prefix_cache = prefix_cache
         if num_pages is None:
-            num_pages = 1 + n_slots * mp      # page 0 reserved
+            # page 0 reserved; the tree's budget rides on top of the
+            # slots' worst case, so sharing never shrinks slot capacity
+            num_pages = 1 + n_slots * mp + prefix_cache
         self.cache = PagedKVCache(bundle, n_slots, num_pages, ps, mp,
+                                  prefix_pages=prefix_cache,
                                   device=self.device)
         # SSM stacks keep constant-size per-slot recurrent state beside
         # the page pool
@@ -406,6 +484,14 @@ class ContinuousEngine:
         self._serve_calls = 0
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(_stream_seed(0, self._rng_salt))
+        # cross-tier speculative decoding: attach_draft installs a cheap
+        # model whose paged cache mirrors this engine's slot geometry
+        self.draft_bundle: Optional[ModelBundle] = None
+        self.draft_params = None
+        self.draft_cache: Optional[PagedKVCache] = None
+        self.spec_gamma = 0
+        self._draft_bounds: set = set()   # draft decode bounds
+        self._verify_shapes: set = set()  # (batch, bound) verify chunks
 
     # ------------------------------------------------------------ sampling
     def set_rng_salt(self, salt: int):
@@ -422,6 +508,70 @@ class ContinuousEngine:
         self._gen.manual_seed(_stream_seed(seed, self._rng_salt,
                                            self._serve_calls))
         self._serve_calls += 1
+
+    # ---------------------------------------------------------- speculation
+    def attach_draft(self, bundle: ModelBundle, params,
+                     gamma: int = 2) -> "ContinuousEngine":
+        """Host a cheap *draft* model in this engine for cross-tier
+        speculative decoding. The draft gets a second ``PagedKVCache``
+        over the same slot geometry (slot s here is slot s there), kept in
+        lockstep: admission chunks mirror into it, retire, preempt and
+        escalate free both, and rejected suffixes truncate both. Each
+        ``step()`` then runs a speculative round over the eligible
+        DECODING slots (see ``_spec_round``). ``params`` may be this
+        engine's own module (self-speculation: no second copy of the
+        weights, only a second page pool).
+
+        The draft may trail the target (a full accept leaves the bonus
+        token unseen by it; a stalled draft tier whole plain-decoded
+        steps): the next round feeds it the known tokens first, so
+        speculation recovers without rebuilding a cache.
+
+        Needs a target that can roll back (``verify_paged_chunk``: no
+        recurrent state, no window layers) on the chunked-prefill path,
+        and a draft of pure global attention. A prefix tree is dropped:
+        the mirror replays every admission chunk, and a prefix hit would
+        skip chunks the draft never sees."""
+        if gamma < 1:
+            raise ValueError(f"gamma={gamma}: a speculative round needs at "
+                             "least one drafted token")
+        if self.bundle.verify_paged_chunk is None:
+            raise ValueError(
+                f"{self.bundle.cfg.name}: no verify path — recurrent state "
+                "or sliding-window layers cannot roll back a rejected "
+                "suffix; this tier serves non-speculatively")
+        if self.prefill_chunk == 0:
+            raise ValueError("speculative decoding rides the chunked-"
+                             "prefill machinery (the verify chunk IS a "
+                             "prefill-shaped chunk and the draft cache "
+                             "mirrors admission chunk-by-chunk); "
+                             "prefill_chunk must be > 0")
+        if bundle.decode_step_paged is None \
+                or bundle.prefill_paged_chunk is None:
+            raise ValueError(f"{bundle.cfg.name}: a draft model must serve "
+                             "paged (decode + chunked prefill)")
+        if bundle.init_recurrent_state is not None \
+                or bundle.cfg.has_window_layers:
+            raise ValueError(f"{bundle.cfg.name}: draft stacks must be pure "
+                             "global attention — the draft cache mirrors "
+                             "the target's page geometry and rolls back "
+                             "with it")
+        if self.cache.prefix is not None:
+            # slot-mapped pages survive until their slots free
+            self.cache.drop_prefix()
+            self.prefix_cache = 0
+            self.prefix_reason = (
+                "speculative draft mirror: the draft cache replays every "
+                "admission chunk, so prefill skipping would desync the "
+                "mirrors — prefixes recompute on this tier")
+        self.draft_bundle, self.draft_params = bundle, params
+        self.spec_gamma = gamma
+        self.draft_cache = PagedKVCache(bundle, self.n_slots,
+                                        self.cache.num_pages,
+                                        self.cache.page_size,
+                                        self.cache.max_pages_per_slot,
+                                        device=self.device)
+        return self
 
     # -------------------------------------------------------------- requests
     def _req_temp(self, req: Request) -> float:
@@ -510,10 +660,27 @@ class ContinuousEngine:
         out, self._shed_buf = self._shed_buf, []
         return out
 
+    def _publish_resident(self, slot: int) -> None:
+        """Publish a freeing slot's completed full pages into the prefix
+        tree, so a multi-turn session's next turn (history + new text) or
+        a preempted or escalated stream's re-prefill walks onto them.
+        Keyed by prompt + emitted tokens cut to the resident length (the
+        last sampled token's K/V was never written)."""
+        if self.cache.prefix is None:
+            return
+        req = self.sched.running[slot]
+        resident = int(self.cache.seq_lens[slot])
+        seq = np.concatenate([req.tokens, np.asarray(req.out, np.int32)])
+        self.cache.prefix_publish(slot, seq[:resident], resident)
+
     def _release_slot(self, slot: int) -> None:
-        """Free ``slot``'s pages and per-slot state (retire, preempt and
-        escalate alike)."""
+        """Publish ``slot``'s resident pages to the prefix tree, then free
+        them, the draft mirror's and the per-slot state (retire, preempt
+        and escalate alike)."""
+        self._publish_resident(slot)
         self.cache.free_slot(slot)
+        if self.draft_cache is not None:
+            self.draft_cache.free_slot(slot)   # lockstep: the mirror too
         self._next_in[slot] = tok.PAD
         self._temps[slot] = self.temperature
         self._esc_score[slot] = 0.0
@@ -657,15 +824,23 @@ class ContinuousEngine:
         self._next_in[req.slot] = token
         return None
 
-    def _reserved_prefill_pages(self) -> int:
+    def _reserved_prefill_pages(
+            self, cache: Optional[PagedKVCache] = None) -> int:
         """Pages the mid-prefill slots still need for the rest of their
         prompts (chunked admission allocates incrementally, so these are
-        not in use yet and admission must not hand them out)."""
+        not in use yet and admission must not hand them out). ``cache``
+        defaults to the target's; the draft mirror owes its pool the same
+        promise."""
+        cache = cache or self.cache
         r = 0
         for slot in self.sched.prefilling_slots():
             req = self.sched.running[slot]
-            r += self.cache.pages_for(len(req.serve_tokens)) \
-                - self.cache.owned_pages(slot)
+            r += cache.pages_for(len(req.serve_tokens)) \
+                - cache.owned_pages(slot)
+            if cache.page_is_shared(slot, req.prefill_pos):
+                # a prefix hit forked mid-page: the next chunk's COW split
+                # costs one page the footprint above does not see
+                r += 1
         return r
 
     def _admit(self, retired: List[Request]) -> int:
@@ -686,11 +861,22 @@ class ContinuousEngine:
                     continue
                 break
             reserve = self._reserved_prefill_pages()
-            idx = next(
-                (i for i, r in enumerate(
-                    self.sched.pending[:self.n_slots])
-                 if self.cache.can_admit(len(r.serve_tokens),
-                                         reserve=reserve)), None)
+            d_reserve = self._reserved_prefill_pages(self.draft_cache) \
+                if self.draft_cache is not None else 0
+
+            def fits(r):
+                # a speculative engine admits only what both pools hold
+                # (the mirror grows chunk for chunk with the target); full
+                # pages a tree walk would map shared discount the demand
+                hp = self.cache.prefix.peek_pages(r.serve_tokens[:-1]) \
+                    if self.cache.prefix is not None else 0
+                return self.cache.can_admit(len(r.serve_tokens),
+                                            reserve=reserve, hit_pages=hp) \
+                    and (self.draft_cache is None
+                         or self.draft_cache.can_admit(len(r.serve_tokens),
+                                                       reserve=d_reserve))
+            idx = next((i for i, r in enumerate(
+                self.sched.pending[:self.n_slots]) if fits(r)), None)
             if idx is None:
                 self.stats.admission_stalls += 1
                 if self._try_preempt(self.sched.pending[0]):
@@ -700,9 +886,45 @@ class ContinuousEngine:
             self._temps[req.slot] = self._req_temp(req)
             admitted += 1
             self.stats.admitted += 1
+            if self.cache.prefix is not None:
+                self._prefix_admit(req)
             if not self.prefill_chunk:
                 self._prefill_one_shot(req, retired)
         return admitted
+
+    def _prefix_admit(self, req: Request) -> None:
+        """Walk the prefix tree with the admitted prompt minus its last
+        token (whose logits sample the first output, so every admission
+        prefills at least one chunk) and map the longest cached prefix
+        read-only into the slot. ``prefill_pos`` jumps to the fork: the
+        matched chunks never launch and never charge the step's budget."""
+        toks = req.serve_tokens
+        pages, matched = self.cache.prefix.match(toks[:len(toks) - 1])
+        if not matched:
+            self.stats.prefix_misses += 1
+            return
+        self.cache.map_shared(req.slot, pages, matched)
+        req.prefill_pos = matched
+        req.prefix_hit_tokens += matched
+        self.stats.prefix_hits += 1
+        self.stats.prefix_hit_tokens += matched
+        self.stats.prefix_hit_pages += len(pages)
+
+    def _cow_split(self, slot: int, pos: int) -> bool:
+        """First write into a page ``slot`` shares: a private page takes
+        its place (``PagedKVCache.cow_page``) and the page's K/V is copied
+        into it on the device, every layer, queued on the serving stream
+        before the launch that writes it. False when no page is free even
+        after tree eviction: the caller stalls the write."""
+        pair = self.cache.cow_page(slot, pos)
+        if pair is None:
+            return False
+        src, dst = pair
+        for name in ("k_pages", "v_pages"):
+            pool = self.cache.pool[name]      # (L, P, ps, K, D)
+            pool[:, dst].copy_(pool[:, src])
+        self.stats.cow_splits += 1
+        return True
 
     def _prefill_one_shot(self, req: Request,
                           retired: List[Request]) -> None:
@@ -734,15 +956,18 @@ class ContinuousEngine:
             retired.append(done)
 
     # --------------------------------------------------------------- prefill
-    def _pages_bound(self, max_tokens: int) -> int:
+    def _pages_bound(self, max_tokens: int,
+                     cache: Optional[PagedKVCache] = None) -> int:
         """Page bound for a dispatch whose live contexts reach at most
         ``max_tokens``: the live page count rounded up to a power of two,
         capped at the table width. ``walk_bound="static"`` always returns
-        the full width."""
-        mp = self.cache.max_pages_per_slot
+        the full width. ``cache`` defaults to the target's (the draft's
+        for draft dispatches)."""
+        cache = cache or self.cache
+        mp = cache.max_pages_per_slot
         if self.walk_bound != "live":
             return mp
-        return min(_bucket(self.cache.pages_for(max(max_tokens, 1))), mp)
+        return min(_bucket(cache.pages_for(max(max_tokens, 1))), mp)
 
     def _chunk_width(self, remaining: int) -> int:
         """Bucketed width of the next chunk: full chunks at prefill_chunk,
@@ -806,17 +1031,37 @@ class ContinuousEngine:
         if (B, width, bound, wstart) not in self._chunk_shapes:
             self._chunk_shapes.add((B, width, bound, wstart))
             self.stats.prefill_compiles += 1
+        chunk_t, start_t, n_new_t = (self._tensor(a)
+                                     for a in (chunk, start, n_new))
         x_last = self.bundle.prefill_paged_chunk(
-            self.params, self._model_cache(), self._tensor(chunk),
-            self._tensor(pt), self._tensor(start), self._tensor(n_new),
-            pages_bound=bound, window_start=wstart, state_rows=None if self.rstate is None
-            else self._tensor(rows))
+            self.params, self._model_cache(), chunk_t, self._tensor(pt),
+            start_t, n_new_t, pages_bound=bound, window_start=wstart,
+            state_rows=None if self.rstate is None else self._tensor(rows))
+        if self.draft_cache is not None:
+            # the same chunk rows into the draft's cache, so a slot's draft
+            # context is ready the moment its prompt lands (its pages were
+            # extended beside the target's in _prefill_step); drafts are
+            # pure global attention, so their walk starts at page 0
+            dpt = np.zeros((B, mp), np.int32)
+            for i, (req, n) in enumerate(group):
+                dpt[i] = self.draft_cache.page_table[req.slot]
+            self.draft_bundle.prefill_paged_chunk(
+                self.draft_params, self.draft_cache.pool, chunk_t,
+                self._tensor(dpt), start_t, n_new_t,
+                pages_bound=self._pages_bound(int((start + n_new).max()),
+                                              cache=self.draft_cache),
+                window_start=0)
         self.stats.prefill_dispatches += 1
         finishing = []
         for i, (req, n) in enumerate(group):
             req.prefill_pos += n
             self.stats.prefill_tokens += n
             self.stats.prefill_chunks += 1
+            if self.cache.prefix is not None:
+                # completed full pages are shareable once their K/V lands:
+                # a sibling admitted next step forks here
+                self.cache.prefix_publish(req.slot, req.serve_tokens,
+                                          req.prefill_pos)
             if req.prefill_pos == len(req.serve_tokens):
                 finishing.append((i, req))
         if finishing:
@@ -864,6 +1109,20 @@ class ContinuousEngine:
                                           [n for _, n, _ in cand])
             refunded = False
             for slot, (req, n, width), pages in zip(cand_slots, cand, got):
+                if pages is not None and self.draft_cache is not None \
+                        and self.draft_cache.extend_slot(slot, n) is None:
+                    # the draft pool stalled: undo the target's extension
+                    # so the mirrors stay in lockstep, and stall the row
+                    self.cache.truncate_slot(slot, req.prefill_pos)
+                    pages = None
+                if pages is not None \
+                        and self.cache.page_is_shared(slot, req.prefill_pos) \
+                        and not self._cow_split(slot, req.prefill_pos):
+                    # the chunk's first write lands in a shared page (a
+                    # fork inside a page) and no page is free for the
+                    # copy: undo the extension and stall the row
+                    self.cache.truncate_slot(slot, req.prefill_pos)
+                    pages = None
                 if pages is None:     # page stall: row drops out, rest run
                     self.stats.prefill_stalls += 1
                     budget += width
@@ -885,13 +1144,236 @@ class ContinuousEngine:
                                            width, retired)
         return advanced
 
+    # ----------------------------------------------------------- speculative
+    def _spec_accept_sampled(self, row: np.ndarray, cand: List[int],
+                             dlog: np.ndarray, tau: float
+                             ) -> tuple[List[int], int]:
+        """Standard speculative sampling over one slot's drafted chunk:
+        accept draft token d_i with probability min(1, p_t(d_i)/p_d(d_i));
+        at the first rejection resample from the residual
+        norm(max(p_t - p_d, 0)); after a full acceptance draw the bonus
+        token from the target's last-position distribution. The emitted
+        stream is distributed as target-only sampling. ``row`` (gamma+1,
+        V) target logits, ``dlog`` (gamma, V) draft logits, both softmaxed
+        at ``tau``; the uniforms come from the engine's own generator.
+        Returns (tokens to emit, accepted count)."""
+        gamma = len(cand)
+        u = torch.rand((gamma + 1,), generator=self._gen,
+                       device=self._gen.device,
+                       dtype=torch.float64).cpu().numpy()
+
+        def softmax(z):
+            z = np.asarray(z, np.float64) / max(tau, 1e-6)
+            z = z - z.max(axis=-1, keepdims=True)
+            e = np.exp(z)
+            return e / e.sum(axis=-1, keepdims=True)
+
+        def draw(p, uu):
+            return int(min(np.searchsorted(np.cumsum(p), uu), len(p) - 1))
+
+        p_t, p_d = softmax(row), softmax(dlog)
+        n = 0
+        while n < gamma:
+            d = cand[n]
+            if u[n] < min(1.0, p_t[n, d] / max(p_d[n, d], 1e-30)):
+                n += 1
+            else:
+                break
+        if n < gamma:
+            res = np.maximum(p_t[n] - p_d[n], 0.0)
+            tot = res.sum()
+            probs = res / tot if tot > 0 else p_t[n]
+        else:
+            probs = p_t[gamma]
+        return cand[:n] + [draw(probs, u[gamma])], n
+
+    def _spec_slots(self, gamma: int) -> Dict[int, int]:
+        """The DECODING slots a round can take, each with its draft lag
+        (target minus draft resident tokens): the round must fit the
+        slot's context cap (the target grows by gamma + 1 tokens) and both
+        pools' free pages, budgeted across the chosen slots against one
+        snapshot, so no extension inside the round can fail. The rest
+        plain-decode this step."""
+        cap = self.cache.max_pages_per_slot * self.cache.page_size
+        t_avail = self.cache.free_pages - self._reserved_prefill_pages()
+        d_avail = self.draft_cache.free_pages \
+            - self._reserved_prefill_pages(self.draft_cache)
+        lags: Dict[int, int] = {}
+        for slot in self.sched.decoding_slots():
+            Lt = int(self.cache.seq_lens[slot])
+            Ld = int(self.draft_cache.seq_lens[slot])
+            if Lt + gamma + 1 > cap:
+                continue
+            t_need = self.cache.pages_for(Lt + gamma + 1) \
+                - self.cache.owned_pages(slot)
+            d_need = self.draft_cache.pages_for(Lt + gamma) \
+                - self.draft_cache.owned_pages(slot)
+            if t_need > t_avail or d_need > d_avail:
+                continue
+            t_avail -= t_need
+            d_avail -= d_need
+            lags[slot] = Lt - Ld
+        return lags
+
+    def _draft(self, lags: Dict[int, int]):
+        """The draft phase: gamma + max_lag batched micro-steps of the
+        draft model (a paged decode launch a layer each). A slot with lag
+        l joins at micro-step max_lag - l and is fed its known tokens
+        first, so all slots end with gamma candidates and the draft cache
+        resident through the last candidate's predecessor. Returns
+        ({slot: candidates}, {slot: [draft logits rows]}), the rows kept
+        (on the device) for sampled slots only."""
+        gamma, dc = self.spec_gamma, self.draft_cache
+        d_reserve = self._reserved_prefill_pages(dc)
+        max_lag = max(lags.values())
+        full: Dict[int, np.ndarray] = {}    # prompt + output, for catch-up
+        cand: Dict[int, List[int]] = {s: [] for s in lags}
+        dlog: Dict[int, list] = {s: [] for s in lags}
+        inputs = np.full((self.n_slots,), tok.PAD, np.int32)
+        for j in range(gamma + max_lag):
+            act = [s for s in lags if j >= max_lag - lags[s]]
+            for s in act:
+                rel = j - (max_lag - lags[s])
+                if rel < lags[s]:          # catch-up: feed the known token
+                    if s not in full:
+                        # the prompt and every emitted token (a resumed
+                        # stream's serve_tokens already hold some of out)
+                        req = self.sched.running[s]
+                        full[s] = np.concatenate(
+                            [req.tokens, np.asarray(req.out, np.int32)])
+                    inputs[s] = full[s][int(dc.seq_lens[s])]
+                elif rel == lags[s]:       # first candidate: feed next_in
+                    inputs[s] = self._next_in[s]
+                # else: inputs[s] holds the previous draw
+                ok = dc.ensure_append(s, reserve=d_reserve)
+                assert ok, "spec pre-check under-counted draft pages"
+            active = np.zeros((self.n_slots,), bool)
+            active[act] = True
+            pt, sl = dc.device_tables(self.device)
+            bound = self._pages_bound(int(dc.seq_lens[act].max()) + 1,
+                                      cache=dc)
+            if bound not in self._draft_bounds:
+                self._draft_bounds.add(bound)
+                self.stats.decode_compiles += 1
+            logits = self.draft_bundle.decode_step_paged(
+                self.draft_params, dc.pool, self._tensor(inputs[:, None]),
+                pt, sl, self._tensor(active), pages_bound=bound,
+                window_start=0)
+            nxt = _sample_rows(self._gen, logits,
+                               np.where(active, self._temps, 0.0))
+            nxt = nxt.cpu().numpy()
+            dc.seq_lens[act] += 1
+            self.stats.draft_steps += 1
+            for s in act:
+                if j - (max_lag - lags[s]) >= lags[s]:
+                    cand[s].append(int(nxt[s]))
+                    if self._temps[s] > 0.0:
+                        dlog[s].append(logits[s])
+                inputs[s] = nxt[s]
+        return cand, dlog
+
+    def _spec_round(self, retired: List[Request]) -> List[int]:
+        """One cross-tier speculative round: the draft streams
+        ``spec_gamma`` candidates for every eligible DECODING slot
+        (``_spec_slots``, ``_draft``), ONE target verify chunk scores
+        every slot's [next token, candidates] at positions
+        Lt..Lt+gamma, and each slot emits its accepted prefix plus the
+        target's correction or bonus token. Rejected suffixes roll back
+        on both caches (``truncate_slot``). Returns the slots the round
+        emitted for (done decoding this step)."""
+        gamma = self.spec_gamma
+        lags = self._spec_slots(gamma)
+        if not lags:
+            return []
+        slots = list(lags)
+        for s in slots:
+            self.sched.running[s].state = DRAFTING
+        cand, dlog = self._draft(lags)
+        for s in slots:
+            self.sched.running[s].state = VERIFYING
+        # extend_slot advances seq_lens ahead of the launch (the chunk
+        # takes explicit start / n_new), and rollback truncates
+        W = gamma + 1
+        B = _bucket(len(slots))
+        chunk = np.full((B, W), tok.PAD, np.int32)
+        pt = np.zeros((B, self.cache.max_pages_per_slot), np.int32)
+        start = np.zeros((B,), np.int32)
+        n_new = np.zeros((B,), np.int32)
+        for i, s in enumerate(slots):
+            start[i] = int(self.cache.seq_lens[s])
+            got = self.cache.extend_slot(s, W)
+            assert got is not None, "spec pre-check under-counted pages"
+            chunk[i, 0] = self._next_in[s]
+            chunk[i, 1:] = cand[s]
+            pt[i] = self.cache.page_table[s]
+            n_new[i] = W
+        bound = self._pages_bound(int((start + n_new).max()))
+        if (B, bound) not in self._verify_shapes:
+            self._verify_shapes.add((B, bound))
+            self.stats.prefill_compiles += 1
+        x = self.bundle.verify_paged_chunk(
+            self.params, self.cache.pool, self._tensor(chunk),
+            self._tensor(pt), self._tensor(start), self._tensor(n_new),
+            pages_bound=bound, window_start=0)
+        logits = self.bundle.lm_head(self.params, x[:len(slots)])
+        self.stats.verify_steps += 1
+        # greedy rows need the argmax alone on the host; sampled rows
+        # their whole distributions
+        tgt = logits.argmax(dim=-1).cpu().numpy()
+        stepped: List[int] = []
+        for i, s in enumerate(slots):
+            req = self.sched.running[s]
+            req.state = DECODING
+            tau = float(self._temps[s])
+            if tau <= 0.0:
+                # accept the longest prefix matching the target's argmax,
+                # then emit the target's own pick: the non-speculative
+                # greedy tokens
+                n = 0
+                while n < gamma and cand[s][n] == int(tgt[i, n]):
+                    n += 1
+                emit = cand[s][:n] + [int(tgt[i, min(n, gamma)])]
+            else:
+                emit, n = self._spec_accept_sampled(
+                    logits[i].float().cpu().numpy(), cand[s],
+                    torch.stack(dlog[s]).float().cpu().numpy(), tau)
+            req.drafted_tokens += gamma
+            self.stats.drafted_tokens += gamma
+            done, k = None, 0
+            for t, token in enumerate(emit):
+                if t < n:
+                    k += 1      # draft tokens actually emitted
+                self.stats.decode_tokens += 1
+                done = self._push_token(req, int(token))
+                if done is not None:
+                    retired.append(done)   # EOS / cap mid-chunk: freed
+                    break
+            req.accepted_tokens += k
+            req.rejected_tokens += gamma - k
+            self.stats.accepted_tokens += k
+            self.stats.rejected_tokens += gamma - k
+            if done is None:
+                # the target keeps the accepted prefix and the chunk token
+                # it was conditioned on; the draft trails at most there (a
+                # full accept leaves it one behind, repaid next round)
+                keep = int(start[i]) + n + 1
+                self.cache.truncate_slot(s, keep)
+                self.draft_cache.truncate_slot(
+                    s, min(int(self.draft_cache.seq_lens[s]), keep))
+            stepped.append(s)
+        self.stats.spec_rounds += 1
+        return stepped
+
     # ------------------------------------------------------------------ step
     @torch.no_grad()
-    def step(self) -> List[Request]:
+    def step(self, spec: bool = True) -> List[Request]:
         """Retire expired requests, admit (preempting where priority
-        demands), advance prefill chunks under the step budget, decode one
-        token per DECODING slot, retire, and let the escalation monitor
-        see the decoded slots. Returns the requests completed during this
+        demands), advance prefill chunks under the step budget, decode (a
+        speculative round over the eligible slots when a draft is
+        attached, one token per remaining DECODING slot), retire, and let
+        the escalation monitor see the plain-decoded slots. ``spec=False``
+        puts every slot on plain decode this step (the pool's hook while a
+        draft tier is stalled). Returns the requests completed during this
         step, those shed since the last step included. Runs without
         autograd, so serving a module fresh from training builds no
         graph."""
@@ -903,16 +1385,28 @@ class ContinuousEngine:
         if self.prefill_chunk:
             prefilled = self._prefill_step(retired)
             progressed += len(prefilled)
+        spec_slots: List[int] = []
+        if self.spec_gamma and spec:
+            spec_slots = self._spec_round(retired)
         cap = self.cache.max_pages_per_slot * self.cache.page_size
         # decode growth must not eat pages promised to mid-prefill slots
         reserve = self._reserved_prefill_pages()
         steppable = []
         for slot in self.sched.decoding_slots():
+            if slot in spec_slots:
+                continue          # emitted this step's token(s) already
             pos = int(self.cache.seq_lens[slot])
             if pos + 1 > cap:
                 retired.append(self._retire(slot, "context_cap"))
+            elif self.cache.page_is_shared(slot, pos) \
+                    and not self._cow_split(slot, pos):
+                pass   # shared write page and no page for the copy: skip
             elif self.cache.ensure_append(slot, reserve=reserve):
                 steppable.append(slot)
+        if self.spec_gamma and steppable:
+            # speculation is on, but a slot plain-decodes this step (draft
+            # tier stalled, page pressure, or the context cap)
+            self.stats.spec_fallbacks += 1
         if steppable:
             active = np.zeros((self.n_slots,), bool)
             active[steppable] = True
@@ -958,7 +1452,7 @@ class ContinuousEngine:
             self.stats.decode_steps += 1
             if self.escalation is not None:
                 self._watch_escalation(steppable, unc)
-        elif not progressed and not retired \
+        elif not spec_slots and not progressed and not retired \
                 and (self.sched.running or self.sched.pending):
             # nothing decoded, no prefill advanced, nothing admitted or
             # retired, yet work remains. The ladder: pages held outside any
@@ -974,12 +1468,13 @@ class ContinuousEngine:
                 raise RuntimeError(
                     "page pool deadlock: no slot could step and no request "
                     "could admit or retire; provision more pages")
-        if steppable or progressed or retired:
+        if steppable or spec_slots or progressed or retired:
             self.stats.steps += 1
-            self.stats.occupancy_sum += len(set(steppable) | set(prefilled))
+            self.stats.occupancy_sum += len(set(steppable) | set(prefilled)
+                                            | set(spec_slots))
             if prefilled:
                 self.stats.prefill_steps += 1
-                if not steppable:
+                if not steppable and not spec_slots:
                     self.stats.prefill_only_steps += 1
         self.stats.wall_s += time.monotonic() - t0
         return retired

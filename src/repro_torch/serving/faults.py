@@ -28,11 +28,21 @@ fragmentation. The module is also the chaos smoke, on the card unless
 
   PYTHONPATH=src python -m repro_torch.serving.faults --smoke [--device cpu]
 
-It runs the stall, pressure, burst and escalation-storm scenarios on tiny
-models and checks the invariants, and that preempted and escalated
-streams emit the tokens of uncontended runs. The reference's spec-stall
-and prefix-thrash scenarios come with the speculation and prefix-sharing
-slices.
+It runs the stall, pressure, burst, spec-stall, prefix-thrash and
+escalation-storm scenarios on tiny models and checks the invariants, and
+that preempted, speculatively decoded, prefix-sharing and escalated
+streams emit the tokens of uncontended runs. Spec-stall wedges a DRAFT
+tier mid-speculation: its target must plain-decode through the stall
+(``spec_fallbacks``), speculate again after it, and leak no page in its
+pool or its draft mirror. Prefix-thrash squeezes a prefix-sharing tier's
+pool as a second shared-prefix wave lands: admission must evict the
+tree's unreferenced pages (LRU, ahead of the stall ladder) and emit the
+tokens of a tier without sharing.
+
+``check_invariants`` is also the refcount audit of shared-prefix serving:
+after the drain a tier's pages must be its free list plus the tree's
+residents, and ``PagedKVCache.check_refcounts`` must find every count
+equal to its live references (slots + tree).
 """
 from __future__ import annotations
 
@@ -210,21 +220,42 @@ class FaultHarness:
                 bad.append(f"{name}: queue not drained "
                            f"({len(eng.sched.pending)} pending, "
                            f"{len(eng.sched.running)} running)")
-            if c.stats.pages_in_use != 0:
+            # the tree's residents rightly outlive a drain (the cache at
+            # work); any page beyond them is a leak
+            resident = c.prefix.resident if c.prefix is not None else 0
+            if c.stats.pages_in_use != resident:
                 bad.append(f"{name}: {c.stats.pages_in_use} pages in use "
-                           "after drain: pages leaked")
-            if c.free_pages != c.num_pages - 1:
+                           f"after drain but only {resident} prefix-tree "
+                           "residents: pages leaked")
+            if c.free_pages != c.num_pages - 1 - resident:
                 bad.append(f"{name}: free list holds {c.free_pages} of "
-                           f"{c.num_pages - 1} pages")
+                           f"{c.num_pages - 1 - resident} expected pages")
             if c.held_pages != 0:
                 bad.append(f"{name}: {c.held_pages} pages still held")
             if eng._escalated_buf:
                 bad.append(f"{name}: {len(eng._escalated_buf)} escalated "
                            "streams never handed off")
             bad.extend(f"{name}: {v}" for v in c.check_pages())
+            bad.extend(f"{name}: {v}" for v in c.check_refcounts())
             if c.fragmentation != 0.0:
                 bad.append(f"{name}: fragmentation {c.fragmentation:.3f} "
                            "after drain")
+            # a speculative engine's draft mirror is allocated and
+            # truncated in lockstep with its pool: it drains as clean
+            dc = eng.draft_cache
+            if dc is not None:
+                if dc.stats.pages_in_use != 0:
+                    bad.append(f"{name}: {dc.stats.pages_in_use} draft "
+                               "pages leaked")
+                if dc.free_pages != dc.num_pages - 1:
+                    bad.append(f"{name}: draft free list holds "
+                               f"{dc.free_pages} of {dc.num_pages - 1} "
+                               "pages")
+                if dc.fragmentation != 0.0:
+                    bad.append(f"{name}: draft fragmentation "
+                               f"{dc.fragmentation:.3f} after drain")
+                bad.extend(f"{name}: draft {v}"
+                           for v in dc.check_refcounts())
         return bad
 
 
@@ -266,17 +297,20 @@ def _tiny_models(device: str = "cuda"):
 
 
 def _tiny_pool(n_slots: int = 2, max_seq: int = 48, max_new: int = 6,
-               device: str = "cuda", **engine_kw):
+               spec_gamma: int = 0, device: str = "cuda", **engine_kw):
     """Two-tier pool of tiny dense paged models for the scenarios. Returns
     (pool, [(bundle, module)]): the models serve uncontended reference
-    runs."""
+    runs. ``spec_gamma > 0`` turns on speculation (tier "a" drafts for
+    tier "b"); ``engine_kw`` (``prefix_cache=``, ...) goes to both
+    engines."""
     bundles = _tiny_models(device)
     engines = [ContinuousEngine(b, p, max_new_tokens=max_new,
                                 n_slots=n_slots, max_seq=max_seq,
                                 **engine_kw)
                for b, p in bundles]
     pool = ContinuousPoolEngine(StaticPolicy(2), [("a", engines[0]),
-                                                  ("b", engines[1])])
+                                                  ("b", engines[1])],
+                                spec_gamma=spec_gamma)
     return pool, bundles
 
 
@@ -391,6 +425,97 @@ def scenario_burst(verbose: bool = True,
     return h
 
 
+def scenario_spec_stall(verbose: bool = True,
+                        device: str = "cuda") -> FaultHarness:
+    """The DRAFT tier wedges mid-speculation: tier a drafts for tier b
+    (spec_gamma=2), then stalls for a step range while b is mid-stream.
+    Tier b must plain-decode through the stall (spec_fallbacks), never
+    deadlock, speculate again after it, leak no page in its pool or its
+    draft mirror, and emit the tokens of uncontended non-speculative
+    runs."""
+    rng = np.random.default_rng(3)
+    pool, bundles = _tiny_pool(max_new=10, spec_gamma=2, device=device)
+    assert pool.plan.pairs == ((0, 1),), pool.plan
+    eng = pool.engine("b")
+    h = FaultHarness(pool, [
+        TierStall("a", start=2, steps=10),
+        AdmissionBurst(step=0, prompts=_prompts(rng, 4), tier="b"),
+        # a's own queue must also hold through its stall and drain after
+        AdmissionBurst(step=0, prompts=_prompts(rng, 2), tier="a"),
+    ])
+    h.run()
+    bad = h.check_invariants()
+    assert not bad, bad
+    st = eng.stats
+    assert st.spec_fallbacks > 0, \
+        "the stalled draft tier never put its target on plain decode"
+    assert st.spec_rounds > 0 and st.drafted_tokens > 0, \
+        "speculation never ran around the stall"
+    assert st.drafted_tokens == st.accepted_tokens + st.rejected_tokens, \
+        "speculative ledger does not balance"
+    b, p = bundles[1]
+    for r in h.requests[:4]:
+        ref = _uncontended(b, p, r.tokens, 10, n_slots=2, max_seq=48)
+        assert r.out == ref, (r.rid, r.out, ref)
+    if verbose:
+        print(f"spec-stall: {len(h.retired)} retired "
+              f"({st.spec_rounds} spec rounds, {st.spec_fallbacks} "
+              f"plain-decode fallbacks, {st.drafted_tokens} drafted / "
+              f"{st.accepted_tokens} accepted), greedy-exact through the "
+              "draft stall, no leaks in either pool")
+    return h
+
+
+def scenario_prefix_thrash(verbose: bool = True,
+                           device: str = "cuda") -> FaultHarness:
+    """Page pressure forces prefix-tree eviction mid-stream: a first burst
+    of shared-prefix prompts fills tier a's tree, then most of the free
+    pool vanishes just as a second shared-prefix wave lands. The wave's
+    admissions must reclaim the tree's unreferenced pages (LRU eviction
+    inside allocation, ahead of the stall ladder), drain clean with no
+    refcount leak, and emit the tokens of a tier without sharing
+    (prefix_cache=0)."""
+    rng = np.random.default_rng(4)
+    pool, bundles = _tiny_pool(n_slots=2, max_seq=48, prefix_cache=16,
+                               device=device)
+    eng = pool.engine("a")
+    # 2 full pages, inside the vocabulary (the reference's scenario draws
+    # ids up to 200 from its 48-token vocabulary, which its embedding
+    # gather clamps)
+    shared = rng.integers(4, tok.VOCAB_SIZE, (16,)).astype(np.int32)
+    waves = [tuple(np.concatenate([shared, sfx]) for sfx in
+                   _prompts(rng, 3, lo=4, hi=10))
+             for _ in range(2)]
+    squeeze = eng.cache.stats.num_pages - 6   # leave almost nothing free
+    h = FaultHarness(pool, [
+        AdmissionBurst(step=0, prompts=waves[0], tier="a"),
+        # listed before the same-step burst: the hold lands first, so the
+        # second wave admits into the squeeze and must thrash the tree
+        PagePressure("a", start=10, steps=14, pages=squeeze),
+        AdmissionBurst(step=10, prompts=waves[1], tier="a"),
+    ])
+    h.run()
+    bad = h.check_invariants()
+    assert not bad, bad
+    t = eng.cache.prefix
+    assert eng.stats.prefix_hits > 0, \
+        "shared-prefix waves never hit the tree"
+    assert t.stats.evicted_pages > 0, \
+        "page pressure never forced a tree eviction"
+    b, p = bundles[0]
+    for r in h.requests:
+        ref = _uncontended(b, p, r.tokens, r.max_new_tokens, n_slots=2,
+                           max_seq=48)
+        assert r.out == ref, (r.rid, r.out, ref)
+    if verbose:
+        print(f"prefix-thrash: {len(h.retired)} retired "
+              f"({eng.stats.prefix_hits} tree hits, "
+              f"{t.stats.evicted_pages} pages evicted under a "
+              f"{squeeze}-page squeeze), all greedy-exact against "
+              "prefix_cache=0, refcounts clean")
+    return h
+
+
 def scenario_escalation_storm(verbose: bool = True,
                               device: str = "cuda") -> FaultHarness:
     """Mass mid-stream escalation under page pressure: an always-abort
@@ -446,7 +571,8 @@ def scenario_escalation_storm(verbose: bool = True,
 
 # name -> scenario; --smoke runs them all
 SCENARIOS = {"stall": scenario_stall, "pressure": scenario_pressure,
-             "burst": scenario_burst,
+             "burst": scenario_burst, "spec-stall": scenario_spec_stall,
+             "prefix-thrash": scenario_prefix_thrash,
              "escalation-storm": scenario_escalation_storm}
 
 

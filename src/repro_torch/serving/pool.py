@@ -1,5 +1,5 @@
 """Continuous model-pool serving: K tiers, one admission-time policy (the
-port of ``repro.serving.pool.ContinuousPoolEngine``, without speculation).
+port of ``repro.serving.pool``: ``StepPlan`` and ``ContinuousPoolEngine``).
 
 ``ContinuousPoolEngine`` runs an ordered pool of named
 ``ContinuousEngine``s (cheapest -> priciest) under a ``RoutingPolicy``: each
@@ -17,6 +17,16 @@ whose smoothed uncertainty crosses its threshold, and the pool re-admits
 it ONE TIER UP as one chunked prefill of prompt + emitted tokens. The
 meter splits the tokens across the tiers that emitted them; the call
 lands once, at the tier that finishes the request.
+
+With ``spec_gamma > 0`` a ``StepPlan`` links each expensive tier to its
+next-cheaper sibling as a draft model (cross-tier speculative decoding:
+the cheap tier drafts gamma tokens, the expensive tier verifies them in
+one chunk; ``ContinuousEngine.attach_draft``). Tiers the capability check
+refuses (window and SSM stacks, one-shot prefill) keep plain decode,
+recorded in ``plan.skipped``; a target whose draft tier is stalled plain-
+decodes until the stall lifts. Shared-prefix reuse is per tier: each
+engine built with ``prefix_cache > 0`` keeps its own tree over its own
+pages.
 """
 from __future__ import annotations
 
@@ -34,6 +44,67 @@ Engines = Union[Mapping[str, ContinuousEngine],
                 Sequence[Tuple[str, ContinuousEngine]]]
 
 
+@dataclasses.dataclass(frozen=True)
+class StepPlan:
+    """Which expensive tier drafts on which cheap one. ``gamma`` is the
+    draft chunk per speculative round (0: no speculation, every engine
+    steps on its own); ``pairs`` holds (draft_tier, target_tier) index
+    pairs (tier t >= 1 drafts on t - 1); ``skipped`` each
+    wanted pair the capability check refused, with the reason (such a
+    target keeps plain decode)."""
+    gamma: int = 0
+    pairs: Tuple[Tuple[int, int], ...] = ()
+    skipped: Tuple[Tuple[int, str], ...] = ()
+
+    @property
+    def draft_of(self) -> Dict[int, int]:
+        """target tier index -> its draft tier index."""
+        return {t: d for d, t in self.pairs}
+
+    @staticmethod
+    def _refusal(draft: ContinuousEngine, target: ContinuousEngine) -> str:
+        """Why (draft, target) cannot speculate, "" when they can: the
+        contract ``ContinuousEngine.attach_draft`` enforces by raising,
+        checked first so a refusal keeps plain decode instead of failing
+        the pool's construction."""
+        if draft is target:
+            return "draft and target tiers share one engine"
+        tb, db = target.bundle, draft.bundle
+        if tb.verify_paged_chunk is None:
+            return (f"{tb.cfg.name}: recurrent state or sliding-window "
+                    "layers cannot roll back a rejected draft suffix")
+        if target.prefill_chunk == 0:
+            return (f"{tb.cfg.name}: one-shot prefill — the verify chunk "
+                    "rides the chunked-prefill machinery")
+        if db.decode_step_paged is None or db.prefill_paged_chunk is None:
+            return (f"{db.cfg.name}: a draft must serve paged with "
+                    "chunked prefill")
+        if db.init_recurrent_state is not None or db.cfg.has_window_layers:
+            return (f"{db.cfg.name}: a draft must be pure global "
+                    "attention (its cache mirrors the target's pages)")
+        return ""
+
+    @classmethod
+    def build(cls, engines: Sequence[ContinuousEngine], gamma: int
+              ) -> "StepPlan":
+        """Pair each tier t >= 1 with tier t - 1 as its draft, keeping
+        only the pairs the capability check approves."""
+        if gamma < 0:
+            raise ValueError(f"spec_gamma={gamma}: the draft-chunk length "
+                             "cannot be negative (0 disables speculation)")
+        if gamma == 0:
+            return cls()
+        ok: List[Tuple[int, int]] = []
+        skipped: List[Tuple[int, str]] = []
+        for t in range(1, len(engines)):
+            reason = cls._refusal(engines[t - 1], engines[t])
+            if reason:
+                skipped.append((t, reason))
+            else:
+                ok.append((t - 1, t))
+        return cls(gamma=gamma, pairs=tuple(ok), skipped=tuple(skipped))
+
+
 @dataclasses.dataclass
 class PoolResult:
     """Batch-API result: responses/lengths row-aligned with the submitted
@@ -49,6 +120,7 @@ class ContinuousPoolEngine:
     continuous engines. No tier's stream ever barriers on another."""
 
     def __init__(self, policy: RoutingPolicy, engines: Engines, *,
+                 spec_gamma: int = 0,
                  escalation: Optional[
                      Sequence[Optional[EscalationMonitor]]] = None):
         items = list(engines.items()) if isinstance(engines, Mapping) \
@@ -60,6 +132,13 @@ class ContinuousPoolEngine:
         self.policy = policy
         self.names: Tuple[str, ...] = tuple(n for n, _ in items)
         self.engines: List[ContinuousEngine] = [e for _, e in items]
+        # cross-tier speculation: each approved pair hosts its draft tier's
+        # model inside the target engine
+        self.plan = StepPlan.build(self.engines, spec_gamma)
+        for d, t in self.plan.pairs:
+            de = self.engines[d]
+            self.engines[t].attach_draft(de.bundle, de.params,
+                                         self.plan.gamma)
         # every engine starts on salt 0; distinct salts keep their
         # temperature>0 sample streams uncorrelated (a tier aliasing
         # another's engine is bumped once)
@@ -183,6 +262,15 @@ class ContinuousPoolEngine:
                 tier, preemptions=req.preemptions,
                 reprefill_tokens=req.reprefill_tokens,
                 deadline_miss=req.finish_reason == "deadline")
+            if req.drafted_tokens and tier in self.plan.draft_of:
+                # drafted tokens bill to the cheap tier (its model ran
+                # them), accepted and rejected to the target: side columns,
+                # so §2.3's metrics stay undiluted
+                self.meter.record_spec(
+                    self.plan.draft_of[tier], tier,
+                    drafted=req.drafted_tokens,
+                    accepted=req.accepted_tokens,
+                    rejected=req.rejected_tokens)
 
     def _handoff(self, req: Request) -> None:
         """Deliver one escalated stream to the next tier up: bill the tier
@@ -216,14 +304,20 @@ class ContinuousPoolEngine:
         join, then hand each escalated stream up a tier. ``stalled`` names
         tiers that skip this step (a wedged device: its queue holds, the
         other tiers go on); their sheds and hand-offs, host-side
-        bookkeeping, still drain. Returns the requests retired this
-        step."""
+        bookkeeping, still drain. A target whose draft tier is stalled
+        steps with speculation off: it plain-decodes rather than wait on
+        a wedged draft device, and its draft cache catches up when the
+        stall lifts. Returns the requests retired this step."""
         skip = [self.engine(n) for n in stalled]
+        stalled_idx = {self.names.index(n) for n in stalled}
+        no_spec = [self.engines[t] for d, t in self.plan.pairs
+                   if d in stalled_idx]
         retired: List[Request] = []
         for eng in self._distinct_engines():
             retired.extend(eng.drain_shed())
             if eng.sched.has_work and not any(eng is s for s in skip):
-                retired.extend(eng.step())
+                retired.extend(eng.step(
+                    spec=not any(eng is s for s in no_spec)))
             for req in eng.drain_escalated():
                 self._handoff(req)
         self._account(retired)

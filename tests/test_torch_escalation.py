@@ -8,8 +8,9 @@ equals the reference decode's. The reference's outputs are computed here
 assumed: its own observe-only test asserts every peak positive, which a
 stream retiring at its first decode step does not meet. The greedy-exact
 continuation contract is held inside the port, against the upper tier
-decoding uncontended from prompt + emitted prefix. The port's four fault
-scenarios run here on the CPU, and their schedules through both pools."""
+decoding uncontended from prompt + emitted prefix, also when the upper
+tier re-admits through its prefix tree. The port's six fault scenarios
+run here on the CPU, and their schedules through both pools."""
 import numpy as np
 import pytest
 
@@ -25,9 +26,8 @@ from repro_torch.serving import faults
 from repro_torch.serving.engine import ContinuousEngine, EscalationMonitor
 from repro_torch.serving.pool import ContinuousPoolEngine
 from conftest import tiny_cfg
-from test_torch_preemption import ReferenceEngines
-from test_torch_serving import (_np_tree, _synchronous, _tier,  # noqa: F401
-                                highest_precision)
+from test_torch_serving import (RefEngines, _np_tree, _synchronous,  # noqa
+                                _tier, highest_precision)
 
 
 @pytest.fixture(scope="module")
@@ -41,12 +41,12 @@ def tiers():
 
 @pytest.fixture(scope="module")
 def refs():
-    return ReferenceEngines()
+    return RefEngines()
 
 
 def _engine_pair(tiers, refs, t, max_new, **kw):
-    """Tier ``t``'s (port engine, reference engine): the port's fresh,
-    the reference's reused per geometry."""
+    """Tier ``t``'s (port engine, reference engine), both new; the
+    reference's shares its compiled steps through ``refs``."""
     m, p, bundle, model = tiers[t]
     return (ContinuousEngine(bundle, model, max_new_tokens=max_new, **kw),
             refs.get(m, p, max_new_tokens=max_new, **kw))
@@ -77,7 +77,9 @@ def _prompts(n, l=14, seed=0):
 
 
 ROBUST = ("preemptions", "reprefill_tokens", "escalations", "sheds",
-          "deadline_misses", "stall_steps")
+          "deadline_misses", "stall_steps", "prefix_hits", "prefix_misses",
+          "prefix_hit_tokens", "cow_splits", "spec_rounds", "verify_steps",
+          "spec_fallbacks", "drafted_tokens", "accepted_tokens")
 
 
 def _assert_same(port, ref, preqs, rreqs):
@@ -190,6 +192,45 @@ def test_escalation_survives_concurrent_preemption(tiers, refs):
     _assert_greedy_exact(port, tiers, prompts, runs[0][:3])
 
 
+def test_escalated_readmission_hits_prefix_tree(tiers, refs):
+    """With ``prefix_cache > 0`` on the upper tier, the escalated
+    re-prefill of prompt + emitted prefix walks onto the tree instead of
+    recomputing, on both pools alike, and the continuation keeps the
+    tokens of the run without sharing."""
+    prompts = _prompts(3, seed=3)
+    plain, _ = _pools(tiers, refs, max_new=8, monitor=(0.0, 3))
+    reqs0 = [plain.submit_to(0, p) for p in prompts]
+    plain.run()
+    assert len(plain.escalation_log) == 3
+    port, ref = _pools(tiers, refs, max_new=8, monitor=(0.0, 3),
+                       b_kw=dict(prefix_cache=16, prefill_chunk=8))
+    runs = []
+    for pool in (port, ref):
+        eb = pool.engines[1]
+        assert eb.prefix_reason is None and eb.cache.prefix is not None
+        # warm tier b's tree with exactly the continuation prompts
+        # (prompt + the 3 tokens tier a emits): 17 tokens, two full pages
+        # published at retirement
+        for p, r0 in zip(prompts, reqs0):
+            warm = eb.submit(np.concatenate([p, np.asarray(r0.out[:3],
+                                                           np.int32)]))
+            eb.run()
+            assert warm.done
+        hits_before = eb.stats.prefix_hits
+        reqs = [pool.submit_to(0, p) for p in prompts]
+        pool.run()
+        assert len(pool.escalation_log) == 3
+        assert eb.stats.prefix_hits > hits_before
+        runs.append(reqs)
+    _assert_same(port, ref, *runs)
+    assert [r.prefix_hit_tokens for r in runs[0]] \
+        == [r.prefix_hit_tokens for r in runs[1]]
+    assert any(r.prefix_hit_tokens > 0 for r in runs[0])
+    _assert_greedy_exact(port, tiers, prompts, runs[0])
+    assert [r.out for r in runs[0]] == [r.out for r in reqs0]
+    assert port.engines[1].cache.check_refcounts() == []
+
+
 def test_observe_only_peaks_and_scores_match_reference(tiers, refs,
                                                        monkeypatch):
     """``abort_threshold=None`` records peaks and cancels nobody. Every
@@ -280,6 +321,9 @@ def test_fault_scenarios_on_cpu(name):
 SCENARIO = {"stall": (0, dict(n_slots=2, max_seq=48)),
             "pressure": (1, dict(n_slots=2, max_seq=32)),
             "burst": (2, dict(n_slots=1, max_seq=48, max_pending=3)),
+            "spec-stall": (3, dict(n_slots=2, max_seq=48)),
+            "prefix-thrash": (4, dict(n_slots=2, max_seq=48,
+                                      prefix_cache=16)),
             "escalation-storm": (5, dict(n_slots=2, max_seq=48))}
 
 
@@ -307,6 +351,20 @@ def _schedule(name, f, rng, free):
                                  priority=5),
                 f.AdmissionBurst(step=4, prompts=doomed, tier="a",
                                  priority=6, deadline_s=0.0)]
+    if name == "spec-stall":
+        b, a = P(rng, 4), P(rng, 2)
+        return [f.TierStall("a", start=2, steps=10),
+                f.AdmissionBurst(step=0, prompts=b, tier="b"),
+                f.AdmissionBurst(step=0, prompts=a, tier="a")]
+    if name == "prefix-thrash":
+        # the port's draw, inside the vocabulary, for both pools
+        shared = rng.integers(4, tok.VOCAB_SIZE, (16,)).astype(np.int32)
+        waves = [tuple(np.concatenate([shared, sfx])
+                       for sfx in P(rng, 3, lo=4, hi=10)) for _ in range(2)]
+        return [f.AdmissionBurst(step=0, prompts=waves[0], tier="a"),
+                f.PagePressure("a", start=10, steps=14,
+                               pages=free("a") - 6),
+                f.AdmissionBurst(step=10, prompts=waves[1], tier="a")]
     # escalation-storm: tier b keeps 8 free pages
     return [f.AdmissionBurst(step=0, prompts=P(rng, 8, lo=4, hi=12),
                              tier="a"),
@@ -321,12 +379,17 @@ def test_fault_schedule_matches_reference(tiers, refs, name):
     same weights: the same retirements, counters, hand-offs and meter, and
     empty invariants on both sides."""
     seed, kw = SCENARIO[name]
-    pairs = [_engine_pair(tiers, refs, t, 6, **kw) for t in range(2)]
+    spec = 2 if name == "spec-stall" else 0
+    max_new = 10 if spec else 6
+    pairs = [_engine_pair(tiers, refs, t, max_new, **kw) for t in range(2)]
     runs = []
     for i, (f, Pool) in enumerate(((faults, ContinuousPoolEngine),
                                    (jax_faults, JaxPool))):
         engines = {"a": pairs[0][i], "b": pairs[1][i]}
-        pool = Pool(f.StaticPolicy(2), list(engines.items()))
+        pool = Pool(f.StaticPolicy(2), list(engines.items()),
+                    spec_gamma=spec)
+        if spec and i:
+            refs.adopt(engines["b"])   # the draft's and verify steps
         h = f.FaultHarness(pool, _schedule(
             name, f, np.random.default_rng(seed),
             lambda t: engines[t].cache.stats.num_pages))
@@ -344,6 +407,13 @@ def test_fault_schedule_matches_reference(tiers, refs, name):
     elif name == "burst":
         assert st.preemptions > 0 and st.sheds > 0
         assert st.deadline_misses >= 2
+    elif name == "spec-stall":
+        sb = port.engine("b").stats
+        assert sb.spec_fallbacks > 0 and sb.spec_rounds > 0
+        assert port.meter.drafted[0] == sb.drafted_tokens > 0
+    elif name == "prefix-thrash":
+        assert st.prefix_hits > 0
+        assert port.engine("a").cache.prefix.stats.evicted_pages > 0
     else:
         assert port.escalation_log
         assert port.meter.tokens.sum() == sum(

@@ -841,10 +841,10 @@ def test_cuda_cascade_pool_launches_paged_kernels(cuda):
             max_new_tokens=6, n_slots=4, max_seq=64)
         per_tier[name] = [0, 0]
 
-        def counted(step=eng.step, name=name):
+        def counted(*args, step=eng.step, name=name, **kw):
             d0 = dec_ops.paged_decode_attention_gqa.launches
             p0 = pre_ops.paged_prefill_attention_gqa.launches
-            out = step()
+            out = step(*args, **kw)
             per_tier[name][0] += dec_ops.paged_decode_attention_gqa.launches \
                 - d0
             per_tier[name][1] += pre_ops.paged_prefill_attention_gqa.launches \
@@ -865,12 +865,14 @@ def test_cuda_cascade_pool_launches_paged_kernels(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["burst", "escalation-storm"])
+@pytest.mark.parametrize("name", ["burst", "escalation-storm",
+                                  "spec-stall", "prefix-thrash"])
 def test_cuda_fault_scenarios(name, cuda):
-    """The port's burst and escalation-storm chaos scenarios on the card,
-    through both paged kernels: every invariant holds, and preempted and
-    escalated streams emit the tokens of uncontended runs (the scenarios'
-    own checks)."""
+    """The port's burst, escalation-storm, spec-stall and prefix-thrash
+    chaos scenarios on the card, through both paged kernels: every
+    invariant holds (refcounts and the draft mirror included), and
+    preempted, escalated, speculative and prefix-sharing streams emit the
+    tokens of uncontended runs (the scenarios' own checks)."""
     from repro_torch.serving import faults
     d0 = dec_ops.paged_decode_attention_gqa.launches
     p0 = pre_ops.paged_prefill_attention_gqa.launches

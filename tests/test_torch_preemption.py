@@ -5,7 +5,7 @@ admission, bounded-queue shedding, deadlines and timeouts, the fault
 harness on a bare engine) run through both engines, and tokens, finish
 reasons and the robustness counters must agree. The reference's outputs
 are computed here, each of its dispatches waited on
-(``test_torch_serving._synchronous``); the greedy-exact contracts are
+(``test_torch_serving.RefEngines``); the greedy-exact contracts are
 held inside the port too, against uncontended port runs
 (``faults._uncontended``). Two more cases resume an SSM stack and a
 sliding-window stack on both engines."""
@@ -21,49 +21,20 @@ from repro_torch.serving import faults
 from repro_torch.serving.engine import ContinuousEngine
 from repro_torch.serving.scheduler import DECODING, PREEMPTED, QUEUED
 from conftest import tiny_cfg
-from test_torch_serving import (_np_tree, _synchronous, _tier,  # noqa: F401
+from test_torch_serving import (RefEngines, _np_tree, _tier,  # noqa: F401
                                 highest_precision)
-
-
-class ReferenceEngines:
-    """Reference engines reused across tests, one per geometry. The
-    reference compiles its steps per engine, seconds each on the CPU. A
-    drained engine carries over its scheduler (whose free-slot order
-    decides which slot a request takes), its stats, its budgets and its
-    monitor, which ``get`` resets; the pages its requests freed hold no
-    state. An engine left busy by a failed test is built anew."""
-
-    def __init__(self):
-        self._built = {}
-
-    def get(self, bundle, params, *, max_new_tokens: int,
-            max_pending: Optional[int] = None, max_preemptions: int = 3,
-            **geometry):
-        key = (id(params), tuple(sorted(geometry.items())))
-        eng = self._built.get(key)
-        if eng is None or eng.sched.has_work or eng._shed_buf \
-                or eng._escalated_buf or eng.cache.held_pages:
-            eng = self._built[key] = _synchronous(
-                JaxEngine(bundle, params, **geometry))
-        eng.sched = type(eng.sched)(eng.n_slots)
-        eng.stats = type(eng.stats)()
-        eng.max_new_tokens = max_new_tokens
-        eng.max_pending = max_pending
-        eng.max_preemptions = max_preemptions
-        eng.escalation = None
-        return eng
 
 
 @dataclasses.dataclass
 class Side:
-    """One engine family on one set of weights: the port (a fresh engine
-    each time) or the reference (engines reused through ``refs``), with
-    its own fault module."""
+    """One engine family on one set of weights: the port or the reference
+    (whose new engines share compiled steps through ``refs``), with its
+    own fault module."""
     engine_cls: type
     faults: object
     bundle: object
     params: object
-    refs: Optional[ReferenceEngines] = None
+    refs: Optional[RefEngines] = None
 
     def engine(self, **kw):
         kw = {"max_new_tokens": 6, "n_slots": 1, "page_size": 8,
@@ -77,7 +48,7 @@ class Side:
 def sides():
     m, p, bundle, model = _tier(tiny_cfg("dense"), 0)
     return (Side(ContinuousEngine, faults, bundle, model),
-            Side(JaxEngine, jax_faults, m, p, ReferenceEngines()))
+            Side(JaxEngine, jax_faults, m, p, RefEngines()))
 
 
 def _prompt(rng, n):
@@ -370,7 +341,7 @@ def test_resume_is_greedy_exact_beyond_dense(kind):
                        cache_layout="paged")
     m, p, bundle, model = _tier(cfg, 0)
     pair = (Side(ContinuousEngine, faults, bundle, model),
-            Side(JaxEngine, jax_faults, m, p, ReferenceEngines()))
+            Side(JaxEngine, jax_faults, m, p, RefEngines()))
     rng = np.random.default_rng(8)
     lo_prompt, hi_prompt = _prompt(rng, 13), _prompt(rng, 9)
 

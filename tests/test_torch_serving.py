@@ -67,6 +67,48 @@ def _synchronous(eng):
     return eng
 
 
+# every jitted dispatch of the reference engine; the draft's two run the
+# draft model, the others the engine's own
+_DRAFT_STEPS = ("_draft_prefill_fn", "_draft_decode_fn")
+_STEPS = ("_prefill", "_scatter", "_prefill_chunk_fn", "_lm_head",
+          "_decode", "_copy_page", "_verify_fn") + _DRAFT_STEPS
+
+
+class RefEngines:
+    """Reference engines for parity tests, each new, built from the
+    test's own arguments, with the compiled steps of earlier engines on
+    the same model. The reference jits its steps per engine and compiles
+    each on its first call, seconds on the CPU; a step is a function of
+    its model and its arguments only, so an engine of another geometry,
+    gamma or output cap takes it over as it is (a new shape traces anew
+    inside it). Every step waits for its result, as ``_synchronous``'s
+    do."""
+
+    def __init__(self):
+        self._steps = {}   # (id(model), step name) -> (model, waiting step)
+
+    def get(self, bundle, params, draft=None, gamma=0, **kw):
+        eng = JaxEngine(bundle, params, **kw)
+        if draft is not None:
+            eng.attach_draft(*draft, gamma=gamma)
+        return self.adopt(eng)
+
+    def adopt(self, eng):
+        """Give ``eng`` the shared steps (again after a pool attaches a
+        draft to it, which builds the draft's and the verify step)."""
+        for name in _STEPS:
+            fn = getattr(eng, name)
+            if fn is None:
+                continue
+            model = eng.draft_bundle if name in _DRAFT_STEPS else eng.bundle
+            key = (id(model), name)
+            if key not in self._steps:
+                self._steps[key] = (model, lambda *a, fn=fn:
+                                    jax.block_until_ready(fn(*a)))
+            setattr(eng, name, self._steps[key][1])
+        return eng
+
+
 def _tier(cfg, seed):
     """(reference bundle, reference params, port bundle, port model)."""
     m = jax_build_model(cfg)
@@ -113,8 +155,10 @@ def test_page_allocator_hands_out_the_reference_pages(dense):
     pt, sl = port.device_tables("cpu")
     port.page_table[:] = 0
     assert pt.any() and pt.dtype == torch.int32, "tables must be copies"
-    with pytest.raises(NotImplementedError, match="prefix"):
-        PagedKVCache(bundle, 1, 4, 4, 2, prefix_pages=2, device="cpu")
+    # prefix_pages > 0 builds the shared-prefix tree over the pool
+    shared = PagedKVCache(bundle, 1, 4, 4, 2, prefix_pages=2, device="cpu")
+    assert shared.prefix is not None and shared.prefix.max_pages == 2
+    assert shared.prefix.resident == 0 and shared.check_refcounts() == []
 
 
 # ---------------------------------------------------------------- engine
