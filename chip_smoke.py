@@ -10,13 +10,13 @@ and prints no result line):
 2. Build: the CUDA kernels from src/repro_torch/csrc, with nvcc for sm_90a.
 3. The five kernels (paged decode and prefill, flash prefill, dense
    decode, SSD chunk scan) against their plain PyTorch versions on the
-   card, one case per launch mode, at the main paths' shapes and beside
-   them (the paged kernels' main and gemma3 cases also bit for bit under
-   two page walk bounds, slot by slot, and from page 0 against the
-   engine's late first page under a window); the kernel's time (CUDA events around
-   back-to-back launches), the plain version's, one library call's where
-   PyTorch has one (SDPA), and the least time the card could take for the
-   same work.
+   card, one case per launch mode, at the main paths' shapes (Jamba's
+   among them) and beside them (the paged kernels' main and gemma3 cases
+   also bit for bit under two page walk bounds, slot by slot, and from
+   page 0 against the engine's late first page under a window); the
+   kernel's time (CUDA events around back-to-back launches), the plain
+   version's, one library call's where PyTorch has one (SDPA), and the
+   least time the card could take for the same work.
 4. The routed pool at full width: a router at DeBERTa-v3-large's widths
    scores 16 prompts, a ThresholdPolicy splits them between two
    qwen1.5-32b tiers ("half": the reference's scaled_sibling(., 2) at 2
@@ -69,12 +69,26 @@ and prints no result line):
    K2 as the verify chunk (gamma + 1 rows a slot) and the draft mirror's
    prefill, K1 as the draft's micro-steps (exactly layers x verify
    chunks and layers x micro-steps), every pool and mirror drained clean.
+   4g. The MoE and hybrid slice (after phase 4d and its phase-5 check, on
+   the memory they held): two jamba-v0.1-52b tiers cut to one 8-layer
+   block ("full": every published width, 13.27 B params; "half":
+   scaled_sibling(., 2), 3.45 B), 7 Mamba layers (state 16) and 1
+   attention layer a block, MoE (16 experts, top-2) every other layer,
+   behind a router at DeBERTa-v3-large's widths over Jamba's vocabulary,
+   serve phase 4's traffic through the pool, then through the dense
+   hybrid path (it must route as the pool did). Launches counted from 0
+   on each tier must be exactly: pool K2 = prefill dispatches, K3 = 7 x
+   prefill dispatches, K1 = decode steps; dense K4 = 1 and K3 = 7 a
+   prefill, K5 = 1 a decode step. No page leaked, every state row free;
+   the MoE assignments dropped by capacity on each path (none on the
+   pool) and the peak memory are logged.
 5. The card against the CPU: the qwen and mamba2 full tiers at depth 1
-   (before phase 4d, which runs on the memory phases 4-4c held), and
+   (before phase 4d, which runs on the memory phases 4-4c held),
    gemma3-4b at depth 6 (one local:global period, after phase 4d) on
-   prompts past the window, the paged path (prefill chunks, two decode
-   steps) and the dense path (a prefill, two decode steps) on each
-   device, logits compared.
+   prompts past the window, the Jamba "half" tier (one block, after phase
+   4g) and phi3.5-moe-42b-a6.6b at every width and depth 2: the paged
+   path (prefill chunks, two decode steps) and the dense path (a prefill,
+   two decode steps) on each device, logits compared.
 6. The paper's pipeline (after phase 5, on the memory phases 4 to 5
    held): (a) train_router for one epoch at DeBERTa-v3-large's widths and
    (b) train_lm for 6 steps on the "half" qwen tier, each timed per step
@@ -96,7 +110,9 @@ each path's own count, read just after that path ran from 0
 phase 4f's serves through the tree; "qwen1.5-32b-spec": its speculative
 serves, whose K2 launches as the verify chunk and the draft mirror's
 prefill are "qwen1.5-32b-spec-verify" and "-spec-mirror", and whose K1
-launches as the draft's micro-steps "qwen1.5-32b-spec-draft").
+launches as the draft's micro-steps "qwen1.5-32b-spec-draft";
+"jamba-v0.1-52b": phase 4g's pool and dense serves, each kernel's count
+summed over both).
 """
 from __future__ import annotations
 
@@ -260,12 +276,15 @@ def decode_cases(torch, dev):
     heads of 256, G = 2, window 1024, the walk from the engine's first page
     (``window_start_page``). "main" and "gemma3" also check that a window
     walk gives the same bits from page 0 and from the engine's first page
-    ("main" under a window of 128)."""
+    ("main" under a window of 128). "jamba" (timed) is the
+    jamba-v0.1-52b pool's decode on its attention layer: 8 slots at
+    contexts of 33-544, 8 kv heads of 128, G = 4."""
     import numpy as np
     from repro_torch.kernels.paged_decode_attention import ops
     from repro_torch.serving.engine import window_start_page
     rng = np.random.default_rng(1)
     grng = np.random.default_rng(21)    # the gemma3 case's contexts
+    jrng = np.random.default_rng(23)    # the jamba case's contexts
     spec = {  # name: (K, G, D, ps, lens, pages_start, window)
         "main": (40, 1, 128, 16, rng.integers(33, 545, 8), 0, 0),
         "gqa": (8, 8, 128, 16, rng.integers(33, 545, 8), 0, 0),
@@ -282,6 +301,7 @@ def decode_cases(torch, dev):
         "head_dim_256": (4, 2, 256, 16, rng.integers(33, 545, 8), 0, 0),
         "head_dim_98": (8, 3, 98, 16, rng.integers(33, 545, 8), 0, 0),
         "gemma3": (4, 2, 256, 16, grng.integers(1040, 2017, 8), None, 1024),
+        "jamba": (8, 4, 128, 16, jrng.integers(33, 545, 8), 0, 0),
     }
     out = []
     for name, (K, G, D, ps, lens, pstart, window) in spec.items():
@@ -307,10 +327,11 @@ def decode_cases(torch, dev):
             check = _all_of(_walk_bitwise(torch, op, args, kw),
                             _start_bitwise(torch, op, args, kw,
                                            window or 128, -window or -128))
+        timed = main or name == "jamba"
         out.append(_paged_case(
             name, op, ops.paged_decode_attention_ref, args, kw, nbytes, flops,
             check=check, report=_paged_standing("paged_decode_attention")
-            if main else None, ps=ps, timed=main))
+            if timed else None, ps=ps, timed=timed))
     return out
 
 
@@ -329,12 +350,15 @@ def prefill_cases(torch, dev):
     1024-2000 tokens, 4 kv heads of 256, G = 2, window 1024, the walk from
     the engine's first page. "main" and "gemma3" also check that a window
     walk gives the same bits from page 0 and from the engine's first page
-    ("main" under a window of 128)."""
+    ("main" under a window of 128). "jamba" (timed) is the
+    jamba-v0.1-52b pool's packed 16-token chunk on its attention layer: 8
+    slots resident at 0-480 tokens, 8 kv heads of 128, G = 4."""
     import numpy as np
     from repro_torch.kernels.paged_prefill_attention import ops
     from repro_torch.serving.engine import window_start_page
     rng = np.random.default_rng(2)
     grng = np.random.default_rng(22)    # the gemma3 case's contexts
+    jrng = np.random.default_rng(24)    # the jamba case's contexts
     C = 16
     full = lambda n: np.full(8, n, np.int32)
     spec = {  # name: (K, G, D, ps, start, n_new, pages_start, window)
@@ -361,6 +385,8 @@ def prefill_cases(torch, dev):
                         0),
         "gemma3": (4, 2, 256, 16, grng.integers(1024, 2001, 8), full(16),
                    None, 1024),
+        "jamba": (8, 4, 128, 16, 16 * jrng.integers(0, 31, 8), full(16), 0,
+                  0),
     }
     out = []
     for name, (K, G, D, ps, start, n_new, pstart, window) in spec.items():
@@ -393,11 +419,12 @@ def prefill_cases(torch, dev):
             check = _all_of(_walk_bitwise(torch, op, args, kw),
                             _start_bitwise(torch, op, args, kw,
                                            window or 128, 1 - (window or 128)))
+        timed = main or name == "jamba"
         out.append(_paged_case(
             name, op, ops.paged_prefill_attention_ref, args, kw, nbytes,
             flops, check=check,
-            report=_paged_standing("paged_prefill_attention") if main
-            else None, ps=ps, timed=main))
+            report=_paged_standing("paged_prefill_attention") if timed
+            else None, ps=ps, timed=timed))
     return out
 
 
@@ -492,9 +519,11 @@ def flash_cases(torch, dev):
     dense prefill: 8 prompts of 512 tokens, 40 heads of 128, in the
     model's (B, S, H, D) layout; "gemma3" the gemma3-4b dense prefill on a
     local layer: 8 prompts of 2048 tokens, 8 heads of 256 over 4 kv heads,
-    window 1024. The plain version expands kv to H heads and runs on
-    (B*H, S, D); the library yardstick is one SDPA call (causal, scale 1
-    on the pre-scaled q; for "gemma3" a boolean window mask and GQA)."""
+    window 1024; "jamba" the jamba-v0.1-52b dense prefill on its attention
+    layer: 8 prompts of 512 tokens, 32 heads of 128 over 8 kv heads. The
+    plain version expands kv to H heads and runs on (B*H, S, D); the
+    library yardstick is one SDPA call (causal, scale 1 on the pre-scaled
+    q; GQA for "jamba"; for "gemma3" a boolean window mask and GQA)."""
     import numpy as np
     from torch.nn import functional as F
     from repro_torch.kernels.flash_attention import ops
@@ -509,6 +538,7 @@ def flash_cases(torch, dev):
         "head_dim_20": (2, 77, 4, 4, 20, True, 0),
         "head_dim_256": (2, 512, 8, 4, 256, True, 0),
         "gemma3": (8, 2048, 8, 4, 256, True, 1024),
+        "jamba": (8, 512, 32, 8, 128, True, 0),
     }
     g = torch.Generator(device=dev).manual_seed(3)
     out = []
@@ -539,6 +569,10 @@ def flash_cases(torch, dev):
             library = lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 is_causal=True, scale=1.0).transpose(1, 2)
+        elif name == "jamba":
+            library = lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, scale=1.0, enable_gqa=True).transpose(1, 2)
         elif name == "gemma3":
             seen_t = torch.tensor(seen, device=dev)
             library = lambda q=q, k=k, v=v, m=seen_t: \
@@ -675,9 +709,11 @@ def dense_decode_cases(torch, dev):
     layer's slice of the (L, B, S, K, D) cache; "gemma3" the gemma3-4b
     dense decode on a local layer mid-generation: 8 rows, 4 kv heads of
     256, G = 2, over the 2080-position cache at position 2064, the 1024-key
-    window in ``valid`` (also checked bit for bit, ``_dense_exact``). The
-    plain version regroups to (B*K, G, D); the library yardstick is one
-    SDPA call with a boolean mask from ``valid`` (and GQA for "gemma3")."""
+    window in ``valid`` (also checked bit for bit, ``_dense_exact``);
+    "jamba" the jamba-v0.1-52b dense decode on its attention layer as
+    "main" is, 8 kv heads of 128, G = 4. The plain version regroups to
+    (B*K, G, D); the library yardstick is one SDPA call with a boolean
+    mask from ``valid`` (and GQA for "gemma3" and "jamba")."""
     import numpy as np
     from torch.nn import functional as F
     from repro_torch.kernels.decode_attention import ops
@@ -691,6 +727,7 @@ def dense_decode_cases(torch, dev):
         "windowed_sink": (4, 600, 8, 2, 64, "late_window"),
         "gemma3": (8, 2080, 4, 2, 256, "gemma3"),
         "no_valid_row": (4, 300, 8, 2, 128, "no_valid_row"),
+        "jamba": (8, 544, 8, 4, 128, "main"),
     }
     g = torch.Generator(device=dev).manual_seed(5)
     out = []
@@ -718,7 +755,7 @@ def dense_decode_cases(torch, dev):
         nbytes = 4 * (2 * q.numel() + 2 * n_valid * K * D) + B * S
         flops = 4 * n_valid * K * G * D
         library = None
-        if name in ("main", "gemma3"):
+        if name in ("main", "gemma3", "jamba"):
             library = lambda q=q, k=k, v=v, valid=valid, gqa=G > 1: \
                 F.scaled_dot_product_attention(
                     q[:, :, None], k.movedim(2, 1), v.movedim(2, 1),
@@ -755,6 +792,10 @@ def ssd_cases(torch, dev):
     memory), and 300 positions with 3 heads (past its
     256-key score strip, recomputed for the second round of heads). "pool"
     also checks the kernel's exact contracts bit for bit (``_ssd_exact``).
+    "jamba_dense" and "jamba_pool" (timed) are jamba-v0.1-52b's Mamba
+    layers: 128 heads of 64, state 16, the dense path's 128-position
+    chunks (8 prompts x 4) and the pool's 16-position chunks with dt = 0
+    padding.
     The plain version holds the whole (l, l) decay matrix; no single
     PyTorch call computes the function."""
     from repro_torch.kernels.ssd_scan import ops
@@ -771,6 +812,8 @@ def ssd_cases(torch, dev):
         "p128_n256": (4, 4, 64, 128, 256, "random"),
         "n256_p64": (2, 3, 70, 64, 256, "random"),
         "l300_strip_panels": (2, 3, 300, 64, 128, "random"),
+        "jamba_dense": (32, 128, 128, 64, 16, "random"),
+        "jamba_pool": (8, 128, 16, 64, 16, "pad"),
     }
     g = torch.Generator(device=dev).manual_seed(6)
     out = []
@@ -823,7 +866,8 @@ def ssd_cases(torch, dev):
             + BC * H * l * 2 * N * P
         c = _case(name, f"x {BC}x{H}x{l}x{P}, B/C {BC}x{l}x{N}, {layout}",
                   kernel, plain, nbytes, flops, check=check,
-                  timed=name in ("pool", "model_layout"), scaled=True,
+                  timed=name in ("pool", "model_layout", "jamba_dense",
+                                 "jamba_pool"), scaled=True,
                   report=_ssd_standing)
         c.update(mma_flops=mma_flops)
         out.append(c)
@@ -996,11 +1040,16 @@ def kernel_phase(torch):
 
 # ------------------------------------------------------------------ phase 4
 def scaled_sibling(full, factor: int):
-    """launch/serve.py:81 ``scaled_sibling`` of the JAX package, for a dense
-    or SSM config: layers, width, heads and FFN divided together; an
-    attention-free stack keeps no KV heads and no FFN."""
+    """launch/serve.py:81 ``scaled_sibling`` of the JAX package: layers,
+    width, heads and FFN divided together; an attention-free stack keeps
+    no KV heads and no FFN, and a hybrid stack keeps ``n_layers`` a whole
+    number of its ``attn_every``-layer blocks (at least one)."""
+    n_layers = max(1, full.n_layers // factor)
+    if full.family == "hybrid" and full.attn_every:
+        n_layers = max(full.attn_every,
+                       n_layers - n_layers % full.attn_every)
     return dataclasses.replace(
-        full, n_layers=max(1, full.n_layers // factor),
+        full, n_layers=n_layers,
         d_model=max(8, full.d_model // factor),
         n_heads=max(1, full.n_heads // factor),
         n_kv_heads=max(1, min(full.n_kv_heads, full.n_heads // factor))
@@ -2244,6 +2293,227 @@ def _first_logits(eng):
     return firsts
 
 
+# ----------------------------------------------------------------- phase 4g
+def _count_drops(moe_mod, into):
+    """Wrap ``moe_mod.moe_forward`` (where the decoder and the hybrid stack
+    call it) to add each call's assignments dropped by capacity to
+    ``into[0]``, a device counter read after the run (no sync per call).
+    Returns the original, to put back."""
+    original = moe_mod.moe_forward
+
+    def counted(moe, x, cfg):
+        into[0] += (~moe_mod.route(moe, x, cfg)[2]).sum()
+        return original(moe, x, cfg)
+    moe_mod.moe_forward = counted
+    return original
+
+
+def jamba_phase(torch, card: str, smi: str):
+    """Phase 4g, the MoE and hybrid slice at Jamba's published widths: two
+    jamba-v0.1-52b tiers cut to one 8-layer block ("full": every published
+    width; "half": scaled_sibling(., 2), d_model 2048, 16 heads over 8,
+    d_ff 7168), 7 Mamba layers and 1 attention layer a block, MoE (16
+    experts, top-2) every other layer, behind a router at
+    DeBERTa-v3-large's widths over Jamba's vocabulary gating at the
+    prompts' median score. Phase 4's traffic (16 prompts of 32-512 tokens,
+    32 new tokens, 8 slots) through the continuous pool, then through the
+    dense hybrid path (a HybridEngine over two dense Engines), which must
+    route as the pool did. Each kernel's launches, counted from 0 on each
+    tier, must be exactly: on the pool K2 = prefill dispatches, K3 = 7 x
+    prefill dispatches, K1 = decode steps; on the dense path K4 = 1 and K3
+    = 7 a prefill, K5 = 1 a decode step; nothing else. No page may leak,
+    and every slot's state row must be free after the drain. The MoE
+    assignments dropped by capacity are counted on both paths (the drop
+    counter recomputes each MoE call's routing, in the timed runs). Logs
+    the peak memory. Returns the half tier's model and config (phase 5)
+    and each kernel's launches on both paths."""
+    import numpy as np
+    from repro_torch.configs.jamba_v01_52b import CONFIG as JAMBA
+    from repro_torch.core.routing import HybridRouter, ThresholdPolicy
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.paged_decode_attention import ops as pdec
+    from repro_torch.kernels.paged_prefill_attention import ops as ppre
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.models import moe
+    from repro_torch.models.encoder import RouterConfig, init_router_encoder
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import ContinuousEngine, Engine
+    from repro_torch.serving.hybrid import HybridEngine
+    from repro_torch.serving.pool import ContinuousPoolEngine
+
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    counters = {"paged_decode_attention": pdec.paged_decode_attention_gqa,
+                "paged_prefill_attention": ppre.paged_prefill_attention_gqa,
+                "flash_attention": fa.flash_attention,
+                "decode_attention": dec.decode_attention_kv,
+                "ssd_chunk_scan": ssd.ssd_chunk_scan}
+    cfgs = {"half": dataclasses.replace(scaled_sibling(JAMBA, 2),
+                                        n_layers=JAMBA.attn_every),
+            "full": dataclasses.replace(JAMBA, n_layers=JAMBA.attn_every)}
+    n_mamba = sum(not JAMBA.layer_kind(j)["attn"]
+                  for j in range(JAMBA.attn_every))
+    t0 = time.monotonic()
+    bundles = {n: build_model(c) for n, c in cfgs.items()}
+    models = {n: bundles[n].init(torch.Generator(device=dev)
+                                 .manual_seed(400 + i), dev)
+              for i, n in enumerate(cfgs)}
+    rcfg = RouterConfig(vocab_size=JAMBA.vocab_size, **DEBERTA_V3_LARGE)
+    probe = HybridRouter(init_router_encoder(
+        rcfg, torch.Generator(device=dev).manual_seed(407), dev), rcfg, 0.0)
+    rng = np.random.default_rng(40)
+    lens = rng.integers(32, 513, N_PROMPTS)
+    tokens = rng.integers(4, JAMBA.vocab_size, (N_PROMPTS, 512)
+                          ).astype(np.int32)
+    mask = (np.arange(512)[None] < lens[:, None]).astype(np.float32)
+    tokens[mask == 0] = 0
+    threshold = float(np.median(probe.scores(tokens, mask).cpu().numpy()))
+    router = probe.with_threshold(threshold)
+    torch.cuda.synchronize()
+    for name, cfg in cfgs.items():
+        log(f"[jamba] tier {name}: {cfg.n_layers} layers ({n_mamba} Mamba "
+            f"of {cfg.ssm_nheads} SSD heads of {cfg.ssm_headdim}, state "
+            f"{cfg.ssm_state}; 1 attention of {cfg.n_heads} heads of "
+            f"{cfg.resolved_head_dim} over {cfg.n_kv_heads}), d_model "
+            f"{cfg.d_model}, d_ff {cfg.d_ff}, {cfg.n_experts} experts top-"
+            f"{cfg.top_k} every {cfg.moe_every}nd layer, vocab "
+            f"{cfg.vocab_size}, {cfg.param_count() / 1e9:.2f} B params "
+            f"({4 * cfg.param_count() / 1e9:.1f} GB fp32)")
+    log(f"[jamba] random init and the router's threshold on the card: "
+        f"{time.monotonic() - t0:.1f} s, {_peak(torch)} allocated")
+
+    drops = [torch.zeros((), dtype=torch.int64, device=dev)]
+    original = _count_drops(moe, drops)
+    try:
+        # ---- the continuous pool
+        tiers = [(name, ContinuousEngine(bundles[name], models[name],
+                                         max_new_tokens=NEW_TOKENS,
+                                         n_slots=N_SLOTS, max_seq=MAX_SEQ))
+                 for name in cfgs]
+        for _, eng in tiers:   # warm-up outside the counts
+            eng.serve(tokens[:2, :48], seed=1)
+            eng.stats = type(eng.stats)()
+        pool = ContinuousPoolEngine(ThresholdPolicy(router), tiers)
+        per_tier = {name: dict.fromkeys(counters, 0) for name in cfgs}
+        for name, eng in tiers:
+            eng.step = _counting(counters, per_tier, name, eng.step)
+        for w in counters.values():
+            w.launches = 0
+        drops[0].zero_()
+        t0 = time.monotonic()
+        res = pool.serve(tokens, mask, seed=0)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        pool_drops = int(drops[0])
+        pool_launches = {k: w.launches for k, w in counters.items()}
+        summary = pool.meter.summary()
+        for name, eng in tiers:
+            st = eng.stats
+            want = {**dict.fromkeys(counters, 0),
+                    "paged_prefill_attention": st.prefill_dispatches,
+                    "ssd_chunk_scan": n_mamba * st.prefill_dispatches,
+                    "paged_decode_attention": st.decode_steps}
+            log(f"[jamba] pool {name}: calls {summary[name]['calls']}, "
+                f"tokens {summary[name]['gen_tokens']}, decode steps "
+                f"{st.decode_steps}, prefill dispatches "
+                f"{st.prefill_dispatches}, kernel launches {per_tier[name]}"
+                f" (expected {want}), state "
+                f"{eng.rstate.state_bytes / 1e6:.1f} MB, free pages "
+                f"{eng.cache.free_pages} of {eng.cache.num_pages}")
+            if per_tier[name] != want or min(st.prefill_dispatches,
+                                             st.decode_steps) <= 0:
+                raise AssertionError(f"jamba pool tier {name}: launches "
+                                     f"{per_tier[name]} != {want}")
+            if eng.cache.free_pages != eng.cache.num_pages - 1:
+                raise AssertionError(f"jamba pool tier {name}: pages leaked")
+            # slot s owns state row s + 1: every slot free again is every
+            # row back with its slot
+            if eng.sched.running or sorted(eng.sched._free_slots) != \
+                    list(range(eng.n_slots)) or eng.rstate.state["h"] \
+                    .shape[0] != eng.n_slots + 1:
+                raise AssertionError(f"jamba pool tier {name}: a slot (and "
+                                     "its state row) is still held")
+        if not np.array_equal(res.tier_idx, (res.scores < threshold)):
+            raise AssertionError("jamba pool: tier_idx disagrees with score "
+                                 "< threshold")
+        if sum(v["calls"] for v in summary.values()) != N_PROMPTS \
+                or not 0 < res.tier_idx.sum() < N_PROMPTS:
+            raise AssertionError(f"jamba pool: calls {summary}")
+        if not (res.lengths >= 1).all() or res.responses.max() >= \
+                JAMBA.vocab_size or res.responses.min() < 0:
+            raise AssertionError("jamba pool: responses out of range")
+        n_tok = int(res.lengths.sum())
+        log(f"[jamba] pool: {N_PROMPTS} requests retired "
+            f"({np.bincount(res.tier_idx, minlength=2).tolist()} half/full),"
+            f" threshold {threshold:.6f}, {n_tok} tokens in {wall:.3f} s = "
+            f"{n_tok / wall:.1f} tokens/s on {card} ({smi}); peak memory "
+            f"{_peak(torch)}")
+        del pool, tiers
+        gc.collect()
+
+        # ---- the dense hybrid path on the same models and router
+        engines = {name: Engine(bundles[name], models[name],
+                                max_new_tokens=NEW_TOKENS) for name in cfgs}
+        hy = HybridEngine(router, engines["half"], engines["full"])
+        hy.serve(tokens, mask, seed=1)   # warm-up outside the counts
+        torch.cuda.synchronize()
+        hy.meter.tiers.reset()
+        per_tier = {name: dict.fromkeys(counters, 0) for name in cfgs}
+        for name, eng in engines.items():
+            eng.serve = _counting(counters, per_tier, name, eng.serve)
+            eng.stats = type(eng.stats)()
+        for w in counters.values():
+            w.launches = 0
+        drops[0].zero_()
+        t0 = time.monotonic()
+        dres = hy.serve(tokens, mask, seed=0)
+        torch.cuda.synchronize()
+        dwall = time.monotonic() - t0
+        dense_drops = int(drops[0])
+        dense_launches = {k: w.launches for k, w in counters.items()}
+    finally:
+        moe.moe_forward = original
+    for name, eng in engines.items():
+        n = eng.stats.batches
+        want = {**dict.fromkeys(counters, 0), "flash_attention": n,
+                "ssd_chunk_scan": n_mamba * n,
+                "decode_attention": NEW_TOKENS * n}
+        log(f"[jamba] dense {name}: {eng.stats.requests} requests in {n} "
+            f"batches, kernel launches {per_tier[name]} (expected {want}: "
+            f"K4 once and K3 {n_mamba} times a prefill, K5 once a decode "
+            "step)")
+        if per_tier[name] != want or n <= 0:
+            raise AssertionError(f"jamba dense tier {name}: launches "
+                                 f"{per_tier[name]} != {want}")
+    if not np.array_equal(dres.routed_small, res.tier_idx == 0):
+        raise AssertionError("jamba: the dense hybrid path routes "
+                             "differently from the pool")
+    if hy.meter.tiers.total_calls != N_PROMPTS or not (dres.lengths >= 1) \
+            .all() or dres.responses.max() >= JAMBA.vocab_size \
+            or dres.responses.min() < 0:
+        raise AssertionError("jamba dense: calls or responses out of range")
+    n_tok = int(dres.lengths.sum())
+    same = sum(np.array_equal(a[:n], b[:n]) for a, b, n in
+               zip(res.responses, dres.responses, res.lengths))
+    log(f"[jamba] dense: {N_PROMPTS} requests "
+        f"({int(dres.routed_small.sum())} half, "
+        f"{int((~dres.routed_small).sum())} full), {n_tok} tokens in "
+        f"{dwall:.3f} s = {n_tok / dwall:.1f} tokens/s on {card} ({smi})")
+    log(f"[jamba] MoE assignments dropped by capacity: pool {pool_drops}, "
+        f"dense {dense_drops} (chunked prefill and decode cannot drop; a "
+        f"512-token dense prefill can); the paths' greedy tokens agree on "
+        f"{same} of {N_PROMPTS} requests")
+    if pool_drops:
+        raise AssertionError(f"jamba pool: {pool_drops} assignments dropped"
+                             " where the capacity cannot be reached")
+    log(f"[jamba] peak memory in phase 4g: {_peak(torch)}")
+    return dict(model=models["half"], cfg=cfgs["half"],
+                launches={k: pool_launches[k] + dense_launches[k]
+                          for k in counters},
+                wall=wall, dense_wall=dwall)
+
+
 # ------------------------------------------------------------------ phase 5
 def _compare(torch, tag, gpu_logits, cpu_logits):
     """Max abs error of card against CPU logits; greedy tokens must agree
@@ -2269,23 +2539,31 @@ def _compare(torch, tag, gpu_logits, cpu_logits):
 
 def device_vs_cpu_phase(torch, full_model, full_cfg, depth=1,
                         lens=(16, 11)):
-    """A full tier's first ``depth`` layers at full width, on the card and
-    on the CPU, same weights, same inputs: two prompts of ``lens`` tokens
-    through the paged path (16-token prefill chunks, two decode steps; an
-    SSM stack's state in recurrent-state rows 1 and 2; window layers walk
-    from the engine's first page, ``window_start_page``) and through the
-    dense path (decoder_prefill over both prompts padded to the longer
-    one, two decoder_decode_step calls)."""
-    import numpy as np
+    """A full decoder tier's first ``depth`` layers at full width, on the
+    card and on the CPU (``card_vs_cpu``)."""
     from repro_torch.models import decoder
-    from repro_torch.serving.engine import window_start_page
     cfg = dataclasses.replace(full_cfg, n_layers=depth)
     gpu = decoder.Decoder(cfg, device="meta")
     for name in ("embed", "ln_f", "head"):
         if hasattr(full_model, name):
             setattr(gpu, name, getattr(full_model, name))
     gpu.layers = torch.nn.ModuleList(full_model.layers[:depth])
-    cpu = decoder.Decoder(cfg, device="cpu")
+    card_vs_cpu(torch, gpu, cfg, f"at depth {depth}", lens)
+
+
+def card_vs_cpu(torch, gpu, cfg, what, lens=(16, 11)):
+    """``gpu``, a model for ``cfg`` on the card, and a copy on the CPU, same
+    inputs: two prompts of ``lens`` tokens through the paged path (16-token
+    prefill chunks, two decode steps; a recurrent stack's state in
+    recurrent-state rows 1 and 2; window layers walk from the engine's
+    first page, ``window_start_page``) and through the dense path (a
+    prefill over both prompts padded to the longer one, two decode steps),
+    all through the bundle's entry points, logits compared."""
+    import numpy as np
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import window_start_page
+    bundle = build_model(cfg)
+    cpu = type(gpu)(cfg, device="cpu")
     cpu.load_state_dict(gpu.state_dict())
 
     rng = np.random.default_rng(3)
@@ -2304,11 +2582,9 @@ def device_vs_cpu_phase(torch, full_model, full_cfg, depth=1,
     with torch.no_grad():
         for dev, model in (("cuda", gpu), ("cpu", cpu)):
             T = lambda a: torch.tensor(a, device=dev)
-            cache = decoder.init_paged_decode_cache(cfg, 1 + sum(n_pg), ps,
-                                                    dev)
-            if cfg.family == "ssm":
-                cache["rec"] = decoder.init_decoder_recurrent_state(cfg, 3,
-                                                                    dev)
+            cache = bundle.init_paged_cache(1 + sum(n_pg), ps, device=dev)
+            if bundle.init_recurrent_state is not None:
+                cache["rec"] = bundle.init_recurrent_state(3, device=dev)
             last = [None, None]
             for c0 in range(0, S, C):
                 n_new = np.clip(lens - c0, 0, C).astype(np.int32)
@@ -2316,38 +2592,52 @@ def device_vs_cpu_phase(torch, full_model, full_cfg, depth=1,
                 live = n_new > 0
                 ws = window_start_page(int(start[live].min()) - (w - 1),
                                        ps) if w else 0
-                x = decoder.decoder_prefill_paged_chunk(
+                x = bundle.prefill_paged_chunk(
                     model, cache, T(tokens[:, c0:c0 + C]), T(pt), T(start),
-                    T(n_new), cfg, window_start=ws,
+                    T(n_new), window_start=ws,
                     state_rows=T(np.where(live, [1, 2], 0).astype(np.int32)))
                 for b in np.flatnonzero(live & (lens <= c0 + C)):
                     last[b] = x[b]
-            logits = [decoder._unembed(model, torch.stack(last), cfg)[:, 0]]
+            logits = [bundle.lm_head(model, torch.stack(last))[:, 0]]
             sl = lens.copy()
             for step in range(2):
                 # both devices feed the card's greedy tokens
                 tok = (paged["cuda"][step] if dev == "cpu" else logits[-1]) \
                     .argmax(-1).cpu().numpy()
                 ws = window_start_page(int(sl.min()) + 1 - w, ps) if w else 0
-                logits.append(decoder.decoder_decode_step_paged(
+                logits.append(bundle.decode_step_paged(
                     model, cache, T(tok[:, None]), T(pt), T(sl),
-                    T(np.ones(2, bool)), cfg, window_start=ws))
+                    T(np.ones(2, bool)), window_start=ws))
                 sl = sl + 1
             paged[dev] = [t.float().cpu() for t in logits]
 
-            last, cache = decoder.decoder_prefill(
-                model, {"tokens": T(tokens)}, cfg, max_seq=S + 2)
+            last, cache = bundle.prefill(model, {"tokens": T(tokens)},
+                                         max_seq=S + 2)
             logits = [last]
             for step in range(2):
                 tok = (dense["cuda"][step] if dev == "cpu" else logits[-1]) \
                     .argmax(-1).cpu().numpy()
-                out, cache = decoder.decoder_decode_step(
-                    model, cache, T(tok[:, None]), cfg)
+                out, cache = bundle.decode_step(model, cache,
+                                                T(tok[:, None]))
                 logits.append(out)
             dense[dev] = [t.float().cpu() for t in logits]
-    tag = f"{cfg.name} at depth {depth}, prompts of {lens.tolist()} tokens,"
+    tag = f"{cfg.name} {what}, prompts of {lens.tolist()} tokens,"
     _compare(torch, f"{tag} paged", paged["cuda"], paged["cpu"])
     _compare(torch, f"{tag} dense", dense["cuda"], dense["cpu"])
+
+
+def moe_vs_cpu_phase(torch):
+    """phi3.5-moe-42b-a6.6b at every published width and depth 2 (16
+    experts top-2, 2.9 B params), weights from a seed, card against CPU
+    (``card_vs_cpu``)."""
+    from repro_torch.configs.phi35_moe_42b import CONFIG as PHI
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(PHI, n_layers=2)
+    model = build_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(500), "cuda")
+    log(f"[device-vs-cpu] {cfg.name} at depth 2: "
+        f"{cfg.param_count() / 1e9:.2f} B params")
+    card_vs_cpu(torch, model, cfg, "at depth 2", lens=(40, 27))
 
 
 # ------------------------------------------------------------------ phase 6
@@ -2786,16 +3076,28 @@ def main() -> int:
     gemma_run = gemma_phase(torch, card, smi)
     for name, n in gemma_run["launches"].items():
         by_path[name]["gemma3-4b"] = n
-    for row in rows:
-        row["launches"] = launches[row["name"]]
-        row["launches_by_path"] = by_path[row["name"]]
     # one local:global period of gemma3-4b (layers 0-4 local, 5 global),
     # past the window: late walk starts on the card and on the CPU
     device_vs_cpu_phase(torch, gemma_run["model"], gemma_run["cfg"],
                         depth=6, lens=(1096, 1085))
-    del gemma_run   # phase 6 needs the card's memory
+    del gemma_run   # phase 4g needs the card's memory
     gc.collect()
     torch.cuda.empty_cache()
+    # phase 4g holds 13.27 B + 3.45 B params (68.4 GB with the router)
+    jamba_run = jamba_phase(torch, card, smi)
+    for name, n in jamba_run["launches"].items():
+        by_path[name]["jamba-v0.1-52b"] = n
+    card_vs_cpu(torch, jamba_run["model"], jamba_run["cfg"], "(one block)",
+                lens=(40, 27))
+    del jamba_run   # phase 6 needs the card's memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_vs_cpu_phase(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+        row["launches_by_path"] = by_path[row["name"]]
     router_training_phase(torch, card, smi)
     lm_training_phase(torch, card, smi)
     pipeline_phase(torch, card, smi)

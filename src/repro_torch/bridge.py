@@ -8,7 +8,10 @@ as a flat ``.npz`` keyed by '/'-joined tree paths, and stacks each layer's
 weights on a leading layer axis. The port keeps every tensor's layout, so
 loading is a copy: a path ``layers/attn/wq`` of shape (L, D, H, Dh) becomes
 the parameters ``layers.<i>.attn.wq`` of shape (D, H, Dh), and
-``numpy_from_params`` stacks them back. ``load_checkpoint`` (from
+``numpy_from_params`` stacks them back. The hybrid (Jamba) tree stacks on
+two axes: ``blocks/mamba/ssm/w_in`` (n_blocks, n_mamba, ...) becomes
+``blocks.<b>.mamba.<j>.ssm.w_in`` (``moe`` and ``mlp`` likewise), and
+``blocks/attn/...`` has the block axis only. ``load_checkpoint`` (from
 ``training.checkpoint``) reads either side's ``.npz``.
 """
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.decoder import Decoder
+from repro_torch.models.hybrid import Hybrid
 from repro_torch.models.encoder import RouterConfig, RouterEncoder
 from repro_torch.training.checkpoint import _flatten
 # re-exported: the bridge reads the reference's checkpoints
@@ -26,18 +30,26 @@ from repro_torch.training.checkpoint import load_checkpoint  # noqa: F401
 
 def _state_from_tree(tree: dict, n_layers: int) -> dict:
     """Reference tree -> {module parameter name: array}, splitting the
-    stacked ``layers`` subtree per layer."""
+    stacked ``layers`` subtree per layer and the ``blocks`` subtree per
+    block and, below ``blocks/<kind>`` (but ``attn``), per sub-layer. A
+    count that does not fit the module shows as missing or unexpected
+    names."""
     state = {}
     for path, arr in _flatten(tree).items():
-        name = path.replace("/", ".")
-        if path.startswith("layers/"):
-            if arr.shape[0] != n_layers:
-                raise ValueError(f"{path}: leading axis {arr.shape[0]} is not "
-                                 f"the {n_layers} stacked layers")
-            for i in range(n_layers):
-                state[f"layers.{i}.{name[len('layers.'):]}"] = arr[i]
-        else:
-            state[name] = arr
+        parts = path.split("/")
+        if parts[0] == "layers" and arr.shape[0] != n_layers:
+            raise ValueError(f"{path}: leading axis {arr.shape[0]} is not "
+                             f"the {n_layers} stacked layers")
+        # where each stacked axis's index goes in the name: after the
+        # path's first part, and for the hybrid's per-kind stacks also
+        # after the kind (``blocks.<b>.mamba.<j>``)
+        cuts = {"layers": [1], "blocks": [1] if parts[1:2] == ["attn"]
+                else [1, 3]}.get(parts[0], [])
+        entries = [(parts, arr)]
+        for cut in cuts:
+            entries = [(p[:cut] + [str(i)] + p[cut:], a[i])
+                       for p, a in entries for i in range(a.shape[0])]
+        state.update((".".join(p), a) for p, a in entries)
     return state
 
 
@@ -45,10 +57,11 @@ def _state_from_tree(tree: dict, n_layers: int) -> dict:
 def params_from_numpy(tree: dict, cfg, device="cuda"):
     """The port's module for ``cfg`` holding the reference param ``tree``
     (numpy arrays, or anything ``np.asarray`` takes): a ``Decoder`` for an
-    ``ArchConfig``, a ``RouterEncoder`` for a ``RouterConfig``, on
-    ``device``. Raises on a missing, unexpected or mis-shaped tensor."""
+    ``ArchConfig`` (a ``Hybrid`` for ``family="hybrid"``), a
+    ``RouterEncoder`` for a ``RouterConfig``, on ``device``. Raises on a
+    missing, unexpected or mis-shaped tensor."""
     if isinstance(cfg, ArchConfig):
-        model = Decoder(cfg, device)
+        model = (Hybrid if cfg.family == "hybrid" else Decoder)(cfg, device)
     elif isinstance(cfg, RouterConfig):
         model = RouterEncoder(cfg, device)
     else:
@@ -69,33 +82,37 @@ def params_from_numpy(tree: dict, cfg, device="cuda"):
 
 
 def numpy_from_params(module: torch.nn.Module, cfg) -> dict:
-    """The reference's param tree for the port's ``module`` (a ``Decoder``
-    or a ``RouterEncoder`` for ``cfg``): nested dicts of numpy arrays, each
-    layer's tensors stacked on a leading axis of ``cfg.n_layers``; every
-    array is a copy. The inverse of ``params_from_numpy``; ``training.checkpoint.save_checkpoint``
-    writes it as the reference's ``.npz``."""
-    per_layer: dict = {}
+    """The reference's param tree for the port's ``module`` (a ``Decoder``,
+    ``Hybrid`` or ``RouterEncoder`` for ``cfg``): nested dicts of numpy
+    arrays, each stacked tensor on its leading axes (``layers``: one of
+    ``cfg.n_layers``; the hybrid's ``blocks``: blocks, then sub-layers);
+    every array is a copy. The inverse of ``params_from_numpy``;
+    ``training.checkpoint.save_checkpoint`` writes it as the reference's
+    ``.npz``."""
+    stacked: dict = {}
     tree: dict = {}
-
-    def put(node, dotted, value):
-        *path, leaf = dotted.split(".")
-        for part in path:
-            node = node.setdefault(part, {})
-        node[leaf] = value
-
     for name, p in module.state_dict().items():
         # a copy: on the CPU ``.numpy()`` shares the parameter's memory,
         # which training updates in place
         arr = p.detach().to("cpu", copy=True).numpy()
-        if name.startswith("layers."):
-            _, i, rest = name.split(".", 2)
-            per_layer.setdefault(rest, {})[int(i)] = arr
-        else:
-            put(tree, name, arr)
-    for rest, by_layer in per_layer.items():
-        if sorted(by_layer) != list(range(cfg.n_layers)):
-            raise ValueError(f"layers.*.{rest}: layers {sorted(by_layer)} "
-                             f"are not the config's {cfg.n_layers}")
-        put(tree, "layers." + rest,
-            np.stack([by_layer[i] for i in range(cfg.n_layers)]))
+        parts = name.split(".")
+        index = tuple(int(q) for q in parts if q.isdigit())
+        path = tuple(q for q in parts if not q.isdigit())
+        stacked.setdefault(path, {})[index] = arr
+    for path, by_index in stacked.items():
+        keys = sorted(by_index)
+        if path[0] == "layers" and keys != [(i,) for i in
+                                            range(cfg.n_layers)]:
+            raise ValueError(f"layers.*.{'.'.join(path[1:])}: layers "
+                             f"{keys} are not the config's {cfg.n_layers}")
+        lead = tuple(n + 1 for n in keys[-1])
+        if keys != list(np.ndindex(*lead)):
+            raise ValueError(f"{'.'.join(path)}: indices {keys} do not fill "
+                             f"{lead}")
+        arr = np.stack([by_index[i] for i in keys]).reshape(
+            lead + by_index[keys[0]].shape)
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = arr
     return tree

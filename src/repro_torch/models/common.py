@@ -48,12 +48,16 @@ def init_params_(module: nn.Module, generator) -> nn.Module:
     embedding tables truncated normal * 0.02 (``embed_init``), the router's
     ``rel_bias`` normal * 0.02; the SSM mixer's ``conv_w`` truncated normal
     * 0.2, ``A_log`` log(linspace(1, 16, H)), ``D`` ones and ``dt_bias``
-    log(expm1(linspace(1e-3, 1e-1, H))) (``models/ssm.py::init_ssm``);
-    every other weight truncated normal over its fan-in, the leading axis
+    log(expm1(linspace(1e-3, 1e-1, H))) (``models/ssm.py::init_ssm``); an
+    MoE layer's expert weights (E, fan-in, fan-out) truncated normal over
+    their fan-in, the second axis (``models/moe.py::init_moe``); every
+    other weight truncated normal over its fan-in, the leading axis
     (``dense_init``)."""
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if leaf in ("scale", "D"):
+        if leaf in ("w_in", "w_glu", "w_out") and p.ndim == 3:   # experts
+            trunc_normal_(p, 1.0 / math.sqrt(p.shape[1]), generator)
+        elif leaf in ("scale", "D"):
             p.fill_(1.0)
         elif leaf in ("bq", "bk", "bv"):
             p.zero_()

@@ -19,7 +19,8 @@ class ArchConfig:
     """Configuration for one model architecture.
 
     Families: dense | moe | ssm | hybrid | vlm | audio (the port builds
-    ``dense`` and ``ssm`` so far; see ``models.model.build_model``).
+    every decoder-only family, not yet vlm, audio or encoder-decoder
+    stacks; see ``models.model.build_model``).
 
     ``use_pallas`` is kept for the 1:1 conversion and selects nothing here:
     in the port a tensor's device decides between a kernel and its plain

@@ -1,5 +1,6 @@
-"""Decoder-only LM, dense and SSM families: the dense-cache serving path
-and the paged serving path of ``repro.models.decoder``.
+"""Decoder-only LM, the dense, MoE and SSM families: the dense-cache
+serving path, the paged serving path and training's teacher-forced pass
+of ``repro.models.decoder``.
 
 The reference stacks layer weights on a leading axis and ``lax.scan``s
 over them; here layers are a ``ModuleList`` and the scan is a Python loop,
@@ -14,31 +15,48 @@ page pools then have zero layers. Dense stacks may mix global and
 sliding-window layers (gemma3's 5 local : 1 global): a window layer passes
 its static ``cfg.layer_window(i)`` to the kernels, and on the paged path
 starts its page walk at the engine's ``window_start`` (global layers walk
-from page 0). Dense and SSM stacks are built so far
-(``models.model.build_model`` refuses the rest). ``decoder_forward`` is
-training's teacher-forced pass, for dense stacks: differentiable, and it
-launches no kernel.
+from page 0). A config with ``n_experts > 0`` (the MoE family, or a window
+stack with MoE layers) puts a routed MoE FFN (``models.moe``) in every
+layer in place of the MLP. ``decoder_forward`` is training's
+teacher-forced pass for every family here: differentiable, it launches no
+kernel, and it returns the MoE layers' load-balance aux summed over
+layers.
 """
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from . import attention as attn
+from . import moe as moe_lib
 from . import ssm as ssm_lib
 from .common import (MLP, Embedding, OutputHead, RMSNorm, dtype_of, embed,
                      init_params_, mlp, output_head, rmsnorm, unembed)
 
 
 class DecoderLayer(nn.Module):
+    """``ln1``, ``attn``, ``ln2``, then the FFN: ``moe`` when the config
+    has experts, else ``mlp``."""
+
     def __init__(self, cfg, device=None):
         super().__init__()
         dt = dtype_of(cfg)
         self.ln1 = RMSNorm(cfg.d_model, dt, device)
         self.attn = attn.Attention(cfg, device)
         self.ln2 = RMSNorm(cfg.d_model, dt, device)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, dt, device)
+        if cfg.n_experts > 0:
+            self.moe = moe_lib.MoE(cfg, device)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, dt, device)
+
+
+def _ffn(layer: DecoderLayer, x, cfg):
+    """The layer's FFN on the normed ``x``: (y, aux), aux the MoE layer's
+    load-balance loss, None for an MLP."""
+    h = rmsnorm(layer.ln2, x, cfg.norm_eps)
+    if cfg.n_experts > 0:
+        return moe_lib.moe_forward(layer.moe, h, cfg)
+    return mlp(layer.mlp, h), None
 
 
 class SSMLayer(nn.Module):
@@ -53,9 +71,10 @@ class SSMLayer(nn.Module):
 
 class Decoder(nn.Module):
     """Parameter names follow the reference tree: ``embed.table``,
-    ``layers.<i>.{ln1,attn,ln2,mlp}.*`` (``layers.<i>.{ln,ssm}.*`` for the
-    SSM family), ``ln_f.scale`` and, untied, ``head.w``. Built empty on
-    ``device``; fill with ``init_decoder`` or the bridge."""
+    ``layers.<i>.{ln1,attn,ln2,mlp}.*`` (``moe`` in place of ``mlp`` with
+    experts, ``layers.<i>.{ln,ssm}.*`` for the SSM family), ``ln_f.scale``
+    and, untied, ``head.w``. Built empty on ``device``; fill with
+    ``init_decoder`` or the bridge."""
 
     def __init__(self, cfg, device="cuda"):
         super().__init__()
@@ -94,7 +113,7 @@ def decoder_prefill(model: Decoder, batch: dict, cfg, max_seq=None):
     positions = torch.arange(S, device=x.device)
     for i, layer in enumerate(model.layers):
         if cfg.family == "ssm":
-            y, cache["ssm_h"][i], cache["ssm_conv"][i] = _ssm_prefill_layer(
+            y, cache["ssm_h"][i], cache["ssm_conv"][i] = ssm_lib.ssm_prefill(
                 layer.ssm, rmsnorm(layer.ln, x, cfg.norm_eps), cfg)
             x = x + y
             continue
@@ -106,7 +125,7 @@ def decoder_prefill(model: Decoder, batch: dict, cfg, max_seq=None):
         cache["k"][i, :, :S] = k
         cache["v"][i, :, :S] = v
         x = x + o
-        x = x + mlp(layer.mlp, rmsnorm(layer.ln2, x, cfg.norm_eps))
+        x = x + _ffn(layer, x, cfg)[0]
     cache["pos"] = S
     x = rmsnorm(model.ln_f, x[:, -1:], cfg.norm_eps)
     return _unembed(model, x, cfg)[:, 0], cache
@@ -114,56 +133,32 @@ def decoder_prefill(model: Decoder, batch: dict, cfg, max_seq=None):
 
 def decoder_forward(model: Decoder, batch: dict, cfg):
     """Teacher-forced forward over ``batch["tokens"]`` (B, S) int. Returns
-    (logits (B, S, V) over the padded vocab, tail masked; aux, a 0-d fp32
-    zero: a dense stack has no MoE load-balance loss). Differentiable: the
+    (logits (B, S, V) over the padded vocab, tail masked; aux, the MoE
+    layers' load-balance losses summed over layers, a 0-d fp32 zero
+    without experts). Differentiable, and no kernel launches: the
     attention is the plain masked softmax under autograd
     (``attention.training_attention``; the reference chunks queries by
-    ``attn_chunk``, which gives the same values), and no kernel launches.
-    The SSM family's ``ssm_forward`` comes with a later slice."""
-    if cfg.family == "ssm":
-        raise NotImplementedError(
-            f"{cfg.name}: the SSM family's teacher-forced forward "
-            "(ssm_forward) comes with the dense ssm_forward slice; no tier "
-            "of the routing pipeline is an SSM")
+    ``attn_chunk``, which gives the same values) and the SSM mixer the
+    plain chunked scan (``ssm.ssm_forward``)."""
     tokens = batch["tokens"]
     x = embed(model.embed, tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, layer in enumerate(model.layers):
+        if cfg.family == "ssm":
+            x = x + ssm_lib.ssm_forward(
+                layer.ssm, rmsnorm(layer.ln, x, cfg.norm_eps), cfg)
+            continue
         h = rmsnorm(layer.ln1, x, cfg.norm_eps)
         x = x + attn.training_attention(
             layer.attn, h, cfg, is_global=cfg.layer_kind(i)["global_attn"],
             positions=positions)
-        x = x + mlp(layer.mlp, rmsnorm(layer.ln2, x, cfg.norm_eps))
+        y, layer_aux = _ffn(layer, x, cfg)
+        x = x + y
+        if layer_aux is not None:
+            aux = aux + layer_aux
     x = rmsnorm(model.ln_f, x, cfg.norm_eps)
-    return _unembed(model, x, cfg), torch.zeros((), dtype=torch.float32,
-                                                device=x.device)
-
-
-def _ssm_prefill_layer(ssm, h, cfg):
-    """The mixer over a whole prompt h (B, S, D), S padded to a multiple of
-    ``cfg.ssm_chunk`` with dt = 0 rows (which leave the state as it is).
-    Returns (y (B, S, D), final state (B, H, P, N), raw conv tail
-    (B, cw - 1, di + 2 N) for decoding)."""
-    Bsz, S, _ = h.shape
-    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim
-    cw = cfg.ssm_conv_width
-    z, xBC_raw, dt_raw = ssm_lib._split_proj(h @ ssm.w_in, cfg)
-    xBC = ssm_lib._causal_conv(xBC_raw, ssm.conv_w)
-    xs = xBC[..., :di].reshape(Bsz, S, H, P)
-    Bmat, Cmat = xBC[..., di:di + N], xBC[..., di + N:]
-    dt = F.softplus(dt_raw.float() + ssm.dt_bias)
-    pad = (-S) % cfg.ssm_chunk
-    xs_p, dt_p, B_p, C_p = xs, dt, Bmat, Cmat
-    if pad:
-        xs_p = F.pad(xs, (0, 0, 0, 0, 0, pad))
-        dt_p, B_p, C_p = (F.pad(t, (0, 0, 0, pad)) for t in (dt, Bmat, Cmat))
-    y, final = ssm_lib.ssd_chunked(xs_p, dt_p, -torch.exp(ssm.A_log), B_p,
-                                   C_p, cfg.ssm_chunk)
-    if S < cw - 1:   # tiny prompts: left-pad the tail with zeros
-        tail = F.pad(xBC_raw, (0, 0, cw - 1 - S, 0))
-    else:
-        tail = xBC_raw[:, S - (cw - 1):]
-    return ssm_lib._gate_out(ssm, y[:, :S], xs, z, cfg), final, tail
+    return _unembed(model, x, cfg), aux
 
 
 def init_decode_cache(cfg, batch: int, max_seq: int, device="cuda"):
@@ -199,7 +194,7 @@ def decoder_decode_step(model: Decoder, cache, token, cfg, *,
                                       cache["v"][i], pos, cfg,
                                       is_global=is_global,
                                       windowed=windowed)
-        x = x + mlp(layer.mlp, rmsnorm(layer.ln2, x, cfg.norm_eps))
+        x = x + _ffn(layer, x, cfg)[0]
     cache["pos"] = pos + 1
     x = rmsnorm(model.ln_f, x, cfg.norm_eps)
     return _unembed(model, x, cfg)[:, 0], cache
@@ -245,7 +240,7 @@ def _paged_chunk_attn_hidden(model: Decoder, cache, x, page_table, start,
             layer.attn, h, cache["k_pages"][i], cache["v_pages"][i],
             page_table, start, n_new, cfg, pages_bound, window=w,
             pages_start=window_start if w else 0)
-        x = x + mlp(layer.mlp, rmsnorm(layer.ln2, x, cfg.norm_eps))
+        x = x + _ffn(layer, x, cfg)[0]
     return rmsnorm(model.ln_f, x, cfg.norm_eps)
 
 
@@ -364,6 +359,6 @@ def decoder_decode_step_paged(model: Decoder, cache, token, page_table,
             layer.attn, h, cache["k_pages"][i], cache["v_pages"][i],
             page_table, seq_lens, active, cfg, pages_bound, window=w,
             pages_start=window_start if w else 0)
-        x = x + mlp(layer.mlp, rmsnorm(layer.ln2, x, cfg.norm_eps))
+        x = x + _ffn(layer, x, cfg)[0]
     x = rmsnorm(model.ln_f, x, cfg.norm_eps)
     return _unembed(model, x, cfg)[:, 0]

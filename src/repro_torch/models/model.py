@@ -1,10 +1,12 @@
 """Model bundle API (the port of ``repro.models.model``): the dense-cache
-and paged serving paths of the dense and SSM families.
+and paged serving paths and training's teacher-forced pass of every
+decoder-only family (dense, MoE, SSM and the Jamba-style hybrid).
 
 ``build_model(cfg)`` returns a ``ModelBundle`` of plain functions over a
-``Decoder`` module, in the reference's argument order:
+``Decoder`` module (a ``Hybrid`` for ``family="hybrid"``), in the
+reference's argument order:
 
-  init(generator, device="cuda") -> Decoder
+  init(generator, device="cuda") -> Decoder | Hybrid
   prefill(model, batch {"tokens": (B, S)}, max_seq=None)
       -> (last_logits (B, V), cache)
   decode_step(model, cache, token (B, 1), windowed=False)
@@ -21,34 +23,31 @@ and paged serving paths of the dense and SSM families.
                      pages_bound=None, window_start=0) -> x (B, C, D)
       the speculative verify chunk: prefill_paged_chunk's compute and
       K/V writes, every position's hidden state kept (None for stacks
-      that cannot roll back a rejected suffix: SSM and window stacks)
+      that cannot roll back a rejected suffix: SSM, hybrid and window
+      stacks)
   init_recurrent_state(n_rows, device="cuda") -> {"h", "conv"} row slabs
-      (SSM family; None for attention stacks)
+      (SSM and hybrid families; None for attention stacks)
   forward(model, batch {"tokens": (B, S)}) -> (logits (B, S, V), aux)
-      training's teacher-forced pass, differentiable (dense stacks; the
-      SSM family raises until the slice that brings ``ssm_forward``)
+      training's teacher-forced pass, differentiable; aux is the MoE
+      layers' load-balance loss summed over layers (0 without experts)
 
 Dense caches, page pools and recurrent-state rows are updated in place.
-The paged calls of the SSM family take ``cache["rec"]``, the recurrent
-state, beside the (zero-layer) pools, and ``state_rows`` names each
-prefill row's state row. ``window_start`` is the first page of the
-sliding-window layers' page walks (global layers walk from page 0). Dense
-stacks, global or mixed with sliding-window layers (gemma3), and SSM stacks
-are built so far; MoE layers and the other families raise and name the
-slice that brings them.
+The paged calls of the SSM and hybrid families take ``cache["rec"]``, the
+recurrent state, beside the pools (zero layers for SSM stacks, one a
+block for the hybrid), and ``state_rows`` names each prefill row's state
+row. ``window_start`` is the first page of the sliding-window layers'
+page walks (global layers walk from page 0). The encoder-decoder and
+frontend families (vlm, audio) raise and name the slice that brings them.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Optional
 
-from . import decoder
+from . import decoder, hybrid
 from .config import ArchConfig
 
 _LATER = {
-    "moe": "the MoE family comes with the MoE slice",
-    "hybrid": "the hybrid (Jamba) family comes with the hybrid slice, "
-              "after the MoE slice",
     "vlm": "the vlm family comes with the encoder-decoder and frontends "
            "slice",
     "audio": "the audio family comes with the encoder-decoder and "
@@ -73,17 +72,15 @@ class ModelBundle:
 
 
 def build_model(cfg: ArchConfig) -> ModelBundle:
-    if cfg.family not in ("dense", "ssm"):
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet — "
-            + _LATER.get(cfg.family,
-                         "only the dense and SSM families are ported"))
-    if cfg.n_experts or not cfg.supports_paged_kv:
-        raise NotImplementedError(
-            f"{cfg.name}: only dense stacks without MoE layers are ported "
-            "yet — MoE layers come with the MoE slice, encoder-decoder "
-            "stacks and frontends with the encoder-decoder and frontends "
-            "slice")
+    reason = _LATER.get(cfg.family)
+    if reason is None and not cfg.supports_paged_kv:
+        reason = ("encoder-decoder stacks and frontends come with the "
+                  "encoder-decoder and frontends slice")
+    if reason is not None:
+        raise NotImplementedError(f"{cfg.name} ({cfg.family}) is not ported "
+                                  f"yet — {reason}")
+    if cfg.family == "hybrid":
+        return _hybrid_bundle(cfg)
     rec = verify = None
     if cfg.family != "ssm" and not cfg.has_window_layers:
         verify = lambda m, c, t, page_table, start, n_new, \
@@ -121,4 +118,37 @@ def build_model(cfg: ArchConfig) -> ModelBundle:
         forward=lambda m, batch: decoder.decoder_forward(m, batch, cfg),
         init_recurrent_state=rec,
         verify_paged_chunk=verify,
+    )
+
+
+def _hybrid_bundle(cfg: ArchConfig) -> ModelBundle:
+    """The Jamba-style hybrid stack's bundle: recurrent-state rows for its
+    Mamba layers, and no verify chunk (recurrent state cannot roll back)."""
+    return ModelBundle(
+        cfg=cfg,
+        init=lambda generator, device="cuda":
+            hybrid.init_hybrid(cfg, generator, device),
+        prefill=lambda m, batch, max_seq=None:
+            hybrid.hybrid_prefill(m, batch, cfg, max_seq),
+        decode_step=lambda m, c, t, windowed=False:
+            hybrid.hybrid_decode_step(m, c, t, cfg, windowed=windowed),
+        init_cache=lambda batch_size, max_seq, device="cuda":
+            hybrid.init_hybrid_cache(cfg, batch_size, max_seq, device),
+        init_paged_cache=lambda num_pages, page_size=None, device="cuda":
+            hybrid.init_hybrid_paged_cache(
+                cfg, num_pages, page_size or cfg.kv_page_size, device),
+        prefill_paged_chunk=lambda m, c, t, page_table, start, n_new,
+            pages_bound=None, window_start=0, state_rows=None:
+            hybrid.hybrid_prefill_paged_chunk(
+                m, c, t, page_table, start, n_new, cfg, pages_bound,
+                window_start, state_rows),
+        decode_step_paged=lambda m, c, t, page_table, seq_lens, active,
+            pages_bound=None, window_start=0:
+            hybrid.hybrid_decode_step_paged(
+                m, c, t, page_table, seq_lens, active, cfg, pages_bound,
+                window_start),
+        lm_head=lambda m, x: decoder._unembed(m, x, cfg),
+        forward=lambda m, batch: hybrid.hybrid_forward(m, batch, cfg),
+        init_recurrent_state=lambda n_rows, device="cuda":
+            hybrid.init_hybrid_recurrent_state(cfg, n_rows, device),
     )

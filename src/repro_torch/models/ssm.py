@@ -6,8 +6,10 @@ each chunk's state come from the SSD chunk kernel
 (``kernels/ssd_scan``), and the inter-chunk recurrence runs in plain
 PyTorch. Decode keeps a constant-size recurrent state (B, H, P, N) and a
 conv tail, and runs no kernel: one step is a few small products, as in the
-reference. ``ssm_forward`` (training's full-sequence pass) comes with the
-training slice.
+reference. ``ssm_forward`` is training's full-sequence pass: the same
+chunked algorithm in plain PyTorch under autograd, on any device, as the
+reference's training runs it (``use_pallas=False``; no Pallas kernel of
+the repo has a backward pass).
 """
 from __future__ import annotations
 
@@ -54,7 +56,7 @@ def _causal_conv(xBC, conv_w):
     return F.silu(sum(pad[:, i:i + S, :] * conv_w[i] for i in range(W)))
 
 
-def ssd_chunked(x, dt, A, B, C, chunk: int, h0=None):
+def ssd_chunked(x, dt, A, B, C, chunk: int, h0=None, plain: bool = False):
     """Chunked SSD. x (b, S, H, P); dt (b, S, H); A (H,); B, C (b, S, N)
     (one group, broadcast over heads); S a multiple of ``chunk``. Returns
     (y (b, S, H, P), final_state (b, H, P, N) fp32).
@@ -67,7 +69,8 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, h0=None):
     state recurrence and the inter-chunk output run in plain PyTorch, as
     the reference's Pallas branch does. On the CPU the chunks run one by
     one through the plain version, as the reference's jnp scan does, so
-    only one chunk's (l, l) decay matrix is live at a time."""
+    only one chunk's (l, l) decay matrix is live at a time; ``plain``
+    takes that path on the card too (differentiable, no kernel)."""
     b, S, H, P = x.shape
     N = B.shape[-1]
     nc = S // chunk
@@ -79,7 +82,8 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, h0=None):
     Bs = B.reshape(b, nc, chunk, N)
     Cs = C.reshape(b, nc, chunk, N)
     dA_cum = torch.cumsum(dts * A, dim=2)     # within-chunk; A negative
-    run = _chunks_at_once if x.device.type == "cuda" else _chunk_by_chunk
+    run = _chunk_by_chunk if plain or x.device.type != "cuda" \
+        else _chunks_at_once
     y, final = run(xs, dts, dA_cum, Bs, Cs, h0)
     return y.reshape(b, S, H, P).to(x.dtype), final
 
@@ -112,6 +116,49 @@ def _chunk_by_chunk(xs, dts, dA_cum, Bs, Cs, h0):
         h = h * torch.exp(dac[:, -1, :])[..., None, None] + st[:, 0]
         ys.append(y_diag[:, 0] + y_off)
     return torch.stack(ys, 1), h
+
+
+def _full_sequence(ssm: SSM, x, cfg, plain: bool):
+    """The mixer over whole sequences x (B, S, D), S padded to a multiple
+    of ``cfg.ssm_chunk`` with dt = 0 rows (which leave the state as it
+    is). Returns (y (B, S, D), final state (B, H, P, N), the raw conv
+    inputs xBC (B, S, di + 2 N))."""
+    Bsz, S, _ = x.shape
+    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim
+    z, xBC_raw, dt_raw = _split_proj(x @ ssm.w_in, cfg)
+    xBC = _causal_conv(xBC_raw, ssm.conv_w)
+    xs = xBC[..., :di].reshape(Bsz, S, H, P)
+    Bmat, Cmat = xBC[..., di:di + N], xBC[..., di + N:]
+    dt = F.softplus(dt_raw.float() + ssm.dt_bias)
+    pad = (-S) % cfg.ssm_chunk
+    xs_p, dt_p, B_p, C_p = xs, dt, Bmat, Cmat
+    if pad:
+        xs_p = F.pad(xs, (0, 0, 0, 0, 0, pad))
+        dt_p, B_p, C_p = (F.pad(t, (0, 0, 0, pad)) for t in (dt, Bmat, Cmat))
+    y, final = ssd_chunked(xs_p, dt_p, -torch.exp(ssm.A_log), B_p, C_p,
+                           cfg.ssm_chunk, plain=plain)
+    return _gate_out(ssm, y[:, :S], xs, z, cfg), final, xBC_raw
+
+
+def ssm_forward(ssm: SSM, x, cfg):
+    """Full-sequence SSD mixer for training's teacher-forced pass,
+    differentiable: the chunks in order through the plain version under
+    autograd, on any device; no kernel launches. x: (B, S, D) ->
+    (B, S, D)."""
+    return _full_sequence(ssm, x, cfg, plain=True)[0]
+
+
+def ssm_prefill(ssm: SSM, x, cfg):
+    """The mixer over a whole prompt x (B, S, D), through the SSD chunk
+    kernel on the card. Returns (y (B, S, D), final state (B, H, P, N),
+    raw conv tail (B, cw - 1, di + 2 N) for decoding)."""
+    S, cw = x.shape[1], cfg.ssm_conv_width
+    y, final, xBC_raw = _full_sequence(ssm, x, cfg, plain=False)
+    if S < cw - 1:   # tiny prompts: left-pad the tail with zeros
+        tail = F.pad(xBC_raw, (0, 0, cw - 1 - S, 0))
+    else:
+        tail = xBC_raw[:, S - (cw - 1):]
+    return y, final, tail
 
 
 # ------------------------------------------------------------------ serving

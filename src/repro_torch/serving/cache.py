@@ -1,6 +1,6 @@
 """Paged serving state: a block-pool KV allocator over a shared device page
 pool (the port of ``repro.serving.cache.PagedKVCache``), and the per-slot
-recurrent-state rows of SSM stacks (``RecurrentStatePool``).
+recurrent-state rows of SSM and hybrid stacks (``RecurrentStatePool``).
 
 Dense serving gives every request a (max_seq, K, Dh) slab per layer; the
 paged cache carves the device KV buffers into fixed-size pages
@@ -53,7 +53,7 @@ class CacheStats:
 
 
 class RecurrentStatePool:
-    """Per-slot recurrent-state slabs for SSM serving.
+    """Per-slot recurrent-state slabs for SSM and hybrid serving.
 
     ``bundle.init_recurrent_state(n_slots + 1)`` builds the device slabs
     (``self.state``, each with a leading row axis), which every prefill

@@ -52,8 +52,9 @@ walk or without window layers). ``decode_compiles`` and
 (batch, width, bound, wstart) launch shapes, the keys the reference jits
 on.
 
-SSM stacks keep constant-size per-slot recurrent state
-(``serving.cache.RecurrentStatePool``) beside zero-layer page pools:
+SSM and hybrid stacks keep constant-size per-slot recurrent state
+(``serving.cache.RecurrentStatePool``) beside their page pools (zero
+layers for SSM stacks, one a block for the hybrid's attention layers):
 prefill rows gather and scatter their slot's state row (padding rows the
 scratch row 0), and each decode step advances the rows of the active
 slots.
@@ -416,8 +417,8 @@ class ContinuousEngine:
         self.cache = PagedKVCache(bundle, n_slots, num_pages, ps, mp,
                                   prefix_pages=prefix_cache,
                                   device=self.device)
-        # SSM stacks keep constant-size per-slot recurrent state beside
-        # the page pool
+        # SSM and hybrid stacks keep constant-size per-slot recurrent
+        # state beside the page pool
         self.rstate = RecurrentStatePool(bundle, n_slots, self.device) \
             if bundle.init_recurrent_state is not None else None
         self.sched = ContinuousScheduler(n_slots)

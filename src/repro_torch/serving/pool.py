@@ -22,9 +22,9 @@ With ``spec_gamma > 0`` a ``StepPlan`` links each expensive tier to its
 next-cheaper sibling as a draft model (cross-tier speculative decoding:
 the cheap tier drafts gamma tokens, the expensive tier verifies them in
 one chunk; ``ContinuousEngine.attach_draft``). Tiers the capability check
-refuses (window and SSM stacks, one-shot prefill) keep plain decode,
-recorded in ``plan.skipped``; a target whose draft tier is stalled plain-
-decodes until the stall lifts. Shared-prefix reuse is per tier: each
+refuses (window, SSM and hybrid stacks, one-shot prefill) keep plain
+decode, recorded in ``plan.skipped``; a target whose draft tier is
+stalled plain-decodes until the stall lifts. Shared-prefix reuse is per tier: each
 engine built with ``prefix_cache > 0`` keeps its own tree over its own
 pages.
 """

@@ -29,6 +29,7 @@ class TrainConfig:
     steps: int = 500
     batch_size: int = 64
     lr: float = 1e-3
+    aux_weight: float = 0.01   # MoE load-balance loss weight
     log_every: int = 50
     seed: int = 0
 
@@ -48,25 +49,28 @@ def trainable(module: torch.nn.Module):
             p.requires_grad_(False)
 
 
-def lm_loss(bundle: ModelBundle, model, batch):
-    """The masked token cross-entropy. The port builds no family with an
-    auxiliary loss (the reference's MoE load-balance term), so the
-    ``aux`` that ``forward`` returns is always zero and is left out."""
-    logits, _ = bundle.forward(model, batch)
-    return softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
+def lm_loss(bundle: ModelBundle, model, batch, aux_weight: float):
+    """The masked token cross-entropy plus ``aux_weight`` times the MoE
+    load-balance loss (zero without experts). Returns (total, (loss,
+    aux))."""
+    logits, aux = bundle.forward(model, batch)
+    loss = softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
+    return loss + aux_weight * aux, (loss, aux)
 
 
-def make_lm_train_step(bundle: ModelBundle, ocfg: AdamWConfig):
+def make_lm_train_step(bundle: ModelBundle, ocfg: AdamWConfig,
+                       aux_weight: float = 0.01):
     """step(model, opt_state, batch) -> (model, opt_state, metrics
-    {"loss", "grad_norm", "lr"}). ``model``'s parameters must have
+    {"loss", "aux", "grad_norm", "lr"}). ``model``'s parameters must have
     gradients on (``trainable``); they are updated in place."""
     def step(model, opt_state, batch):
         params = dict(model.named_parameters())
-        loss = lm_loss(bundle, model, batch)
-        grads = torch.autograd.grad(loss, list(params.values()))
+        total, (loss, aux) = lm_loss(bundle, model, batch, aux_weight)
+        grads = torch.autograd.grad(total, list(params.values()))
         _, opt_state, om = adamw_update(params, dict(zip(params, grads)),
                                         opt_state, ocfg)
-        return model, opt_state, {"loss": loss.detach(), **om}
+        return model, opt_state, {"loss": loss.detach(),
+                                  "aux": aux.detach(), **om}
     return step
 
 
@@ -84,7 +88,7 @@ def batch_iterator(rng: np.random.Generator, arrays: dict, batch_size: int,
 
 def train_lm(bundle: ModelBundle, arrays: dict, tcfg: TrainConfig,
              params=None, device="cuda"):
-    """Train an LM on teacher-forced arrays. ``params``: the ``Decoder``
+    """Train an LM on teacher-forced arrays. ``params``: the model
     module to train in place (its device is where training runs), or None
     for a fresh one on ``device`` from ``torch.Generator`` seeded with
     ``tcfg.seed``. Returns (module, history)."""
@@ -96,7 +100,7 @@ def train_lm(bundle: ModelBundle, arrays: dict, tcfg: TrainConfig,
     ocfg = AdamWConfig(lr=tcfg.lr, warmup_steps=max(1, tcfg.steps // 20),
                        total_steps=tcfg.steps)
     opt_state = init_opt_state(dict(params.named_parameters()), ocfg)
-    step_fn = make_lm_train_step(bundle, ocfg)
+    step_fn = make_lm_train_step(bundle, ocfg, tcfg.aux_weight)
     it = batch_iterator(rng, arrays, tcfg.batch_size, dev)
     history = []
     t0 = time.monotonic()

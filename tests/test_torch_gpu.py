@@ -149,18 +149,34 @@ SSD_MODES = {
     "n256_p64": (2, 3, 70, 64, 256, "random"),
     "l300_strip_panels": (1, 3, 300, 16, 16, "random"),
 }
+# jamba-v0.1-52b's shapes, as chip_smoke.py's phase 4g gives the kernels
+# (card only: the CPU parity tests keep to the small modes above): its
+# attention layer (32 heads over 8 kv heads of 128) in the pool's decode
+# (8 slots, pages of 16, contexts up to 544 keys in a 64-page table) and
+# 16-token prefill chunks, the dense path's 512-token flash prefill and
+# its decode over a 544-position cache; its Mamba layers (128 SSD heads of
+# 64, state 16) in the dense path's 128-position chunks (8 prompts of 512)
+# and the pool's 16-position chunks with dt = 0 padding
+JAMBA_MODES = {
+    "paged_decode": (8, 8, 4, 128, 16, 64, 34, 0, 0),
+    "paged_prefill": (8, 8, 16, 4, 128, 16, 64, 34, 0, 0),
+    "flash": (8, 512, 32, 8, 128, True, 0),
+    "dense_decode": (8, 544, 8, 4, 128, "prefix"),
+    "ssd_dense": (32, 128, 128, 64, 16, "random"),
+    "ssd_pool": (8, 128, 16, 64, 16, "pad"),
+}
 # pool chunks of n real positions, each padded with dt = 0 to every l
 # bucket from the next power of two up to 16 (see ssd_bucket_case)
 SSD_BUCKET_LENS = (1, 2, 3, 5, 7)
 
 
-def ssd_case(name, seed=0):
+def ssd_case(name, seed=0, modes=SSD_MODES):
     """Inputs of one SSD launch mode in the kernel's layout, as numpy
     arrays: x (BC, H, l, P); dt and dA = cumsum(dt A) (BC, H, l, 1), A < 0;
     B, C (BC, l, N). "pad" zeroes dt past the middle of row 0 and on all of
     the last row (packed prefill's padding); "steep" takes dt in [1, 5) and
     A in (-16, -8]."""
-    BC, H, l, P, N, layout = SSD_MODES[name]
+    BC, H, l, P, N, layout = modes[name]
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((BC, H, l, P))
     if layout == "steep":
@@ -213,11 +229,11 @@ def ssd_err(got, want):
                                                  .item())
 
 
-def flash_case(name, seed=0):
+def flash_case(name, seed=0, modes=FLASH_MODES):
     """Inputs of one flash-attention mode in the model layout: q (B, S, H,
     D) pre-scaled, k and v (B, S, K, D), as numpy arrays, and the static
     keyword arguments."""
-    B, S, H, K, D, causal, window = FLASH_MODES[name]
+    B, S, H, K, D, causal, window = modes[name]
     rng = np.random.default_rng(seed)
     q = (rng.standard_normal((B, S, H, D)) * D ** -0.5).astype(np.float32)
     k = rng.standard_normal((B, S, K, D)).astype(np.float32)
@@ -225,7 +241,7 @@ def flash_case(name, seed=0):
     return (q, k, v), dict(causal=causal, window=window)
 
 
-def decode_dense_case(name, seed=0):
+def decode_dense_case(name, seed=0, modes=DECODE_DENSE_MODES):
     """Inputs of one dense decode mode in the production layout: q (B, H,
     D) pre-scaled, the raw cache k and v (B, S, K, D) and valid (B, S)
     int8, as numpy arrays. Every row has at least one valid key, as on the
@@ -233,7 +249,7 @@ def decode_dense_case(name, seed=0):
     "no_valid_row", which has none: the TPU kernel, both refs and the plain
     version give it the mean of V over its S keys. "window" rows see a
     250-key window starting at key 140-199."""
-    B, S, K, G, D, layout = DECODE_DENSE_MODES[name]
+    B, S, K, G, D, layout = modes[name]
     rng = np.random.default_rng(seed)
     q = (rng.standard_normal((B, K * G, D)) * D ** -0.5).astype(np.float32)
     k = rng.standard_normal((B, S, K, D)).astype(np.float32)
@@ -270,10 +286,10 @@ def _pool(rng, B, K, D, ps, MP, totals):
     return kp, vp, pt
 
 
-def decode_case(name, seed=0):
+def decode_case(name, seed=0, modes=DECODE_MODES):
     """Inputs of one decode launch mode, as numpy arrays. The last slot is
     idle (length 0) wherever the mode lets it be."""
-    B, K, G, D, ps, MP, bound, pstart, window = DECODE_MODES[name]
+    B, K, G, D, ps, MP, bound, pstart, window = modes[name]
     rng = np.random.default_rng(seed)
     hi = (bound or MP) * ps
     lo = pstart * ps + window if window else 1
@@ -288,12 +304,12 @@ def decode_case(name, seed=0):
     return (q, kp, vp, pt, lens), kw
 
 
-def prefill_case(name, seed=0):
+def prefill_case(name, seed=0, modes=PREFILL_MODES):
     """Inputs of one prefill launch mode: ragged chunks that start mid
     context (start > 0) and fill fewer rows than the chunk width
     (n_new < C), with the last slot idle (total 0) where the mode lets
     it be."""
-    B, K, C, G, D, ps, MP, bound, pstart, window = PREFILL_MODES[name]
+    B, K, C, G, D, ps, MP, bound, pstart, window = modes[name]
     rng = np.random.default_rng(seed)
     hi = (bound or MP) * ps
     # under a window every row's earliest in-window key is past the walk
@@ -739,6 +755,96 @@ def test_cuda_ssd_buckets_are_bitwise_equal(n, cuda):
     for l, y, st in outs[1:]:
         assert torch.equal(y, outs[0][1]), (n, l)
         assert torch.equal(st, outs[0][2]), (n, l)
+
+
+# --------------------------------------------------- jamba-v0.1-52b shapes
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", sorted(JAMBA_MODES))
+def test_cuda_kernels_at_jamba_shapes(mode, cuda):
+    """Each kernel at jamba-v0.1-52b's shapes through the wrapper the
+    model calls, against its plain version on the same card inputs; the
+    wrapper launches its kernel once and no other kernel launches."""
+    n0 = {op: op.launches for op in (
+        dec_ops.paged_decode_attention_gqa,
+        pre_ops.paged_prefill_attention_gqa, flash_ops.flash_attention,
+        dense_dec_ops.decode_attention_kv, ssd_ops.ssd_chunk_scan)}
+    if mode in ("paged_decode", "paged_prefill"):
+        case, op, ref = (
+            (decode_case, dec_ops.paged_decode_attention_gqa,
+             dec_ops.paged_decode_attention_ref) if mode == "paged_decode"
+            else (prefill_case, pre_ops.paged_prefill_attention_gqa,
+                  pre_ops.paged_prefill_attention_ref))
+        args, kw = case(mode, modes=JAMBA_MODES)
+        dev = to_torch(args, cuda)
+        got, want = op(*dev, **kw), ref(*dev, **kw)
+        err = (got - want).abs().max().item()
+    elif mode == "flash":
+        args, kw = flash_case(mode, modes=JAMBA_MODES)
+        q, k, v = to_torch(args, cuda)
+        op, (B, S, H, D) = flash_ops.flash_attention, q.shape
+        got = op(q, k, v, **kw)
+        bhsd = lambda t: t.repeat_interleave(H // t.shape[2], 2) \
+            .movedim(2, 1).reshape(B * H, S, D).contiguous()
+        want = flash_ops.attention_ref(bhsd(q), bhsd(k), bhsd(v), **kw)
+        err = (got.movedim(2, 1).reshape(B * H, S, D) - want).abs().max() \
+            .item()
+    elif mode == "dense_decode":
+        q, k, v, valid = to_torch(decode_dense_case(mode, modes=JAMBA_MODES),
+                                  cuda)
+        op = dense_dec_ops.decode_attention_kv
+        got = op(q, k, v, valid)
+        err = (got - _dense_plain(q, k, v, valid)).abs().max().item()
+    else:
+        x, dt, da, B, C = to_torch(ssd_case(mode, modes=JAMBA_MODES), cuda)
+        op = ssd_ops.ssd_chunk_scan
+        got = op(x, dt, da, B, C)
+        want = ssd_ops.ssd_chunk_ref(x, dt, da, B, C)
+        # SSD_TOL is relative to the output's scale (ssd_err)
+        err = max(ssd_err(g, w) for g, w in zip(got, want)) \
+            * GPU_TOL / SSD_TOL
+        if JAMBA_MODES[mode][-1] == "pad":
+            assert not got[1][-1].any(), "a dt = 0 row must add exactly 0"
+    torch.cuda.synchronize()
+    assert {o.__name__: o.launches - n for o, n in n0.items()} == \
+        {o.__name__: int(o is op) for o in n0}
+    assert err <= GPU_TOL, (mode, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("drops", [False, True], ids=["no_drop", "drops"])
+def test_cuda_moe_forward_matches_cpu(drops, cuda):
+    """The MoE layer on the card against the CPU, same weights and inputs:
+    the same chosen experts and drop mask, the output within GPU_TOL of
+    its scale and the aux loss within 1e-5 relative. The drop case
+    repeats one PAD vector over a 150-position tail, past the capacity
+    of 128."""
+    import dataclasses
+    from repro_torch.configs.phi35_moe_42b import CONFIG as PHI
+    from repro_torch.models import moe
+    from repro_torch.models.common import init_params_
+    cfg = dataclasses.replace(PHI, d_model=512, d_ff=768,
+                              capacity_factor=0.1 if drops else 1.25)
+    cpu = init_params_(moe.MoE(cfg, "cpu"), torch.Generator().manual_seed(0))
+    card = moe.MoE(cfg, cuda)
+    card.load_state_dict(cpu.state_dict())
+    x = np.random.default_rng(1).standard_normal((3, 160, cfg.d_model)) \
+        .astype(np.float32)
+    if drops:
+        x[0, 10:] = x[0, 10]
+    outs = []
+    for model, dev in ((cpu, "cpu"), (card, cuda)):
+        xt = torch.tensor(x, device=dev)
+        with torch.no_grad():
+            outs.append((moe.route(model, xt, cfg)[1:3],
+                         moe.moe_forward(model, xt, cfg)))
+    (cpu_route, (cpu_y, cpu_aux)), (card_route, (card_y, card_aux)) = outs
+    for a, b in zip(cpu_route, card_route):
+        assert torch.equal(a, b.cpu())
+    assert bool((~cpu_route[1]).any()) == drops
+    # sums over d_model and d_ff terms: GPU_TOL relative to the output's
+    # scale, as for the SSD scan (ssd_err)
+    assert ssd_err(card_y.cpu(), cpu_y) <= GPU_TOL
+    assert abs(card_aux.item() - cpu_aux.item()) <= 1e-5 * cpu_aux.item()
 
 
 # ------------------------------------------------------------- training

@@ -201,11 +201,35 @@ def test_softmax_xent_matches_reference_and_masks_the_tail():
 
 
 def test_ssm_forward_names_its_slice():
-    cfg = _port_cfg(tiny_cfg("ssm"))
-    bundle = build_model(cfg)
-    model = bundle.init(torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="slice"):
-        bundle.forward(model, {"tokens": torch.zeros((1, 8), dtype=torch.long)})
+    """The SSM family's teacher-forced forward (``ssm_forward`` under
+    autograd, since the MoE and hybrid slice) against the reference's on
+    bridged weights: logits within ATOL over a sequence past one SSD
+    chunk, aux zero, and the loss gradient of every parameter within ATOL
+    of ``jax.grad`` on the same batch."""
+    cfg = tiny_cfg("ssm")
+    m, p, bundle, port = _lm_pair(cfg, seed=6)
+    tokens = np.random.default_rng(7).integers(
+        4, cfg.vocab_size, (2, 21)).astype(np.int32)
+    labels = np.roll(tokens, -1, axis=1)
+
+    def jloss(p):
+        logits, _ = m.forward(p, {"tokens": jnp.asarray(tokens)})
+        return jax_softmax_xent(logits, jnp.asarray(labels)), logits
+
+    (_, want), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(p)
+    params = dict(port.named_parameters())
+    with trainable(port):
+        logits, aux = bundle.forward(port, {"tokens": torch.tensor(tokens)})
+        grads = torch.autograd.grad(
+            softmax_xent(logits, torch.tensor(labels)), list(params.values()))
+    assert float(aux) == 0.0
+    V = cfg.vocab_size
+    np.testing.assert_allclose(logits.detach()[..., :V].numpy(),
+                               np.asarray(want)[..., :V], atol=ATOL)
+    jg = _by_name(jgrads, cfg)
+    for (name, _), g in zip(params.items(), grads):
+        np.testing.assert_allclose(g.numpy(), jg[name], atol=ATOL,
+                                   err_msg=name)
 
 
 def test_scorer_loglik_matches_reference():
