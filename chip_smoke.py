@@ -10,10 +10,11 @@ and prints no result line):
 2. Build: the CUDA kernels from src/repro_torch/csrc, with nvcc for sm_90a.
 3. The five kernels (paged decode and prefill, flash prefill, dense
    decode, SSD chunk scan) against their plain PyTorch versions on the
-   card, one case per launch mode, at the main paths' shapes (Jamba's
-   among them) and beside them (the paged kernels' main and gemma3 cases
-   also bit for bit under two page walk bounds, slot by slot, and from
-   page 0 against the engine's late first page under a window); the
+   card, one case per launch mode, at the main paths' shapes (Jamba's,
+   whisper-large-v3's and internvl2-26b's among them) and beside them
+   (the paged kernels' main and gemma3 cases also bit for bit under two
+   page walk bounds, slot by slot, and from page 0 against the engine's
+   late first page under a window); the
    kernel's time (CUDA events around back-to-back launches), the plain
    version's, one library call's where PyTorch has one (SDPA), and the
    least time the card could take for the same work.
@@ -82,13 +83,26 @@ and prints no result line):
    prefill, K5 = 1 a decode step. No page leaked, every state row free;
    the MoE assignments dropped by capacity on each path (none on the
    pool) and the peak memory are logged.
+   4h. The encoder-decoder and vision-frontend slice (after phase 4g's
+   memory is freed), through the bundle and build_generate_fn with each
+   family's inputs, 16 requests and 32 greedy tokens: whisper-large-v3
+   as published (32 + 32 layers, enc_seq 1500; stub frame embeddings
+   and 48-token prompts), K4 exactly 64 a prefill (32 encoder
+   non-causal, 32 decoder) and K5 64 a decode step (32 self, 32 cross
+   over 1500 keys); then internvl2-26b at every width cut to 8 layers
+   (256 stub patch embeddings and 256-token prompts, a cache of 544
+   positions), K4 8 a prefill, K5 8 a decode step. Prefill ms, tokens/s
+   and the peak memory are logged.
 5. The card against the CPU: the qwen and mamba2 full tiers at depth 1
    (before phase 4d, which runs on the memory phases 4-4c held),
    gemma3-4b at depth 6 (one local:global period, after phase 4d) on
    prompts past the window, the Jamba "half" tier (one block, after phase
    4g) and phi3.5-moe-42b-a6.6b at every width and depth 2: the paged
    path (prefill chunks, two decode steps) and the dense path (a prefill,
-   two decode steps) on each device, logits compared.
+   two decode steps) on each device, logits compared; after phase 4h,
+   whisper-large-v3 at every width with 2 + 2 layers (enc_seq 1500) and
+   internvl2-26b at every width and depth 1 on their frontend inputs
+   through the dense path.
 6. The paper's pipeline (after phase 5, on the memory phases 4 to 5
    held): (a) train_router for one epoch at DeBERTa-v3-large's widths and
    (b) train_lm for 6 steps on the "half" qwen tier, each timed per step
@@ -112,7 +126,8 @@ serves, whose K2 launches as the verify chunk and the draft mirror's
 prefill are "qwen1.5-32b-spec-verify" and "-spec-mirror", and whose K1
 launches as the draft's micro-steps "qwen1.5-32b-spec-draft";
 "jamba-v0.1-52b": phase 4g's pool and dense serves, each kernel's count
-summed over both).
+summed over both; "whisper-large-v3" and "internvl2-26b": phase 4h's
+serves).
 """
 from __future__ import annotations
 
@@ -520,10 +535,15 @@ def flash_cases(torch, dev):
     model's (B, S, H, D) layout; "gemma3" the gemma3-4b dense prefill on a
     local layer: 8 prompts of 2048 tokens, 8 heads of 256 over 4 kv heads,
     window 1024; "jamba" the jamba-v0.1-52b dense prefill on its attention
-    layer: 8 prompts of 512 tokens, 32 heads of 128 over 8 kv heads. The
-    plain version expands kv to H heads and runs on (B*H, S, D); the
-    library yardstick is one SDPA call (causal, scale 1 on the pre-scaled
-    q; GQA for "jamba"; for "gemma3" a boolean window mask and GQA)."""
+    layer: 8 prompts of 512 tokens, 32 heads of 128 over 8 kv heads;
+    "whisper_encoder" the whisper-large-v3 encoder's self-attention (16
+    prompts of 1500 frames, 20 heads of 64, non-causal), "whisper_decoder"
+    its decoder's 48-token causal prefill, "internvl2" the internvl2-26b
+    prefill over 256 patch + 256 prompt positions (48 heads over 8 kv
+    heads of 128, G = 6). The plain version expands kv to H heads and runs
+    on (B*H, S, D); the library yardstick is one SDPA call (scale 1 on the
+    pre-scaled q, causal where the case is, GQA where H > K; for "gemma3" a
+    boolean window mask and GQA)."""
     import numpy as np
     from torch.nn import functional as F
     from repro_torch.kernels.flash_attention import ops
@@ -539,6 +559,9 @@ def flash_cases(torch, dev):
         "head_dim_256": (2, 512, 8, 4, 256, True, 0),
         "gemma3": (8, 2048, 8, 4, 256, True, 1024),
         "jamba": (8, 512, 32, 8, 128, True, 0),
+        "whisper_encoder": (16, 1500, 20, 20, 64, False, 0),
+        "whisper_decoder": (16, 48, 20, 20, 64, True, 0),
+        "internvl2": (16, 512, 48, 8, 128, True, 0),
     }
     g = torch.Generator(device=dev).manual_seed(3)
     out = []
@@ -565,14 +588,12 @@ def flash_cases(torch, dev):
                 .reshape(B, H, S, D).movedim(1, 2)
 
         library = None
-        if name == "main":
-            library = lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                is_causal=True, scale=1.0).transpose(1, 2)
-        elif name == "jamba":
-            library = lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                is_causal=True, scale=1.0, enable_gqa=True).transpose(1, 2)
+        if name in ("main", "jamba", "whisper_encoder", "whisper_decoder",
+                    "internvl2"):
+            library = lambda q=q, k=k, v=v, c=causal, gqa=H != K: \
+                F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    is_causal=c, scale=1.0, enable_gqa=gqa).transpose(1, 2)
         elif name == "gemma3":
             seen_t = torch.tensor(seen, device=dev)
             library = lambda q=q, k=k, v=v, m=seen_t: \
@@ -592,7 +613,8 @@ def flash_cases(torch, dev):
 
 
 def _flash_standing(torch, c, ms, plain_ms, library_ms):
-    """Flash attention's standing at the main shape: its time as a share of
+    """Flash attention's standing at a timed shape: its device time per
+    call from the profiler beside the events', its time as a share of
     the fp32 bound, against SDPA's, and the floor of its 3xTF32 route (three
     TF32 products per fp32 product at the tensor cores' peak). Names the
     backend SDPA took, from one call under the profiler: its ATen op and
@@ -600,6 +622,7 @@ def _flash_standing(torch, c, ms, plain_ms, library_ms):
     from torch.profiler import ProfilerActivity, profile
     bound_ms, _ = _bound(c["nbytes"], c["flops"])
     tc_ms = 1e3 * 3 * c["flops"] / PEAK_TF32_FLOP_PER_S
+    device_ms = _device_ms(torch, c["kernel"], "flash_kernel")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -613,7 +636,8 @@ def _flash_standing(torch, c, ms, plain_ms, library_ms):
         elif getattr(e, "device_type", None) is not None and \
                 str(e.device_type).endswith("CUDA"):
             kernels.append(e.key[:100])
-    log(f"[kernels] flash_attention[{c['name']}] {bound_ms / ms:.3f} of the fp32 "
+    log(f"[kernels] flash_attention[{c['name']}] device {device_ms:.4f} ms "
+        f"(events {ms:.4f}); {bound_ms / ms:.3f} of the fp32 "
         f"bound ({bound_ms:.4f} ms), {ms / library_ms:.3f}x SDPA's time "
         f"({library_ms:.4f} ms); 3xTF32 tensor-core floor {tc_ms:.4f} ms "
         f"(3 x {c['flops']} flop at {PEAK_TF32_FLOP_PER_S / 1e12:g} TFLOP/s)")
@@ -711,9 +735,14 @@ def dense_decode_cases(torch, dev):
     256, G = 2, over the 2080-position cache at position 2064, the 1024-key
     window in ``valid`` (also checked bit for bit, ``_dense_exact``);
     "jamba" the jamba-v0.1-52b dense decode on its attention layer as
-    "main" is, 8 kv heads of 128, G = 4. The plain version regroups to
-    (B*K, G, D); the library yardstick is one SDPA call with a boolean
-    mask from ``valid`` (and GQA for "gemma3" and "jamba")."""
+    "main" is, 8 kv heads of 128, G = 4; "whisper_self" the
+    whisper-large-v3 decoder's self-attention mid-generation (16 rows, 20
+    kv heads of 64 over its 80-position cache, 64 keys valid) and
+    "whisper_cross" its cross-attention over all 1500 encoder keys, every
+    key valid; "internvl2" the internvl2-26b decode as "main" is (16 rows,
+    8 kv heads of 128, G = 6). The plain version regroups to (B*K, G, D);
+    the library yardstick is one SDPA call with a boolean mask from
+    ``valid`` (and GQA where G > 1)."""
     import numpy as np
     from torch.nn import functional as F
     from repro_torch.kernels.decode_attention import ops
@@ -728,6 +757,9 @@ def dense_decode_cases(torch, dev):
         "gemma3": (8, 2080, 4, 2, 256, "gemma3"),
         "no_valid_row": (4, 300, 8, 2, 128, "no_valid_row"),
         "jamba": (8, 544, 8, 4, 128, "main"),
+        "whisper_self": (16, 80, 20, 1, 64, "main"),
+        "whisper_cross": (16, 1500, 20, 1, 64, "all"),
+        "internvl2": (16, 544, 8, 6, 128, "main"),
     }
     g = torch.Generator(device=dev).manual_seed(5)
     out = []
@@ -737,8 +769,10 @@ def dense_decode_cases(torch, dev):
         k, v = cache[0, 1], cache[1, 1]       # layer 1 of a 2-layer slab
         q = torch.randn((B, H, D), generator=g, device=dev) * D ** -0.5
         pos = np.arange(S)[None]
-        if layout == "main":
-            valid = np.repeat(pos <= 527, B, axis=0)
+        if layout == "main":     # mid-generation: 16 steps to go
+            valid = np.repeat(pos <= S - 17, B, axis=0)
+        elif layout == "all":
+            valid = np.ones((B, S), bool)
         elif layout in ("prefix", "no_valid_row"):
             valid = pos <= rng.integers(0, S, (B, 1))
             if layout == "no_valid_row":
@@ -755,7 +789,8 @@ def dense_decode_cases(torch, dev):
         nbytes = 4 * (2 * q.numel() + 2 * n_valid * K * D) + B * S
         flops = 4 * n_valid * K * G * D
         library = None
-        if name in ("main", "gemma3", "jamba"):
+        if name in ("main", "gemma3", "jamba", "whisper_self",
+                    "whisper_cross", "internvl2"):
             library = lambda q=q, k=k, v=v, valid=valid, gqa=G > 1: \
                 F.scaled_dot_product_attention(
                     q[:, :, None], k.movedim(2, 1), v.movedim(2, 1),
@@ -2294,6 +2329,20 @@ def _first_logits(eng):
 
 
 # ----------------------------------------------------------------- phase 4g
+def _all_counters():
+    """{kernel name: its wrapper, whose ``launches`` counts launches}."""
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.paged_decode_attention import ops as pdec
+    from repro_torch.kernels.paged_prefill_attention import ops as ppre
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    return {"paged_decode_attention": pdec.paged_decode_attention_gqa,
+            "paged_prefill_attention": ppre.paged_prefill_attention_gqa,
+            "flash_attention": fa.flash_attention,
+            "decode_attention": dec.decode_attention_kv,
+            "ssd_chunk_scan": ssd.ssd_chunk_scan}
+
+
 def _count_drops(moe_mod, into):
     """Wrap ``moe_mod.moe_forward`` (where the decoder and the hybrid stack
     call it) to add each call's assignments dropped by capacity to
@@ -2330,11 +2379,6 @@ def jamba_phase(torch, card: str, smi: str):
     import numpy as np
     from repro_torch.configs.jamba_v01_52b import CONFIG as JAMBA
     from repro_torch.core.routing import HybridRouter, ThresholdPolicy
-    from repro_torch.kernels.decode_attention import ops as dec
-    from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.kernels.paged_decode_attention import ops as pdec
-    from repro_torch.kernels.paged_prefill_attention import ops as ppre
-    from repro_torch.kernels.ssd_scan import ops as ssd
     from repro_torch.models import moe
     from repro_torch.models.encoder import RouterConfig, init_router_encoder
     from repro_torch.models.model import build_model
@@ -2344,11 +2388,7 @@ def jamba_phase(torch, card: str, smi: str):
 
     dev = torch.device("cuda")
     torch.cuda.reset_peak_memory_stats()
-    counters = {"paged_decode_attention": pdec.paged_decode_attention_gqa,
-                "paged_prefill_attention": ppre.paged_prefill_attention_gqa,
-                "flash_attention": fa.flash_attention,
-                "decode_attention": dec.decode_attention_kv,
-                "ssd_chunk_scan": ssd.ssd_chunk_scan}
+    counters = _all_counters()
     cfgs = {"half": dataclasses.replace(scaled_sibling(JAMBA, 2),
                                         n_layers=JAMBA.attn_every),
             "full": dataclasses.replace(JAMBA, n_layers=JAMBA.attn_every)}
@@ -2514,6 +2554,152 @@ def jamba_phase(torch, card: str, smi: str):
                 wall=wall, dense_wall=dwall)
 
 
+# ----------------------------------------------------------------- phase 4h
+INTERNVL2_LAYERS = 8     # internvl2-26b's depth on the card (internvl2_phase)
+
+
+def _generate_phase(torch, card, smi, tag, bundle, model, inputs,
+                    per_prefill, per_step, cache_len):
+    """Serve ``inputs`` (tokens plus the family's frontend inputs, on the
+    card) through ``build_generate_fn`` at NEW_TOKENS greedy tokens: a
+    warm-up on two rows and one prefill timed alone, outside the counts,
+    then the counted serve. Launches counted from 0 must be exactly
+    ``per_prefill`` for the prefill plus ``per_step`` for each of the
+    NEW_TOKENS decode steps ({kernel: count}, every other kernel 0); the
+    cache must hold ``cache_len`` positions and end there. Logs prefill
+    ms, tokens/s and the peak memory. Returns the launches by kernel."""
+    import numpy as np
+    from repro_torch.serving.generate import build_generate_fn
+    counters = _all_counters()
+    seen = {}
+    prefill = bundle.prefill
+
+    def watched(m, batch, max_seq=None):
+        logits, cache = prefill(m, batch, max_seq)
+        seen.update(slab=cache["k"].shape[2], cache=cache)
+        return logits, cache
+
+    gen = build_generate_fn(dataclasses.replace(bundle, prefill=watched),
+                            NEW_TOKENS, 0.0)
+    dev = inputs["tokens"].device
+    gen(model, {k: v[:2] for k, v in inputs.items()},
+        torch.Generator(device=dev).manual_seed(1))
+    seen.clear()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with torch.no_grad():
+        bundle.prefill(model, inputs, cache_len)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.monotonic() - t0)
+    for w in counters.values():
+        w.launches = 0
+    t0 = time.monotonic()
+    toks, lens = gen(model, inputs, torch.Generator(device=dev)
+                     .manual_seed(0))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {k: w.launches for k, w in counters.items()}
+    want = {k: per_prefill.get(k, 0) + NEW_TOKENS * per_step.get(k, 0)
+            for k in counters}
+    slab, pos = seen["slab"], seen["cache"]["pos"]
+    seen.clear()
+    toks, lens = toks.cpu().numpy(), lens.cpu().numpy()
+    B = inputs["tokens"].shape[0]
+    n_tok = int(lens.sum())
+    log(f"[{tag}] {B} requests x {NEW_TOKENS} greedy tokens: prefill alone "
+        f"{prefill_ms:.3f} ms; serve {wall:.3f} s = {n_tok / wall:.1f} "
+        f"tokens/s to EOS ({n_tok} tokens; {B * NEW_TOKENS / wall:.1f} "
+        f"decode positions/s) on {card} ({smi}); cache {slab} positions, "
+        f"pos {pos} after the serve; kernel launches {launches} (expected "
+        f"{want}); peak memory {_peak(torch)}")
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches} != {want}")
+    if slab != cache_len or pos != cache_len:
+        raise AssertionError(f"{tag}: the cache holds {slab} positions and "
+                             f"ends at {pos}, not {cache_len}")
+    if toks.shape != (B, NEW_TOKENS) or not (lens >= 1).all() or \
+            toks.min() < 0 or toks.max() >= bundle.cfg.vocab_size:
+        raise AssertionError(f"{tag}: tokens out of range")
+    return launches
+
+
+def whisper_phase(torch, card: str, smi: str):
+    """Phase 4h, the encoder-decoder: whisper-large-v3 as published (32
+    encoder and 32 decoder layers at every width, enc_seq 1500, 2.02 B
+    params), weights from a seed. 16 requests, each with its own stub
+    frame embeddings (16 x 1500 x 1280) and a 48-token prompt drawn inside
+    the vocabulary, through ``build_generate_fn`` at 32 greedy tokens.
+    Launches counted from 0 must be exactly 64 flash launches per prefill
+    (32 encoder, non-causal; 32 decoder, causal) and 64 dense decode
+    launches per decode step (32 self, 32 cross over the 1500 encoder
+    keys). Returns the model and config (phase 5) and the launches."""
+    from repro_torch.configs.whisper_large_v3 import CONFIG as WHISPER
+    from repro_torch.models.frontends import make_batch
+    from repro_torch.models.model import build_model
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = WHISPER
+    bundle = build_model(cfg)
+    t0 = time.monotonic()
+    model = bundle.init(torch.Generator(device=dev).manual_seed(600), dev)
+    inputs = make_batch(torch.Generator(device=dev).manual_seed(601), cfg,
+                        N_PROMPTS, 48, for_train=False, device=dev)
+    torch.cuda.synchronize()
+    log(f"[whisper] {cfg.name}: {cfg.n_enc_layers} encoder + "
+        f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.resolved_head_dim} over "
+        f"{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"enc_seq {cfg.enc_seq}: {cfg.param_count() / 1e9:.2f} B params "
+        f"({4 * cfg.param_count() / 1e9:.1f} GB fp32); random init and "
+        f"inputs {time.monotonic() - t0:.1f} s, {_peak(torch)} allocated")
+    L = cfg.n_layers
+    launches = _generate_phase(
+        torch, card, smi, "whisper", bundle, model, inputs,
+        {"flash_attention": cfg.n_enc_layers + L},
+        {"decode_attention": 2 * L}, 48 + NEW_TOKENS)
+    return dict(model=model, cfg=cfg, launches=launches)
+
+
+def internvl2_phase(torch, card: str, smi: str):
+    """Phase 4h, the vision frontend: internvl2-26b at every published
+    width (d_model 6144, 48 heads over 8 of 128, d_ff 16384, vocabulary
+    92553), cut to INTERNVL2_LAYERS layers of its 48 (17.0 GB fp32; the
+    published depth's weights alone take 79.4 GB, more than the card
+    holds), weights from a seed. 16 requests, each 256 stub patch
+    embeddings and a 256-token prompt (S = 512), through
+    ``build_generate_fn`` at 32 greedy tokens; the cache must hold 256 +
+    256 + 32 positions. Launches counted from 0 must be exactly one flash
+    launch a layer per prefill and one dense decode launch a layer per
+    decode step. Returns the model and config (phase 5) and the
+    launches."""
+    from repro_torch.configs.internvl2_26b import CONFIG as INTERNVL2
+    from repro_torch.models.frontends import make_batch
+    from repro_torch.models.model import build_model
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(INTERNVL2, n_layers=INTERNVL2_LAYERS)
+    bundle = build_model(cfg)
+    t0 = time.monotonic()
+    model = bundle.init(torch.Generator(device=dev).manual_seed(700), dev)
+    inputs = make_batch(torch.Generator(device=dev).manual_seed(701), cfg,
+                        N_PROMPTS, 256, for_train=False, device=dev)
+    torch.cuda.synchronize()
+    n_front = cfg.num_frontend_tokens
+    log(f"[internvl2] {cfg.name} cut to {cfg.n_layers} of "
+        f"{INTERNVL2.n_layers} layers: d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.resolved_head_dim} over "
+        f"{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{n_front} frontend tokens: {cfg.param_count() / 1e9:.2f} B params "
+        f"({4 * cfg.param_count() / 1e9:.1f} GB fp32; the published depth "
+        f"{4 * INTERNVL2.param_count() / 1e9:.1f} GB); random init and "
+        f"inputs {time.monotonic() - t0:.1f} s, {_peak(torch)} allocated")
+    launches = _generate_phase(
+        torch, card, smi, "internvl2", bundle, model, inputs,
+        {"flash_attention": cfg.n_layers}, {"decode_attention": cfg.n_layers},
+        n_front + 256 + NEW_TOKENS)
+    return dict(model=model, cfg=cfg, launches=launches)
+
+
 # ------------------------------------------------------------------ phase 5
 def _compare(torch, tag, gpu_logits, cpu_logits):
     """Max abs error of card against CPU logits; greedy tokens must agree
@@ -2638,6 +2824,70 @@ def moe_vs_cpu_phase(torch):
     log(f"[device-vs-cpu] {cfg.name} at depth 2: "
         f"{cfg.param_count() / 1e9:.2f} B params")
     card_vs_cpu(torch, model, cfg, "at depth 2", lens=(40, 27))
+
+
+def dense_vs_cpu(torch, gpu, cfg, what, inputs):
+    """``gpu``, a model for ``cfg`` on the card, and a copy on the CPU, same
+    ``inputs`` (CPU tensors: tokens plus the family's frontend inputs): a
+    prefill and two decode steps through the bundle's entry points (both
+    devices feed the card's greedy tokens), logits compared."""
+    from repro_torch.models.model import build_model
+    bundle = build_model(cfg)
+    cpu = type(gpu)(cfg, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    extra = cfg.frontend_positions
+    B, S = inputs["tokens"].shape
+    out = {}
+    with torch.no_grad():
+        for side, dev, model in (("card", "cuda", gpu), ("cpu", "cpu", cpu)):
+            last, cache = bundle.prefill(
+                model, {k: v.to(dev) for k, v in inputs.items()},
+                max_seq=extra + S + 2)
+            logits = [last]
+            for step in range(2):
+                tok = (out["card"][step] if side == "cpu" else logits[-1]) \
+                    .argmax(-1).to(dev)
+                o, cache = bundle.decode_step(model, cache, tok[:, None])
+                logits.append(o)
+            out[side] = [t.float().cpu() for t in logits]
+    _compare(torch, f"{cfg.name} {what}, {B} prompts of {S} tokens "
+             f"({extra} frontend positions),", out["card"], out["cpu"])
+
+
+def whisper_vs_cpu(torch, full_model, full_cfg):
+    """whisper-large-v3 at every width with 2 encoder and 2 decoder layers
+    (the phase-4h model's first two of each) and enc_seq 1500, card
+    against CPU (``dense_vs_cpu``) on two requests' stub frame embeddings
+    and 16-token prompts."""
+    from repro_torch.models.encdec import EncDec
+    from repro_torch.models.frontends import make_batch
+    cfg = dataclasses.replace(full_cfg, n_layers=2, n_enc_layers=2)
+    gpu = EncDec(cfg, device="meta")
+    for name in ("embed", "enc_pos", "enc_ln_f", "ln_f", "head"):
+        if hasattr(full_model, name):
+            setattr(gpu, name, getattr(full_model, name))
+    gpu.enc_layers = torch.nn.ModuleList(full_model.enc_layers[:2])
+    gpu.dec_layers = torch.nn.ModuleList(full_model.dec_layers[:2])
+    inputs = make_batch(torch.Generator().manual_seed(8), cfg, 2, 16,
+                        for_train=False, device="cpu")
+    dense_vs_cpu(torch, gpu, cfg, "at 2 + 2 layers", inputs)
+
+
+def internvl2_vs_cpu(torch, full_model, full_cfg):
+    """internvl2-26b at every width and depth 1 (the phase-4h model's
+    first layer), card against CPU (``dense_vs_cpu``) on two requests'
+    256 stub patch embeddings and 16-token prompts."""
+    from repro_torch.models import decoder
+    from repro_torch.models.frontends import make_batch
+    cfg = dataclasses.replace(full_cfg, n_layers=1)
+    gpu = decoder.Decoder(cfg, device="meta")
+    for name in ("embed", "ln_f", "head"):
+        if hasattr(full_model, name):
+            setattr(gpu, name, getattr(full_model, name))
+    gpu.layers = torch.nn.ModuleList(full_model.layers[:1])
+    inputs = make_batch(torch.Generator().manual_seed(9), cfg, 2, 16,
+                        for_train=False, device="cpu")
+    dense_vs_cpu(torch, gpu, cfg, "at depth 1", inputs)
 
 
 # ------------------------------------------------------------------ phase 6
@@ -3089,7 +3339,24 @@ def main() -> int:
         by_path[name]["jamba-v0.1-52b"] = n
     card_vs_cpu(torch, jamba_run["model"], jamba_run["cfg"], "(one block)",
                 lens=(40, 27))
-    del jamba_run   # phase 6 needs the card's memory
+    del jamba_run   # phase 4h needs the card's memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 4h: whisper-large-v3 (8.1 GB of weights, 7.9 GB of cross K/V),
+    # then internvl2-26b at 8 layers (17.0 GB), each checked against the
+    # CPU before its memory is freed
+    whisper_run = whisper_phase(torch, card, smi)
+    for name, n in whisper_run["launches"].items():
+        by_path[name]["whisper-large-v3"] = n
+    whisper_vs_cpu(torch, whisper_run["model"], whisper_run["cfg"])
+    del whisper_run
+    gc.collect()
+    torch.cuda.empty_cache()
+    vlm_run = internvl2_phase(torch, card, smi)
+    for name, n in vlm_run["launches"].items():
+        by_path[name]["internvl2-26b"] = n
+    internvl2_vs_cpu(torch, vlm_run["model"], vlm_run["cfg"])
+    del vlm_run     # phase 6 needs the card's memory
     gc.collect()
     torch.cuda.empty_cache()
     moe_vs_cpu_phase(torch)

@@ -11,7 +11,11 @@ the parameters ``layers.<i>.attn.wq`` of shape (D, H, Dh), and
 ``numpy_from_params`` stacks them back. The hybrid (Jamba) tree stacks on
 two axes: ``blocks/mamba/ssm/w_in`` (n_blocks, n_mamba, ...) becomes
 ``blocks.<b>.mamba.<j>.ssm.w_in`` (``moe`` and ``mlp`` likewise), and
-``blocks/attn/...`` has the block axis only. ``load_checkpoint`` (from
+``blocks/attn/...`` has the block axis only. The encoder-decoder's
+``enc_layers/...`` (``n_enc_layers``) and ``dec_layers/...``
+(``n_layers``) stack on one axis each, as ``layers/...`` does; its
+``enc_pos``, ``enc_ln_f``, ``ln_f``, ``embed`` and ``head`` are copied as
+they are. ``load_checkpoint`` (from
 ``training.checkpoint``) reads either side's ``.npz``.
 """
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch
 
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.decoder import Decoder
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.hybrid import Hybrid
 from repro_torch.models.encoder import RouterConfig, RouterEncoder
 from repro_torch.training.checkpoint import _flatten
@@ -30,10 +35,10 @@ from repro_torch.training.checkpoint import load_checkpoint  # noqa: F401
 
 def _state_from_tree(tree: dict, n_layers: int) -> dict:
     """Reference tree -> {module parameter name: array}, splitting the
-    stacked ``layers`` subtree per layer and the ``blocks`` subtree per
-    block and, below ``blocks/<kind>`` (but ``attn``), per sub-layer. A
-    count that does not fit the module shows as missing or unexpected
-    names."""
+    stacked ``layers``, ``enc_layers`` and ``dec_layers`` subtrees per
+    layer and the ``blocks`` subtree per block and, below
+    ``blocks/<kind>`` (but ``attn``), per sub-layer. A count that does not
+    fit the module shows as missing or unexpected names."""
     state = {}
     for path, arr in _flatten(tree).items():
         parts = path.split("/")
@@ -43,7 +48,8 @@ def _state_from_tree(tree: dict, n_layers: int) -> dict:
         # where each stacked axis's index goes in the name: after the
         # path's first part, and for the hybrid's per-kind stacks also
         # after the kind (``blocks.<b>.mamba.<j>``)
-        cuts = {"layers": [1], "blocks": [1] if parts[1:2] == ["attn"]
+        cuts = {"layers": [1], "enc_layers": [1], "dec_layers": [1],
+                "blocks": [1] if parts[1:2] == ["attn"]
                 else [1, 3]}.get(parts[0], [])
         entries = [(parts, arr)]
         for cut in cuts:
@@ -57,11 +63,13 @@ def _state_from_tree(tree: dict, n_layers: int) -> dict:
 def params_from_numpy(tree: dict, cfg, device="cuda"):
     """The port's module for ``cfg`` holding the reference param ``tree``
     (numpy arrays, or anything ``np.asarray`` takes): a ``Decoder`` for an
-    ``ArchConfig`` (a ``Hybrid`` for ``family="hybrid"``), a
-    ``RouterEncoder`` for a ``RouterConfig``, on ``device``. Raises on a
-    missing, unexpected or mis-shaped tensor."""
+    ``ArchConfig`` (a ``Hybrid`` for ``family="hybrid"``, an ``EncDec``
+    for an encoder-decoder), a ``RouterEncoder`` for a ``RouterConfig``,
+    on ``device``. Raises on a missing, unexpected or mis-shaped
+    tensor."""
     if isinstance(cfg, ArchConfig):
-        model = (Hybrid if cfg.family == "hybrid" else Decoder)(cfg, device)
+        model = (EncDec if cfg.is_encoder_decoder else Hybrid
+                 if cfg.family == "hybrid" else Decoder)(cfg, device)
     elif isinstance(cfg, RouterConfig):
         model = RouterEncoder(cfg, device)
     else:
@@ -83,10 +91,11 @@ def params_from_numpy(tree: dict, cfg, device="cuda"):
 
 def numpy_from_params(module: torch.nn.Module, cfg) -> dict:
     """The reference's param tree for the port's ``module`` (a ``Decoder``,
-    ``Hybrid`` or ``RouterEncoder`` for ``cfg``): nested dicts of numpy
-    arrays, each stacked tensor on its leading axes (``layers``: one of
-    ``cfg.n_layers``; the hybrid's ``blocks``: blocks, then sub-layers);
-    every array is a copy. The inverse of ``params_from_numpy``;
+    ``Hybrid``, ``EncDec`` or ``RouterEncoder`` for ``cfg``): nested dicts
+    of numpy arrays, each stacked tensor on its leading axes (``layers``
+    and ``dec_layers``: one of ``cfg.n_layers``; ``enc_layers``: one of
+    ``cfg.n_enc_layers``; the hybrid's ``blocks``: blocks, then
+    sub-layers); every array is a copy. The inverse of ``params_from_numpy``;
     ``training.checkpoint.save_checkpoint`` writes it as the reference's
     ``.npz``."""
     stacked: dict = {}
@@ -101,10 +110,12 @@ def numpy_from_params(module: torch.nn.Module, cfg) -> dict:
         stacked.setdefault(path, {})[index] = arr
     for path, by_index in stacked.items():
         keys = sorted(by_index)
-        if path[0] == "layers" and keys != [(i,) for i in
-                                            range(cfg.n_layers)]:
-            raise ValueError(f"layers.*.{'.'.join(path[1:])}: layers "
-                             f"{keys} are not the config's {cfg.n_layers}")
+        count = {"layers": "n_layers", "dec_layers": "n_layers",
+                 "enc_layers": "n_enc_layers"}.get(path[0])
+        if count and keys != [(i,) for i in range(getattr(cfg, count))]:
+            raise ValueError(f"{path[0]}.*.{'.'.join(path[1:])}: layers "
+                             f"{keys} are not the config's {count} "
+                             f"{getattr(cfg, count)}")
         lead = tuple(n + 1 for n in keys[-1])
         if keys != list(np.ndindex(*lead)):
             raise ValueError(f"{'.'.join(path)}: indices {keys} do not fill "

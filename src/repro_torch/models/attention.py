@@ -1,24 +1,30 @@
-"""Grouped-query attention with RoPE: the dense-cache paths and the paged
-paths of ``repro.models.attention``.
+"""Grouped-query attention with RoPE: the dense-cache paths, the paged
+paths and the encoder-decoder's attentions of ``repro.models.attention``.
 
 Dense batch serving (``Engine``): ``prefill_attention`` runs the prompt
-through ``attention_forward`` (causal flash attention) and returns the
-layer's K/V for the (L, B, max_seq, K, Dh) cache; ``decode_attention``
-writes one new token's K/V into that cache and attends to it, optionally
-windowed (attention sink + the trailing positions). Training's
-teacher-forced pass takes ``training_attention``, the plain version under
-autograd. Continuous batching:
-``paged_decode_attention`` (one new token per slot) and
+through causal flash attention and returns the layer's K/V for the
+(L, B, max_seq, K, Dh) cache; ``decode_attention`` writes one new token's
+K/V into that cache and attends to it, optionally windowed (attention sink
++ the trailing positions). Training's teacher-forced pass takes
+``training_attention``, the plain version under autograd. Continuous
+batching: ``paged_decode_attention`` (one new token per slot) and
 ``paged_prefill_attention`` (a chunk of prompt tokens per slot) write the
 new K/V into the layer's page pool and attend through the paged kernels.
-Every serving attention call goes through a kernel wrapper, which
+Every serving self-attention call goes through a kernel wrapper, which
 launches the CUDA kernel for CUDA tensors and takes the plain version for
 CPU tensors.
 
-Cross-attention (``kv_override``), ``use_rope=False`` and non-causal
-self-attention serve the encoder-decoder family, and the sequence-sharded
-flash decode serves a multi-device mesh; each raises and names the slice
-that brings it.
+The encoder-decoder family: ``attention_forward`` with ``causal=False``
+and ``use_rope=False`` is the encoder's self-attention (the flash kernel's
+non-causal mode); with ``kv_override`` it is cross-attention over the
+encoder's K/V, which runs the plain masked softmax on any device (queries
+and keys differ in count, and the reference, too, computes it outside any
+kernel: its flash wrapper takes equal lengths only). In decode,
+``decode_cross_attention`` reads a layer's (B, enc_seq, K, Dh) cross slab
+in place through the dense decode kernel, every key valid.
+
+The sequence-sharded flash decode serves a multi-device mesh and is not
+ported.
 """
 from __future__ import annotations
 
@@ -33,6 +39,8 @@ from repro_torch.kernels.paged_decode_attention.ops import \
 from repro_torch.kernels.paged_prefill_attention.ops import \
     paged_prefill_attention_gqa
 from .common import apply_rope, dtype_of, empty_param
+
+NEG_INF = -1e30
 
 
 class Attention(nn.Module):
@@ -75,39 +83,98 @@ def _out_proj(attn: Attention, out, B, S, H, Dh):
     return out.reshape(B, S, H * Dh) @ attn.wo
 
 
+def _qkv(attn: Attention, x, cfg, positions, kv_override, use_rope):
+    """The reference's projections: q, k and v with RoPE for
+    self-attention (``_project_qkv``); otherwise q alone is projected (with
+    its bias, RoPE only under ``use_rope``) and k, v are ``kv_override``
+    or projected without RoPE."""
+    if kv_override is None and use_rope:
+        return _project_qkv(attn, x, cfg, positions)
+    q = _proj(x, attn.wq)
+    if cfg.qkv_bias:
+        q = q + attn.bq
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+    if kv_override is not None:
+        k, v = kv_override
+    else:
+        k, v = _proj(x, attn.wk), _proj(x, attn.wv)
+        if cfg.qkv_bias:
+            k = k + attn.bk
+            v = v + attn.bv
+    return q, k, v
+
+
+def _masked_attention(q, k, v, q_pos, *, causal: bool, window: int):
+    """The plain masked softmax over any number of keys: q (B, Sq, H, Dh)
+    pre-scaled at positions ``q_pos`` (Sq,), k and v (B, Skv, K, Dh) with
+    key j at position j, query head h reading kv head h // (H // K).
+    Returns (B, Sq, H, Dh)."""
+    G = q.shape[2] // k.shape[2]
+    kk = k.repeat_interleave(G, 2)
+    vv = v.repeat_interleave(G, 2)
+    s = torch.einsum("bqhd,bshd->bhqs", q, kk).float()
+    k_pos = torch.arange(k.shape[1], device=q.device)
+    allowed = torch.ones((len(q_pos), len(k_pos)), dtype=torch.bool,
+                         device=q.device)
+    if causal:
+        allowed &= k_pos[None, :] <= q_pos[:, None]
+    if window > 0:
+        allowed &= (q_pos[:, None] - k_pos[None, :]) < window
+    w = torch.softmax(torch.where(allowed, s, NEG_INF), dim=-1)
+    return torch.einsum("bhqs,bshd->bqhd", w.to(vv.dtype), vv)
+
+
 def attention_forward(attn: Attention, x, cfg, *, is_global: bool = True,
                       causal: bool = True, positions=None, kv_override=None,
                       use_rope: bool = True):
-    """Full-sequence causal self-attention. x: (B, S, D). ``is_global`` is
-    this layer's static flag (the port loops over layers, so it is always
-    a Python bool): False selects ``cfg.sliding_window``. Returns
-    (B, S, D)."""
-    if kv_override is not None or not use_rope or not causal:
-        raise NotImplementedError(
-            "cross-attention, use_rope=False and non-causal attention serve "
-            "the encoder-decoder family, which comes with the "
-            "encoder-decoder and frontends slice")
-    return prefill_attention(attn, x, cfg, is_global=is_global,
-                             positions=positions)[0]
-
-
-def training_attention(attn: Attention, x, cfg, *, is_global: bool = True,
-                       positions=None):
-    """Full-sequence causal self-attention for training's teacher-forced
-    pass, differentiable: the flash kernel's plain version (one masked
-    softmax over the whole (S, S) score matrix) under autograd, on any
-    device. No kernel launches here — the kernels have no backward pass,
-    and the reference's training forward reaches none either. x: (B, S, D).
-    Returns (B, S, D)."""
+    """Full-sequence attention. x: (B, S, D). ``is_global`` is this
+    layer's static flag (the port loops over layers, so it is always a
+    Python bool): False selects ``cfg.sliding_window``. ``kv_override``:
+    (k, v), each (B, Skv, K, Dh), from an encoder for cross-attention
+    (``positions`` then index the decoder side only); ``use_rope=False``
+    applies no RoPE. Self-attention runs the flash kernel (causal or not);
+    cross-attention the plain masked softmax (``_masked_attention``) on
+    any device. Returns (B, S, D)."""
     B, S, _ = x.shape
     H, Dh = cfg.n_heads, cfg.resolved_head_dim
     if positions is None:
         positions = torch.arange(S, device=x.device)
-    q, k, v = _project_qkv(attn, x, cfg, positions)
+    q, k, v = _qkv(attn, x, cfg, positions, kv_override, use_rope)
+    window = cfg.sliding_window if not is_global else 0
+    if kv_override is None:
+        out = flash_attention(q * Dh ** -0.5, k, v, causal=causal,
+                              window=window)
+    else:
+        q_pos = positions if positions.ndim == 1 else positions[0]
+        out = _masked_attention(q * Dh ** -0.5, k, v, q_pos, causal=causal,
+                                window=window)
+    return _out_proj(attn, out, B, S, H, Dh)
+
+
+def training_attention(attn: Attention, x, cfg, *, is_global: bool = True,
+                       causal: bool = True, positions=None, kv_override=None,
+                       use_rope: bool = True):
+    """``attention_forward`` for training's teacher-forced pass,
+    differentiable: the flash kernel's plain version (one masked softmax
+    over the whole (S, S) score matrix) for self-attention under autograd,
+    on any device; cross-attention is ``attention_forward``'s, plain
+    already. No kernel launches here — the kernels have no backward pass,
+    and the reference's training forward reaches none either. x: (B, S,
+    D). Returns (B, S, D)."""
+    if kv_override is not None:
+        return attention_forward(attn, x, cfg, is_global=is_global,
+                                 causal=causal, positions=positions,
+                                 kv_override=kv_override, use_rope=use_rope)
+    B, S, _ = x.shape
+    H, Dh = cfg.n_heads, cfg.resolved_head_dim
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    q, k, v = _qkv(attn, x, cfg, positions, None, use_rope)
+    window = cfg.sliding_window if not is_global else 0
     bhsd = lambda t: t.repeat_interleave(H // t.shape[2], 2).movedim(2, 1) \
         .reshape(B * H, S, Dh)
-    window = cfg.sliding_window if not is_global else 0
-    out = attention_ref(bhsd(q * Dh ** -0.5), bhsd(k), bhsd(v), causal=True,
+    out = attention_ref(bhsd(q * Dh ** -0.5), bhsd(k), bhsd(v), causal=causal,
                         window=window)
     return _out_proj(attn, out.reshape(B, H, S, Dh).movedim(1, 2), B, S, H,
                      Dh)
@@ -283,3 +350,22 @@ def paged_prefill_attention(attn: Attention, x, k_pages, v_pages,
                                       pages_start=pages_start, window=window)
     out = out.permute(0, 2, 1, 3, 4).reshape(B, C, H, Dh)
     return _out_proj(attn, out, B, C, H, Dh)
+
+
+def decode_cross_attention(attn: Attention, x_t, enc_k, enc_v, cfg,
+                           valid=None):
+    """Cross-attention decode step against fixed encoder memory (no cache
+    update). x_t: (B, 1, D); enc_k, enc_v: (B, enc_seq, K, Dh), a layer's
+    slice of the cross cache, read in place by the dense decode kernel;
+    ``valid``: (B, enc_seq) int8, every key valid (``encdec_prefill``
+    builds it once a prefill; built here when None). With every key valid
+    the kernel computes the reference's unmasked softmax. q is projected
+    without its bias, as the reference projects it. Returns (B, 1, D)."""
+    B = x_t.shape[0]
+    H, Dh = cfg.n_heads, cfg.resolved_head_dim
+    q = _proj(x_t, attn.wq)
+    if valid is None:
+        valid = torch.ones((B, enc_k.shape[1]), dtype=torch.int8,
+                           device=x_t.device)
+    out = decode_attention_kv(q[:, 0] * Dh ** -0.5, enc_k, enc_v, valid)
+    return _out_proj(attn, out, B, 1, H, Dh)

@@ -46,8 +46,9 @@ def init_params_(module: nn.Module, generator) -> nn.Module:
     """Fill every parameter of ``module`` from the reference's init
     distributions, by name: norm ``scale`` ones, QKV biases zeros, token
     embedding tables truncated normal * 0.02 (``embed_init``), the router's
-    ``rel_bias`` normal * 0.02; the SSM mixer's ``conv_w`` truncated normal
-    * 0.2, ``A_log`` log(linspace(1, 16, H)), ``D`` ones and ``dt_bias``
+    ``rel_bias`` and the encoder-decoder's ``enc_pos`` normal * 0.02; the
+    SSM mixer's ``conv_w`` truncated normal * 0.2, ``A_log``
+    log(linspace(1, 16, H)), ``D`` ones and ``dt_bias``
     log(expm1(linspace(1e-3, 1e-1, H))) (``models/ssm.py::init_ssm``); an
     MoE layer's expert weights (E, fan-in, fan-out) truncated normal over
     their fan-in, the second axis (``models/moe.py::init_moe``); every
@@ -63,7 +64,7 @@ def init_params_(module: nn.Module, generator) -> nn.Module:
             p.zero_()
         elif leaf in ("table", "embed"):
             trunc_normal_(p, 0.02, generator)
-        elif leaf == "rel_bias":
+        elif leaf in ("rel_bias", "enc_pos"):
             p.normal_(0.0, 0.02, generator=generator)
         elif leaf == "conv_w":
             trunc_normal_(p, 0.2, generator)

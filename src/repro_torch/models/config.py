@@ -2,7 +2,7 @@
 
 ``ArchConfig`` keeps the reference's fields, names and defaults one for one,
 so a reference config converts with ``ArchConfig(**dataclasses.asdict(c))``.
-The helpers are those the port's serving path reads.
+The helpers are those the port's serving path and config registry read.
 """
 from __future__ import annotations
 
@@ -18,9 +18,10 @@ def _round_up(x: int, m: int) -> int:
 class ArchConfig:
     """Configuration for one model architecture.
 
-    Families: dense | moe | ssm | hybrid | vlm | audio (the port builds
-    every decoder-only family, not yet vlm, audio or encoder-decoder
-    stacks; see ``models.model.build_model``).
+    Families: dense | moe | ssm | hybrid | vlm | audio.
+    ``vlm``/``audio`` specify the transformer backbone; the modality
+    frontend is a stub that supplies precomputed patch/frame embeddings
+    (see ``models.frontends``).
 
     ``use_pallas`` is kept for the 1:1 conversion and selects nothing here:
     in the port a tensor's device decides between a kernel and its plain
@@ -112,6 +113,14 @@ class ArchConfig:
         return self.d_inner // self.ssm_headdim
 
     @property
+    def frontend_positions(self) -> int:
+        """Positions the vision stub frontend prepends to the tokens (its
+        ``num_frontend_tokens`` patch embeddings, which the dense cache
+        holds too); 0 for every other config."""
+        return self.num_frontend_tokens if self.frontend == "vision_stub" \
+            else 0
+
+    @property
     def supports_paged_kv(self) -> bool:
         """True if the continuous-batching paged serving path covers this
         architecture (see ``paged_unsupported_reason``)."""
@@ -194,3 +203,22 @@ class ArchConfig:
             is_global = True
         return dict(attn=True, ssm=False, moe=is_moe, ffn=not is_moe,
                     global_attn=is_global)
+
+    def small_sibling(self, scale: int = 4) -> "ArchConfig":
+        """The 'S' role of the hybrid-routing pair for this family: a
+        same-family model with ~1/scale the layer count and width."""
+        def sh(x, m=1):
+            return max(m, x // scale) if x else 0
+        n_heads = max(2, self.n_heads // scale)
+        n_kv = min(self.n_kv_heads, n_heads) if self.n_kv_heads else n_heads
+        return dataclasses.replace(
+            self,
+            name=self.name + f"-s{scale}",
+            n_layers=max(2, self.n_layers // scale),
+            d_model=_round_up(sh(self.d_model, 64), 64),
+            n_heads=n_heads,
+            n_kv_heads=n_kv,
+            d_ff=_round_up(sh(self.d_ff, 64), 64) if self.d_ff else 0,
+            n_enc_layers=max(2, self.n_enc_layers // scale)
+            if self.is_encoder_decoder else 0,
+        )

@@ -1,6 +1,8 @@
-"""Decoder-only LM, the dense, MoE and SSM families: the dense-cache
+"""Decoder-only LM, the dense, MoE, SSM and vlm families: the dense-cache
 serving path, the paged serving path and training's teacher-forced pass
-of ``repro.models.decoder``.
+of ``repro.models.decoder``. The vlm family (a stub vision frontend)
+prepends its ``frontend_embeds`` to the token embeddings on the dense
+path and in training, and has no paged path.
 
 The reference stacks layer weights on a leading axis and ``lax.scan``s
 over them; here layers are a ``ModuleList`` and the scan is a Python loop,
@@ -100,16 +102,27 @@ def _unembed(model: Decoder, x, cfg):
     return output_head(model.head, x, cfg.vocab_size)
 
 
+def _embed_inputs(model: Decoder, batch: dict, cfg):
+    """Token embeddings, with ``batch["frontend_embeds"]`` (B, n_front, D)
+    prepended for the vlm family's stub frontend."""
+    x = embed(model.embed, batch["tokens"])
+    if cfg.frontend_positions:
+        x = torch.cat([batch["frontend_embeds"].to(x.dtype), x], dim=1)
+    return x
+
+
 def decoder_prefill(model: Decoder, batch: dict, cfg, max_seq=None):
-    """Run the prompt ``batch["tokens"]`` (B, S) int; return (last-token
-    logits (B, V), cache). The cache's K/V slabs are sized ``max_seq``
-    (>= S) so decode appends in place (the SSM family's state slabs have
-    no sequence axis); ``cache["pos"]`` is S, a host int."""
-    tokens = batch["tokens"]
-    B, S = tokens.shape
+    """Run the prompt ``batch["tokens"]`` (B, S) int, behind
+    ``batch["frontend_embeds"]`` for the vlm family; return (last-token
+    logits (B, V), cache). S counts the frontend positions too. The
+    cache's K/V slabs are sized ``max_seq`` (>= S) so decode appends in
+    place (the SSM family's state slabs have no sequence axis);
+    ``cache["pos"]`` is S, a host int, so decode continues at position
+    n_front + tokens."""
+    x = _embed_inputs(model, batch, cfg)
+    B, S = x.shape[:2]
     max_seq = max(max_seq or S, S)
-    cache = init_decode_cache(cfg, B, max_seq, tokens.device)
-    x = embed(model.embed, tokens)
+    cache = init_decode_cache(cfg, B, max_seq, x.device)
     positions = torch.arange(S, device=x.device)
     for i, layer in enumerate(model.layers):
         if cfg.family == "ssm":
@@ -139,10 +152,11 @@ def decoder_forward(model: Decoder, batch: dict, cfg):
     attention is the plain masked softmax under autograd
     (``attention.training_attention``; the reference chunks queries by
     ``attn_chunk``, which gives the same values) and the SSM mixer the
-    plain chunked scan (``ssm.ssm_forward``)."""
-    tokens = batch["tokens"]
-    x = embed(model.embed, tokens)
-    positions = torch.arange(tokens.shape[1], device=x.device)
+    plain chunked scan (``ssm.ssm_forward``). The vlm family's frontend
+    positions run through every layer and are dropped before the head,
+    so the logits cover the token positions only."""
+    x = _embed_inputs(model, batch, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, layer in enumerate(model.layers):
         if cfg.family == "ssm":
@@ -158,7 +172,7 @@ def decoder_forward(model: Decoder, batch: dict, cfg):
         if layer_aux is not None:
             aux = aux + layer_aux
     x = rmsnorm(model.ln_f, x, cfg.norm_eps)
-    return _unembed(model, x, cfg), aux
+    return _unembed(model, x[:, cfg.frontend_positions:], cfg), aux
 
 
 def init_decode_cache(cfg, batch: int, max_seq: int, device="cuda"):

@@ -1,14 +1,17 @@
 """Model bundle API (the port of ``repro.models.model``): the dense-cache
 and paged serving paths and training's teacher-forced pass of every
-decoder-only family (dense, MoE, SSM and the Jamba-style hybrid).
+family: the decoder-only families (dense, MoE, SSM, the Jamba-style
+hybrid and vlm) and the encoder-decoder (audio).
 
 ``build_model(cfg)`` returns a ``ModelBundle`` of plain functions over a
-``Decoder`` module (a ``Hybrid`` for ``family="hybrid"``), in the
-reference's argument order:
+``Decoder`` module (a ``Hybrid`` for ``family="hybrid"``, an ``EncDec``
+for encoder-decoder configs), in the reference's argument order:
 
-  init(generator, device="cuda") -> Decoder | Hybrid
-  prefill(model, batch {"tokens": (B, S)}, max_seq=None)
-      -> (last_logits (B, V), cache)
+  init(generator, device="cuda") -> Decoder | Hybrid | EncDec
+  prefill(model, batch, max_seq=None) -> (last_logits (B, V), cache)
+      batch {"tokens": (B, S)}, plus {"frontend_embeds": (B, n_front, D)}
+      (vlm) or {"enc_embeds": (B, enc_seq, D)} (encoder-decoder), which
+      the stub frontends supply (``models.frontends``)
   decode_step(model, cache, token (B, 1), windowed=False)
       -> (logits (B, V), cache)
   init_cache(batch_size, max_seq, device="cuda") -> cache
@@ -27,32 +30,28 @@ reference's argument order:
       stacks)
   init_recurrent_state(n_rows, device="cuda") -> {"h", "conv"} row slabs
       (SSM and hybrid families; None for attention stacks)
-  forward(model, batch {"tokens": (B, S)}) -> (logits (B, S, V), aux)
-      training's teacher-forced pass, differentiable; aux is the MoE
-      layers' load-balance loss summed over layers (0 without experts)
+  forward(model, batch) -> (logits (B, S, V), aux)
+      training's teacher-forced pass, differentiable, over the token
+      positions; aux is the MoE layers' load-balance loss summed over
+      layers (0 without experts)
 
-Dense caches, page pools and recurrent-state rows are updated in place.
-The paged calls of the SSM and hybrid families take ``cache["rec"]``, the
-recurrent state, beside the pools (zero layers for SSM stacks, one a
-block for the hybrid), and ``state_rows`` names each prefill row's state
-row. ``window_start`` is the first page of the sliding-window layers'
-page walks (global layers walk from page 0). The encoder-decoder and
-frontend families (vlm, audio) raise and name the slice that brings them.
+The five paged fields are None where the config has no paged path
+(``cfg.paged_unsupported_reason``: encoder-decoder stacks and modality
+frontends), as in the reference. Dense caches, page pools and
+recurrent-state rows are updated in place. The paged calls of the SSM and
+hybrid families take ``cache["rec"]``, the recurrent state, beside the
+pools (zero layers for SSM stacks, one a block for the hybrid), and
+``state_rows`` names each prefill row's state row. ``window_start`` is
+the first page of the sliding-window layers' page walks (global layers
+walk from page 0).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Optional
 
-from . import decoder, hybrid
+from . import decoder, encdec, hybrid
 from .config import ArchConfig
-
-_LATER = {
-    "vlm": "the vlm family comes with the encoder-decoder and frontends "
-           "slice",
-    "audio": "the audio family comes with the encoder-decoder and "
-             "frontends slice",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,25 +61,34 @@ class ModelBundle:
     prefill: Callable
     decode_step: Callable
     init_cache: Callable
-    init_paged_cache: Callable
-    prefill_paged_chunk: Callable
-    decode_step_paged: Callable
-    lm_head: Callable
+    init_paged_cache: Optional[Callable] = None
+    prefill_paged_chunk: Optional[Callable] = None
+    decode_step_paged: Optional[Callable] = None
+    lm_head: Optional[Callable] = None
     init_recurrent_state: Optional[Callable] = None
     forward: Optional[Callable] = None
     verify_paged_chunk: Optional[Callable] = None
 
 
 def build_model(cfg: ArchConfig) -> ModelBundle:
-    reason = _LATER.get(cfg.family)
-    if reason is None and not cfg.supports_paged_kv:
-        reason = ("encoder-decoder stacks and frontends come with the "
-                  "encoder-decoder and frontends slice")
-    if reason is not None:
-        raise NotImplementedError(f"{cfg.name} ({cfg.family}) is not ported "
-                                  f"yet — {reason}")
+    if cfg.is_encoder_decoder:
+        return _encdec_bundle(cfg)
     if cfg.family == "hybrid":
         return _hybrid_bundle(cfg)
+    dense = dict(
+        cfg=cfg,
+        init=lambda generator, device="cuda":
+            decoder.init_decoder(cfg, generator, device),
+        prefill=lambda m, batch, max_seq=None:
+            decoder.decoder_prefill(m, batch, cfg, max_seq),
+        decode_step=lambda m, c, t, windowed=False:
+            decoder.decoder_decode_step(m, c, t, cfg, windowed=windowed),
+        init_cache=lambda batch_size, max_seq, device="cuda":
+            decoder.init_decode_cache(cfg, batch_size, max_seq, device),
+        forward=lambda m, batch: decoder.decoder_forward(m, batch, cfg),
+    )
+    if not cfg.supports_paged_kv:     # the vlm family's frontend
+        return ModelBundle(**dense)
     rec = verify = None
     if cfg.family != "ssm" and not cfg.has_window_layers:
         verify = lambda m, c, t, page_table, start, n_new, \
@@ -92,15 +100,7 @@ def build_model(cfg: ArchConfig) -> ModelBundle:
         rec = lambda n_rows, device="cuda": \
             decoder.init_decoder_recurrent_state(cfg, n_rows, device)
     return ModelBundle(
-        cfg=cfg,
-        init=lambda generator, device="cuda":
-            decoder.init_decoder(cfg, generator, device),
-        prefill=lambda m, batch, max_seq=None:
-            decoder.decoder_prefill(m, batch, cfg, max_seq),
-        decode_step=lambda m, c, t, windowed=False:
-            decoder.decoder_decode_step(m, c, t, cfg, windowed=windowed),
-        init_cache=lambda batch_size, max_seq, device="cuda":
-            decoder.init_decode_cache(cfg, batch_size, max_seq, device),
+        **dense,
         init_paged_cache=lambda num_pages, page_size=None, device="cuda":
             decoder.init_paged_decode_cache(
                 cfg, num_pages, page_size or cfg.kv_page_size, device),
@@ -115,9 +115,25 @@ def build_model(cfg: ArchConfig) -> ModelBundle:
                 m, c, t, page_table, seq_lens, active, cfg, pages_bound,
                 window_start),
         lm_head=lambda m, x: decoder._unembed(m, x, cfg),
-        forward=lambda m, batch: decoder.decoder_forward(m, batch, cfg),
         init_recurrent_state=rec,
         verify_paged_chunk=verify,
+    )
+
+
+def _encdec_bundle(cfg: ArchConfig) -> ModelBundle:
+    """The encoder-decoder's bundle: the dense path and training's
+    forward, no paged path (cross-attention reads fixed encoder memory)."""
+    return ModelBundle(
+        cfg=cfg,
+        init=lambda generator, device="cuda":
+            encdec.init_encdec(cfg, generator, device),
+        prefill=lambda m, batch, max_seq=None:
+            encdec.encdec_prefill(m, batch, cfg, max_seq),
+        decode_step=lambda m, c, t, windowed=False:
+            encdec.encdec_decode_step(m, c, t, cfg, windowed=windowed),
+        init_cache=lambda batch_size, max_seq, device="cuda":
+            encdec.init_encdec_cache(cfg, batch_size, max_seq, device),
+        forward=lambda m, batch: encdec.encdec_forward(m, batch, cfg),
     )
 
 

@@ -127,7 +127,8 @@ import torch
 from repro_torch.data import tokenizer as tok
 from repro_torch.models.model import ModelBundle
 from .cache import PagedKVCache, RecurrentStatePool
-from .generate import _sample_rows, _stream_seed, build_generate_fn
+from .generate import (_sample_rows, _stream_seed, build_generate_fn,
+                       check_token_only)
 from .scheduler import (DECODING, DONE as SCHED_DONE, DRAFTING, VERIFYING,
                         ContinuousScheduler, Request)
 
@@ -175,8 +176,10 @@ class ServeStats:
 
 class Engine:
     """Serves one model, dense-batch mode. Queries are padded token arrays
-    (N, Lq). ``params`` is the ``Decoder`` module, whose device is where
-    every batch runs."""
+    (N, Lq). ``params`` is the model's module, whose device is where every
+    batch runs. Token-only, as the reference's: a vlm or encoder-decoder
+    bundle builds, but ``serve`` and ``warmup`` raise and name
+    ``build_generate_fn`` (``generate.check_token_only``)."""
 
     def __init__(self, bundle: ModelBundle, params, max_new_tokens: int = 16,
                  temperature: float = 0.0):
@@ -190,6 +193,7 @@ class Engine:
         self.stats = ServeStats()
 
     def _run(self, tokens: np.ndarray, seed: int):
+        check_token_only(self.bundle)
         g = torch.Generator(device=self.device)
         g.manual_seed(seed)
         return self._gen(self.params, {"tokens": torch.tensor(
@@ -211,7 +215,7 @@ class Engine:
         cfg = self.bundle.cfg
         if not cfg.n_kv_heads:
             return 0
-        seq = prompt_len + self.max_new_tokens
+        seq = prompt_len + cfg.frontend_positions + self.max_new_tokens
         itemsize = 4 if cfg.dtype == "float32" else 2
         return (cfg.n_layers * batch * seq * cfg.n_kv_heads
                 * cfg.resolved_head_dim * 2 * itemsize)
@@ -244,9 +248,11 @@ class Engine:
 def make_engine(bundle: ModelBundle, params, **kw):
     """Engine factory honouring the config's cache-layout flag:
     ``cfg.cache_layout == "paged"`` selects the continuous-batching paged
-    engine, anything else the dense-batch engine. Continuous-only kwargs
-    (n_slots, max_seq, ...) are dropped for dense."""
-    if bundle.cfg.cache_layout == "paged":
+    engine when the bundle has a paged path (see
+    ``ArchConfig.paged_unsupported_reason``), anything else the
+    dense-batch engine. Continuous-only kwargs (n_slots, max_seq, ...) are
+    dropped for dense."""
+    if bundle.cfg.cache_layout == "paged" and bundle.decode_step_paged:
         return ContinuousEngine(bundle, params, **kw)
     return Engine(bundle, params, **{k: v for k, v in kw.items()
                                      if k in ("max_new_tokens", "temperature")})
@@ -375,6 +381,9 @@ class ContinuousEngine:
                  max_preemptions: int = 3,
                  prefix_cache: int = 0,
                  escalation: Optional[EscalationMonitor] = None):
+        if bundle.decode_step_paged is None:
+            raise ValueError(f"{bundle.cfg.name}: no paged decode path "
+                             f"({bundle.cfg.paged_unsupported_reason})")
         if prefix_cache < 0:
             raise ValueError(f"prefix_cache={prefix_cache}: the prefix "
                              "tree's page budget must be non-negative "

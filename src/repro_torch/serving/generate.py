@@ -51,22 +51,44 @@ def _sample_rows(generator, logits: torch.Tensor,
     return out
 
 
+def check_token_only(bundle: ModelBundle) -> None:
+    """Raise unless the bundle's model runs on tokens alone. The dense
+    engines and ``sample_responses`` pass only {"tokens"} to the model, as
+    the reference's do (there the vlm and audio families fail with a
+    KeyError); those families serve through ``build_generate_fn`` with
+    their frontend inputs."""
+    cfg = bundle.cfg
+    need = "enc_embeds" if cfg.is_encoder_decoder else \
+        "frontend_embeds" if cfg.frontend_positions else None
+    if need is not None:
+        raise ValueError(
+            f"{cfg.name} ({cfg.family}) needs {need!r} beside the tokens; "
+            "token-only serving cannot feed it — call build_generate_fn "
+            "with the family's inputs (models.frontends.make_batch)")
+
+
 def build_generate_fn(bundle: ModelBundle, max_new_tokens: int,
                       temperature: float, windowed: bool = False
                       ) -> Callable:
-    """Returns fn(params, inputs {"tokens": (B, S)}, generator) ->
-    (tokens (B, T) int32, lengths (B,) int32), both on the params' device.
+    """Returns fn(params, inputs, generator) -> (tokens (B, T) int32,
+    lengths (B,) int32), both on the params' device. ``inputs`` is the
+    model's batch: {"tokens": (B, S)}, plus the family's frontend inputs
+    ({"frontend_embeds"} for vlm, {"enc_embeds"} for encoder-decoder
+    stacks), all passed to ``prefill``. The cache holds the prompt, the
+    vlm frontend's positions and the new tokens.
 
     Every row runs exactly ``max_new_tokens`` decode steps, as the
     reference's scan does: rows past EOS emit PAD, and the last step's
     logits are computed and dropped. A row's length counts its tokens up to
     and including its first EOS, else the full budget."""
     T = max_new_tokens
+    extra = bundle.cfg.frontend_positions
 
     @torch.no_grad()
     def gen(params, inputs: Dict[str, torch.Tensor], generator):
         prompt_len = inputs["tokens"].shape[1]
-        logits, cache = bundle.prefill(params, inputs, prompt_len + T)
+        logits, cache = bundle.prefill(params, inputs,
+                                       prompt_len + extra + T)
         B = inputs["tokens"].shape[0]
         done = torch.zeros((B,), dtype=torch.bool, device=logits.device)
         toks = []
@@ -93,7 +115,10 @@ def sample_responses(bundle: ModelBundle, params, query_tokens: np.ndarray,
     params' device. Sample s of batch i draws from a generator seeded by
     (seed, s, i), so a call is reproducible under one seed.
 
-    Returns (responses (N, n_samples, T) int32, lengths (N, n_samples))."""
+    Returns (responses (N, n_samples, T) int32, lengths (N, n_samples)).
+    Token-only: a bundle whose family needs frontend inputs raises
+    (``check_token_only``)."""
+    check_token_only(bundle)
     gen = build_generate_fn(bundle, max_new_tokens, temperature)
     dev = next(params.parameters()).device
     g = torch.Generator(device=dev)

@@ -116,21 +116,42 @@ def test_dense_decoder_matches_reference(cfg, windowed):
 
 
 def test_dense_attention_refuses_the_encoder_decoder_paths(dense):
+    """The encoder-decoder paths of the dense attention no longer raise
+    (they landed with the encoder-decoder family): cross-attention over 9
+    keys, ``use_rope=False`` and ``causal=False`` each give the
+    reference's ``attention_forward`` on the same layer."""
+    from repro.models import attention as jax_attn
     from repro_torch.models import attention
-    _, _, bundle, port = dense
-    x = torch.zeros((1, 4, bundle.cfg.d_model))
+    _, p, bundle, port = dense
+    cfg = bundle.cfg
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((2, 5, cfg.d_model)).astype(np.float32)
+    kv = tuple(rng.standard_normal((2, 9, cfg.n_kv_heads,
+                                    cfg.resolved_head_dim)).astype(np.float32)
+               for _ in range(2))
+    lp = jax.tree_util.tree_map(lambda a: a[0], p["layers"]["attn"])
     layer = port.layers[0].attn
-    for kw in (dict(kv_override=(x, x)), dict(use_rope=False),
+    for kw in (dict(kv_override=kv), dict(use_rope=False),
                dict(causal=False)):
-        with pytest.raises(NotImplementedError, match="encoder-decoder"):
-            attention.attention_forward(layer, x, bundle.cfg, **kw)
+        jkw = {k: tuple(map(jnp.asarray, v)) if k == "kv_override" else v
+               for k, v in kw.items()}
+        tkw = {k: tuple(map(torch.tensor, v)) if k == "kv_override" else v
+               for k, v in kw.items()}
+        want = jax_attn.attention_forward(lp, jnp.asarray(x), cfg, **jkw)
+        with torch.no_grad():
+            got = attention.attention_forward(layer, torch.tensor(x), cfg,
+                                              **tkw)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                                   err_msg=str(list(kw)))
 
 
 # ------------------------------------------------------------- generate
 def _scripted_bundle(cfg, fav_id, eos_at=None):
-    """A port ModelBundle whose logits always favour ``fav_id`` until
-    token index ``eos_at``, then EOS: an oracle for the length accounting
+    """A port ModelBundle (over ``cfg`` converted to the port's
+    ``ArchConfig``) whose logits always favour ``fav_id`` until token index
+    ``eos_at``, then EOS: an oracle for the length accounting
     (tests/test_serving.py::_scripted_bundle)."""
+    cfg = ArchConfig(**dataclasses.asdict(cfg))
     V = cfg.vocab_size
 
     def logits_at(i, B):

@@ -165,6 +165,22 @@ JAMBA_MODES = {
     "ssd_dense": (32, 128, 128, 64, 16, "random"),
     "ssd_pool": (8, 128, 16, 64, 16, "pad"),
 }
+# the encoder-decoder (whisper-large-v3) and vision-frontend
+# (internvl2-26b) shapes, as chip_smoke.py's phase 4h gives the kernels
+# (card only): whisper's encoder self-attention (16 prompts of 1500
+# frames, 20 heads of 64, non-causal), its decoder's 48-token causal
+# prefill, its decode self-attention over an 80-position cache and its
+# decode cross-attention over all 1500 encoder keys; internvl2's causal
+# prefill over 256 patch + 256 prompt positions (48 heads over 8 kv heads
+# of 128, G = 6) and its decode over a 544-position cache
+ENCDEC_VLM_MODES = {
+    "whisper_encoder_flash": (16, 1500, 20, 20, 64, False, 0),
+    "whisper_decoder_flash": (16, 48, 20, 20, 64, True, 0),
+    "whisper_self_decode": (16, 80, 20, 1, 64, "prefix"),
+    "whisper_cross_decode": (16, 1500, 20, 1, 64, "all"),
+    "internvl2_flash": (16, 512, 48, 8, 128, True, 0),
+    "internvl2_decode": (16, 544, 8, 6, 128, "prefix"),
+}
 # pool chunks of n real positions, each padded with dt = 0 to every l
 # bucket from the next power of two up to 16 (see ssd_bucket_case)
 SSD_BUCKET_LENS = (1, 2, 3, 5, 7)
@@ -266,6 +282,8 @@ def decode_dense_case(name, seed=0, modes=DECODE_DENSE_MODES):
     elif layout == "no_valid_row":
         valid = pos <= rng.integers(0, S, (B, 1))
         valid[0] = False
+    elif layout == "all":
+        valid = np.ones((B, S), bool)
     else:
         valid = pos >= rng.integers(512, S, (B, 1))
     return q, k, v, valid.astype(np.int8)
@@ -986,3 +1004,35 @@ def test_cuda_fault_scenarios(name, cuda):
     assert h.check_invariants() == []
     assert dec_ops.paged_decode_attention_gqa.launches > d0
     assert pre_ops.paged_prefill_attention_gqa.launches > p0
+
+
+# ------------------------------------- whisper-large-v3, internvl2-26b
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", sorted(ENCDEC_VLM_MODES))
+def test_cuda_kernels_at_encdec_and_vlm_shapes(mode, cuda):
+    """The flash and dense decode kernels at whisper-large-v3's and
+    internvl2-26b's shapes through the wrapper the model calls, against
+    their plain versions on the same card inputs; the wrapper launches
+    its kernel once and no other kernel launches."""
+    ops = (flash_ops.flash_attention, dense_dec_ops.decode_attention_kv)
+    n0 = {op: op.launches for op in ops}
+    if "flash" in mode:
+        args, kw = flash_case(mode, modes=ENCDEC_VLM_MODES)
+        q, k, v = to_torch(args, cuda)
+        op, (B, S, H, D) = flash_ops.flash_attention, q.shape
+        got = op(q, k, v, **kw)
+        bhsd = lambda t: t.repeat_interleave(H // t.shape[2], 2) \
+            .movedim(2, 1).reshape(B * H, S, D).contiguous()
+        want = flash_ops.attention_ref(bhsd(q), bhsd(k), bhsd(v), **kw)
+        err = (got.movedim(2, 1).reshape(B * H, S, D) - want).abs().max() \
+            .item()
+    else:
+        q, k, v, valid = to_torch(
+            decode_dense_case(mode, modes=ENCDEC_VLM_MODES), cuda)
+        op = dense_dec_ops.decode_attention_kv
+        got = op(q, k, v, valid)
+        err = (got - _dense_plain(q, k, v, valid)).abs().max().item()
+    torch.cuda.synchronize()
+    assert {o.__name__: o.launches - n for o, n in n0.items()} == \
+        {o.__name__: int(o is op) for o in ops}
+    assert err <= GPU_TOL, (mode, err)

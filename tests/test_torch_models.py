@@ -29,6 +29,7 @@ from repro_torch.data import tasks, tokenizer as tok
 from repro_torch.models import common, decoder
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.encoder import RouterConfig, router_encode
+from repro_torch.models.frontends import make_batch
 from repro_torch.models.model import build_model
 from conftest import tiny_cfg
 
@@ -247,29 +248,28 @@ def test_bridge_rejects_a_tree_that_does_not_fit():
 @pytest.mark.parametrize("family", ["moe", "window", "hybrid", "vlm",
                                     "audio"])
 def test_build_model_names_the_slice_for_other_families(family):
-    """Every decoder-only family builds since the MoE and hybrid slice
+    """Every family builds since the encoder-decoder and frontends slice
     landed: a MoE stack, a sliding-window stack with MoE layers (no
-    verify chunk, as the reference's bundle) and a hybrid stack (with
-    recurrent-state rows). What is not ported yet (the vlm and audio
-    frontends, encoder-decoder stacks) raises and names its slice."""
+    verify chunk, as the reference's bundle), a hybrid stack (with
+    recurrent-state rows), and the vlm and audio (encoder-decoder)
+    stacks, which have no paged path, as the reference's bundles, and
+    prefill on their frontend's inputs."""
     cfg = tiny_cfg(family)
-    if family in ("vlm", "audio"):
-        with pytest.raises(NotImplementedError, match="slice"):
-            build_model(_port_cfg(cfg))
-        return
     if family == "window":
         cfg = tiny_cfg("dense", n_experts=4, top_k=2, sliding_window=4,
                        local_global_ratio=1)
     bundle = build_model(_port_cfg(cfg))
     ref = jax_build_model(cfg)
-    assert (bundle.verify_paged_chunk is None) == \
-        (ref.verify_paged_chunk is None)
-    assert (bundle.init_recurrent_state is None) == \
-        (ref.init_recurrent_state is None)
+    for field in ("verify_paged_chunk", "init_recurrent_state",
+                  "decode_step_paged", "init_paged_cache",
+                  "prefill_paged_chunk", "lm_head"):
+        assert (getattr(bundle, field) is None) == \
+            (getattr(ref, field) is None), field
     model = bundle.init(torch.Generator().manual_seed(0), "cpu")
+    batch = make_batch(torch.Generator().manual_seed(1), bundle.cfg, 1, 5,
+                       for_train=False, device="cpu")
     with torch.no_grad():
-        logits, _ = bundle.prefill(model, {"tokens": torch.full(
-            (1, 5), 7, dtype=torch.long)})
+        logits, _ = bundle.prefill(model, batch)
     assert torch.isfinite(logits[:, :cfg.vocab_size]).all()
 
 
