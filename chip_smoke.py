@@ -11,7 +11,9 @@ and prints no result line):
 3. The five kernels (paged decode and prefill, flash prefill, dense
    decode, SSD chunk scan) against their plain PyTorch versions on the
    card, one case per launch mode, at the main paths' shapes (Jamba's,
-   whisper-large-v3's and internvl2-26b's among them) and beside them
+   whisper-large-v3's and internvl2-26b's among them, and the serving
+   launcher's gemma3-4b-smoke shape of phase 7: head_dim 32, window 8
+   inside a page) and beside them
    (the paged kernels' main and gemma3 cases also bit for bit under two
    page walk bounds, slot by slot, and from page 0 against the engine's
    late first page under a window); the
@@ -113,6 +115,19 @@ and prints no result line):
    routers with their drops beside random routing, and a calibrated
    three-tier cascade and quality-target dial serving the 500 test queries
    through a ContinuousPoolEngine (K1 and K2 on every tier that serves).
+7. The launchers, as a user starts them (after phase 6), in process, at
+   their own reduced tier configs: repro_torch.launch.serve.main with
+   (a) --arch gemma3-4b --tiers mamba2-130m qwen1.5-32b full --continuous
+   --prefix-cache 16 --escalate 0.25 (an SSM, a global-attention and a
+   windowed tier), (b) --arch qwen1.5-32b --tiers quarter half full
+   --continuous --spec-gamma 2 and (c) --arch gemma3-4b (the dense pair),
+   each cut to --steps 60 --requests 64 --samples 2: the calls must sum
+   to the requests, every tier must serve with its kernels (K1 and K2 on
+   a paged attention tier, windowed on gemma3's, K3 on mamba2's, K4 and
+   K5 on a dense tier) and every continuous tier drain clean; then
+   repro_torch.launch.train.main --arch mamba2-130m --steps 20 --out
+   (the checkpoint loads back the trained weights exactly). Each run's
+   wall, its stream's tokens/s and the phase's seconds are logged.
 
 It imports neither JAX nor the JAX package. Weights are random, from
 seeded torch.Generators; nothing is downloaded. The last two lines are a
@@ -127,12 +142,18 @@ prefill are "qwen1.5-32b-spec-verify" and "-spec-mirror", and whose K1
 launches as the draft's micro-steps "qwen1.5-32b-spec-draft";
 "jamba-v0.1-52b": phase 4g's pool and dense serves, each kernel's count
 summed over both; "whisper-large-v3" and "internvl2-26b": phase 4h's
-serves).
+serves; "launch-serve-mixed", "launch-serve-spec" and
+"launch-serve-dense": phase 7's three serving-launcher runs (a) to (c),
+each counted over the whole run: training launches nothing, labelling
+runs K4, K5 and K3 in sample_responses, serving the path's kernels).
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import subprocess
 import sys
@@ -151,6 +172,8 @@ DEVICE_TOL = 1e-3               # fp32 card vs CPU logits through a 5120-wide
                                 # another order on each device
 N_PROMPTS, NEW_TOKENS, N_SLOTS, MAX_SEQ = 16, 32, 8, 1024
 GEMMA_MAX_SEQ = 2048    # gemma3-4b's pool: contexts of 1040-2016 tokens
+MAX_SEQS = {"gemma3": GEMMA_MAX_SEQ,   # page-table widths of phase 3's
+            "launch": 64}              # paged cases (phase 7's pools: 64)
 # the router's encoder at DeBERTa-v3-large's widths (the paper's router)
 DEBERTA_V3_LARGE = dict(n_layers=24, d_model=1024, n_heads=16, d_ff=4096,
                         max_seq=512)
@@ -293,13 +316,17 @@ def decode_cases(torch, dev):
     walk gives the same bits from page 0 and from the engine's first page
     ("main" under a window of 128). "jamba" (timed) is the
     jamba-v0.1-52b pool's decode on its attention layer: 8 slots at
-    contexts of 33-544, 8 kv heads of 128, G = 4."""
+    contexts of 33-544, 8 kv heads of 128, G = 4. "launch" (timed) is the
+    serving launcher's gemma3-4b-smoke pool decode on a local layer (phase
+    7): 8 slots at contexts of 17-28 in a 64-position table, 2 kv heads of
+    32, G = 2, a window of 8 inside a 16-token page."""
     import numpy as np
     from repro_torch.kernels.paged_decode_attention import ops
     from repro_torch.serving.engine import window_start_page
     rng = np.random.default_rng(1)
     grng = np.random.default_rng(21)    # the gemma3 case's contexts
     jrng = np.random.default_rng(23)    # the jamba case's contexts
+    lrng = np.random.default_rng(25)    # the launcher case's contexts
     spec = {  # name: (K, G, D, ps, lens, pages_start, window)
         "main": (40, 1, 128, 16, rng.integers(33, 545, 8), 0, 0),
         "gqa": (8, 8, 128, 16, rng.integers(33, 545, 8), 0, 0),
@@ -317,6 +344,7 @@ def decode_cases(torch, dev):
         "head_dim_98": (8, 3, 98, 16, rng.integers(33, 545, 8), 0, 0),
         "gemma3": (4, 2, 256, 16, grng.integers(1040, 2017, 8), None, 1024),
         "jamba": (8, 4, 128, 16, jrng.integers(33, 545, 8), 0, 0),
+        "launch": (2, 2, 32, 16, lrng.integers(17, 29, 8), None, 8),
     }
     out = []
     for name, (K, G, D, ps, lens, pstart, window) in spec.items():
@@ -324,7 +352,7 @@ def decode_cases(torch, dev):
         if pstart is None:   # the engine's: slot b's first key is len - window
             pstart = window_start_page(int(lens.min()) - window, ps)
         B = len(lens)
-        MP = (GEMMA_MAX_SEQ if name == "gemma3" else MAX_SEQ) // ps
+        MP = MAX_SEQS.get(name, MAX_SEQ) // ps
         kp, vp, pt = _pool(torch, rng, K, D, ps, MP, lens, dev)
         g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
         q = torch.randn((B, K, G, D), generator=g, device=dev) * D ** -0.5
@@ -342,7 +370,7 @@ def decode_cases(torch, dev):
             check = _all_of(_walk_bitwise(torch, op, args, kw),
                             _start_bitwise(torch, op, args, kw,
                                            window or 128, -window or -128))
-        timed = main or name == "jamba"
+        timed = main or name in ("jamba", "launch")
         out.append(_paged_case(
             name, op, ops.paged_decode_attention_ref, args, kw, nbytes, flops,
             check=check, report=_paged_standing("paged_decode_attention")
@@ -367,13 +395,17 @@ def prefill_cases(torch, dev):
     walk gives the same bits from page 0 and from the engine's first page
     ("main" under a window of 128). "jamba" (timed) is the
     jamba-v0.1-52b pool's packed 16-token chunk on its attention layer: 8
-    slots resident at 0-480 tokens, 8 kv heads of 128, G = 4."""
+    slots resident at 0-480 tokens, 8 kv heads of 128, G = 4. "launch"
+    (timed) is the serving launcher's gemma3-4b-smoke pool admitting 8
+    prompts of 5-16 tokens in one chunk on a local layer (phase 7): a
+    64-position table, 2 kv heads of 32, G = 2, a window of 8."""
     import numpy as np
     from repro_torch.kernels.paged_prefill_attention import ops
     from repro_torch.serving.engine import window_start_page
     rng = np.random.default_rng(2)
     grng = np.random.default_rng(22)    # the gemma3 case's contexts
     jrng = np.random.default_rng(24)    # the jamba case's contexts
+    lrng = np.random.default_rng(26)    # the launcher case's chunks
     C = 16
     full = lambda n: np.full(8, n, np.int32)
     spec = {  # name: (K, G, D, ps, start, n_new, pages_start, window)
@@ -402,6 +434,8 @@ def prefill_cases(torch, dev):
                    None, 1024),
         "jamba": (8, 4, 128, 16, 16 * jrng.integers(0, 31, 8), full(16), 0,
                   0),
+        "launch": (2, 2, 32, 16, np.zeros(8, np.int32),
+                   lrng.integers(5, 17, 8), None, 8),
     }
     out = []
     for name, (K, G, D, ps, start, n_new, pstart, window) in spec.items():
@@ -411,7 +445,7 @@ def prefill_cases(torch, dev):
         if pstart is None:   # the engine's: a chunk's first key is
             pstart = window_start_page(int(start.min()) - window + 1, ps)
         B = len(start)
-        MP = (GEMMA_MAX_SEQ if name == "gemma3" else MAX_SEQ) // ps
+        MP = MAX_SEQS.get(name, MAX_SEQ) // ps
         kp, vp, pt = _pool(torch, rng, K, D, ps, MP, total, dev)
         g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
         q = torch.randn((B, K, C, G, D), generator=g, device=dev) * D ** -0.5
@@ -434,7 +468,7 @@ def prefill_cases(torch, dev):
             check = _all_of(_walk_bitwise(torch, op, args, kw),
                             _start_bitwise(torch, op, args, kw,
                                            window or 128, 1 - (window or 128)))
-        timed = main or name == "jamba"
+        timed = main or name in ("jamba", "launch")
         out.append(_paged_case(
             name, op, ops.paged_prefill_attention_ref, args, kw, nbytes,
             flops, check=check,
@@ -517,8 +551,8 @@ def _paged_standing(kname):
     its bytes bound and against its plain version."""
     def report(torch, c, ms, plain_ms, library_ms):
         bound_ms, by = _bound(c["nbytes"], c["flops"])
-        log(f"[kernels] {kname}[{c['name']}] {bound_ms / ms:.3f} of the {by} bound "
-            f"({bound_ms:.4f} ms), {ms / plain_ms:.3f}x its plain version's "
+        log(f"[kernels] {kname}[{c['name']}] {bound_ms / ms:.3g} of the {by} bound "
+            f"({bound_ms:.4g} ms), {ms / plain_ms:.3f}x its plain version's "
             f"time ({plain_ms:.4f} ms)")
     return report
 
@@ -540,10 +574,12 @@ def flash_cases(torch, dev):
     prompts of 1500 frames, 20 heads of 64, non-causal), "whisper_decoder"
     its decoder's 48-token causal prefill, "internvl2" the internvl2-26b
     prefill over 256 patch + 256 prompt positions (48 heads over 8 kv
-    heads of 128, G = 6). The plain version expands kv to H heads and runs
-    on (B*H, S, D); the library yardstick is one SDPA call (scale 1 on the
-    pre-scaled q, causal where the case is, GQA where H > K; for "gemma3" a
-    boolean window mask and GQA)."""
+    heads of 128, G = 6); "launch" the serving launcher's gemma3-4b-smoke
+    dense prefill on a local layer (phase 7): 32 prompts of 16 tokens, 4
+    heads of 32 over 2 kv heads, window 8. The plain version expands kv to
+    H heads and runs on (B*H, S, D); the library yardstick is one SDPA call
+    (scale 1 on the pre-scaled q, causal where the case is, GQA where
+    H > K; for "gemma3" and "launch" a boolean window mask and GQA)."""
     import numpy as np
     from torch.nn import functional as F
     from repro_torch.kernels.flash_attention import ops
@@ -562,6 +598,7 @@ def flash_cases(torch, dev):
         "whisper_encoder": (16, 1500, 20, 20, 64, False, 0),
         "whisper_decoder": (16, 48, 20, 20, 64, True, 0),
         "internvl2": (16, 512, 48, 8, 128, True, 0),
+        "launch": (32, 16, 4, 2, 32, True, 8),
     }
     g = torch.Generator(device=dev).manual_seed(3)
     out = []
@@ -594,7 +631,7 @@ def flash_cases(torch, dev):
                 F.scaled_dot_product_attention(
                     q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                     is_causal=c, scale=1.0, enable_gqa=gqa).transpose(1, 2)
-        elif name == "gemma3":
+        elif name in ("gemma3", "launch"):
             seen_t = torch.tensor(seen, device=dev)
             library = lambda q=q, k=k, v=v, m=seen_t: \
                 F.scaled_dot_product_attention(
@@ -637,8 +674,8 @@ def _flash_standing(torch, c, ms, plain_ms, library_ms):
                 str(e.device_type).endswith("CUDA"):
             kernels.append(e.key[:100])
     log(f"[kernels] flash_attention[{c['name']}] device {device_ms:.4f} ms "
-        f"(events {ms:.4f}); {bound_ms / ms:.3f} of the fp32 "
-        f"bound ({bound_ms:.4f} ms), {ms / library_ms:.3f}x SDPA's time "
+        f"(events {ms:.4f}); {bound_ms / ms:.3g} of the fp32 "
+        f"bound ({bound_ms:.4g} ms), {ms / library_ms:.3f}x SDPA's time "
         f"({library_ms:.4f} ms); 3xTF32 tensor-core floor {tc_ms:.4f} ms "
         f"(3 x {c['flops']} flop at {PEAK_TF32_FLOP_PER_S / 1e12:g} TFLOP/s)")
     log(f"[kernels] SDPA backend: ops {sorted(set(ops)) or 'none seen'}; "
@@ -714,12 +751,14 @@ def _dense_standing(torch, c, ms, plain_ms, library_ms):
     per call from the profiler (CUDA events around back-to-back calls of a
     kernel this short time the host wrapper), the device time of the
     memset that zeroes its split counts, and its share of the bound."""
+    from repro_torch.kernels.decode_attention import ops
     bound_ms, by = _bound(c["nbytes"], c["flops"])
-    device_ms = _device_ms(torch, c["kernel"], "decode_kernel")
+    device_ms = _kernel_device_ms(torch, c["kernel"], "decode_kernel",
+                                  ops.decode_attention_kv)
     memset_ms = _device_ms(torch, c["kernel"], "Memset (Device)")
-    log(f"[kernels] decode_attention[{c['name']}] device {device_ms:.4f} ms "
-        f"(events {ms:.4f}; the counts' memset {memset_ms:.4f}): "
-        f"{bound_ms / device_ms:.3f} of the {by} bound ({bound_ms:.4f} ms)")
+    log(f"[kernels] decode_attention[{c['name']}] events {ms:.4f} ms, the "
+        f"counts' memset {memset_ms:.4f} ms; "
+        f"{_share(bound_ms, by, device_ms)}")
 
 
 def dense_decode_cases(torch, dev):
@@ -740,7 +779,11 @@ def dense_decode_cases(torch, dev):
     kv heads of 64 over its 80-position cache, 64 keys valid) and
     "whisper_cross" its cross-attention over all 1500 encoder keys, every
     key valid; "internvl2" the internvl2-26b decode as "main" is (16 rows,
-    8 kv heads of 128, G = 6). The plain version regroups to (B*K, G, D);
+    8 kv heads of 128, G = 6); "launch" the serving launcher's
+    gemma3-4b-smoke dense decode on a local layer mid-generation (phase 7):
+    32 rows over a 28-position cache at position 20, 2 kv heads of 32,
+    G = 2, the 8-key window in ``valid``. The plain version regroups to
+    (B*K, G, D);
     the library yardstick is one SDPA call with a boolean mask from
     ``valid`` (and GQA where G > 1)."""
     import numpy as np
@@ -760,6 +803,7 @@ def dense_decode_cases(torch, dev):
         "whisper_self": (16, 80, 20, 1, 64, "main"),
         "whisper_cross": (16, 1500, 20, 1, 64, "all"),
         "internvl2": (16, 544, 8, 6, 128, "main"),
+        "launch": (32, 28, 2, 2, 32, "launch"),
     }
     g = torch.Generator(device=dev).manual_seed(5)
     out = []
@@ -782,6 +826,8 @@ def dense_decode_cases(torch, dev):
             valid[:, -1] = True
         elif layout == "gemma3":
             valid = np.repeat((pos <= 2064) & (2064 - pos < 1024), B, axis=0)
+        elif layout == "launch":
+            valid = np.repeat((pos <= 20) & (20 - pos < 8), B, axis=0)
         else:
             valid = pos >= rng.integers(512, S, (B, 1))
         n_valid = int(valid.sum())
@@ -790,7 +836,7 @@ def dense_decode_cases(torch, dev):
         flops = 4 * n_valid * K * G * D
         library = None
         if name in ("main", "gemma3", "jamba", "whisper_self",
-                    "whisper_cross", "internvl2"):
+                    "whisper_cross", "internvl2", "launch"):
             library = lambda q=q, k=k, v=v, valid=valid, gqa=G > 1: \
                 F.scaled_dot_product_attention(
                     q[:, :, None], k.movedim(2, 1), v.movedim(2, 1),
@@ -916,7 +962,8 @@ def _state_row_is_zero(out):
 
 def _device_ms(torch, fn, piece, n=20):
     """Device time per call of ``fn`` from torch.profiler: the kernels
-    whose name holds ``piece``, over ``n`` calls back to back."""
+    whose name holds ``piece``, over ``n`` calls back to back (0 when the
+    window saw none)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -930,18 +977,42 @@ def _device_ms(torch, fn, piece, n=20):
     return total / 1e3 / n
 
 
+def _kernel_device_ms(torch, fn, piece, wrapper):
+    """The kernel's device time per call from one profiler window
+    (``_device_ms``), or None when the window saw no ``piece``. Raises
+    unless ``wrapper.launches`` moved over the window: a window that saw
+    nothing because the wrapper launched nothing is a fault, not a gap in
+    the trace."""
+    before = wrapper.launches
+    device_ms = _device_ms(torch, fn, piece)
+    if wrapper.launches == before:
+        raise AssertionError(f"{piece}: the wrapper launched no kernel in "
+                             "the profiler window")
+    return device_ms if device_ms > 0 else None
+
+
+def _share(bound_ms, by, device_ms):
+    """The bound's share of a device time, or the profiler's gap."""
+    if device_ms is None:
+        return "no device time (the kernel launched; the profiler saw none)"
+    return (f"device {device_ms:.4f} ms: {bound_ms / device_ms:.3g} of the "
+            f"{by} bound ({bound_ms:.4g} ms)")
+
+
 def _ssd_standing(torch, c, ms, plain_ms, library_ms):
     """The SSD kernel's standing at a timed shape: its device time from the
     profiler (at the pool's chunks the CUDA events around back-to-back
     calls time the host wrapper), its share of the bound, and the floor of
     its 3xTF32 route (three TF32 products per fp32 product of the scores,
     y and the state at the tensor cores' peak)."""
+    from repro_torch.kernels.ssd_scan import ops
     bound_ms, by = _bound(c["nbytes"], c["flops"])
-    device_ms = _device_ms(torch, c["kernel"], "ssd_kernel")
+    device_ms = _kernel_device_ms(torch, c["kernel"], "ssd_kernel",
+                                  ops.ssd_chunk_scan)
     tc_ms = 1e3 * 3 * c["mma_flops"] / PEAK_TF32_FLOP_PER_S
-    log(f"[kernels] ssd_chunk_scan[{c['name']}] device {device_ms:.4f} ms "
-        f"(events {ms:.4f}): {bound_ms / device_ms:.3f} of the {by} bound "
-        f"({bound_ms:.4f} ms); 3xTF32 tensor-core floor {tc_ms:.4f} ms (3 x "
+    log(f"[kernels] ssd_chunk_scan[{c['name']}] events {ms:.4f} ms; "
+        f"{_share(bound_ms, by, device_ms)}; 3xTF32 tensor-core floor "
+        f"{tc_ms:.4f} ms (3 x "
         f"{c['mma_flops']} flop at {PEAK_TF32_FLOP_PER_S / 1e12:g} TFLOP/s)")
 
 
@@ -1064,7 +1135,7 @@ def kernel_phase(torch):
                 lib = (f", library {lib_ms:.4f} ms (max abs err "
                        f"{lib_err:.3g})")
             log(f"[kernels] {kname}[{c['name']}] kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms{lib}, bound {bound_ms:.4f} ms "
+                f"{plain_ms:.4f} ms{lib}, bound {bound_ms:.4g} ms "
                 f"({bound_by}: {c['nbytes']} B, {c['flops']} flop)")
             if c["report"] is not None:
                 c["report"](torch, c, ms, plain_ms, lib_ms)
@@ -1074,28 +1145,10 @@ def kernel_phase(torch):
 
 
 # ------------------------------------------------------------------ phase 4
-def scaled_sibling(full, factor: int):
-    """launch/serve.py:81 ``scaled_sibling`` of the JAX package: layers,
-    width, heads and FFN divided together; an attention-free stack keeps
-    no KV heads and no FFN, and a hybrid stack keeps ``n_layers`` a whole
-    number of its ``attn_every``-layer blocks (at least one)."""
-    n_layers = max(1, full.n_layers // factor)
-    if full.family == "hybrid" and full.attn_every:
-        n_layers = max(full.attn_every,
-                       n_layers - n_layers % full.attn_every)
-    return dataclasses.replace(
-        full, n_layers=n_layers,
-        d_model=max(8, full.d_model // factor),
-        n_heads=max(1, full.n_heads // factor),
-        n_kv_heads=max(1, min(full.n_kv_heads, full.n_heads // factor))
-        if full.n_kv_heads else 0,
-        d_ff=max(8, full.d_ff // factor) if full.d_ff else 0,
-        name=full.name + "-s")
-
-
 def main_path_phase(torch, card: str, smi: str):
     import numpy as np
     from repro_torch.configs.qwen15_32b import CONFIG as QWEN
+    from repro_torch.launch.serve import scaled_sibling
     from repro_torch.core.routing import HybridRouter, ThresholdPolicy
     from repro_torch.kernels.paged_decode_attention import ops as dec
     from repro_torch.kernels.paged_prefill_attention import ops as pre
@@ -1831,6 +1884,7 @@ def ssm_phase(torch, card: str, smi: str, router):
     per prefill on the dense path, and no other kernel may launch."""
     import numpy as np
     from repro_torch.configs.mamba2_130m import CONFIG as MAMBA
+    from repro_torch.launch.serve import scaled_sibling
     from repro_torch.kernels.decode_attention import ops as dec
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.paged_decode_attention import ops as pdec
@@ -2008,6 +2062,7 @@ def gemma_setup(torch):
     (16, 2048) PAD-padded tokens and mask."""
     import numpy as np
     from repro_torch.configs.gemma3_4b import CONFIG as GEMMA
+    from repro_torch.launch.serve import scaled_sibling
     from repro_torch.core.routing import HybridRouter
     from repro_torch.models.encoder import RouterConfig, init_router_encoder
     from repro_torch.models.model import build_model
@@ -2378,6 +2433,7 @@ def jamba_phase(torch, card: str, smi: str):
     and each kernel's launches on both paths."""
     import numpy as np
     from repro_torch.configs.jamba_v01_52b import CONFIG as JAMBA
+    from repro_torch.launch.serve import scaled_sibling
     from repro_torch.core.routing import HybridRouter, ThresholdPolicy
     from repro_torch.models import moe
     from repro_torch.models.encoder import RouterConfig, init_router_encoder
@@ -3064,6 +3120,7 @@ def lm_training_phase(torch, card: str, smi: str):
     first step again on the CPU from the same weights and batch."""
     import numpy as np
     from repro_torch.configs.qwen15_32b import CONFIG as QWEN
+    from repro_torch.launch.serve import scaled_sibling
     from repro_torch.models.decoder import Decoder
     from repro_torch.models.model import build_model
     from repro_torch.training import trainer as trainer_mod
@@ -3290,6 +3347,262 @@ def pipeline_phase(torch, card: str, smi: str):
         + json.dumps({k: round(v, 3) for k, v in walls.items()}))
 
 
+# ------------------------------------------------------------------ phase 7
+LAUNCH_REQUESTS = 64
+LAUNCH_CUT = ["--steps", "60", "--requests", str(LAUNCH_REQUESTS),
+              "--samples", "2"]
+LAUNCH_SERVES = {  # launches_by_path key: the serving launcher's own flags
+    "launch-serve-mixed": ["--arch", "gemma3-4b", "--tiers", "mamba2-130m",
+                           "qwen1.5-32b", "full", "--continuous",
+                           "--prefix-cache", "16", "--escalate", "0.25"],
+    "launch-serve-spec": ["--arch", "qwen1.5-32b", "--tiers", "quarter",
+                          "half", "full", "--continuous", "--spec-gamma",
+                          "2"],
+    "launch-serve-dense": ["--arch", "gemma3-4b"],
+}
+LAUNCH_TRAIN = ["--arch", "mamba2-130m", "--steps", "20"]
+
+
+def _launch_serve(torch, path, argv, card, smi):
+    """One run of the serving launcher, ``launch.serve.main(argv +
+    LAUNCH_CUT)``, on the card: its printed lines logged; each kernel's
+    launches counted from 0 over the whole run (training, labelling,
+    serving), and by tier model over its own paged calls (prefill chunks,
+    decode steps and verify chunks, a draft's calls on its own model) or
+    its dense serves; windowed paged launches by model; the request
+    stream's wall and tokens. Raises unless the calls sum to the
+    requests; every tier's model prefilled, with exactly one K2 per
+    attention layer and one K3 per SSM layer a prefill chunk, one K1 per
+    attention layer a decode step and one K2 a verify chunk (a dense
+    tier: one K4 per layer a batch, one K5 per layer a decode step);
+    windowed K1 and K2 launches ran on a window stack; the pools ran K1,
+    K2 (and K3 where a tier is an SSM); and every continuous tier drained
+    (free pages plus the prefix tree's are the pool's, refcounts clean,
+    the draft mirror's too); with ``--prefix-cache``, every tier without
+    window or SSM layers hit its prefix tree and every other tier names
+    why it shares none. Returns the run's launches by kernel."""
+    from unittest import mock
+    from repro_torch.launch import serve
+    from repro_torch.models import attention
+    from repro_torch.serving.engine import ContinuousEngine, Engine
+    from repro_torch.serving.hybrid import HybridEngine
+    from repro_torch.serving.pool import ContinuousPoolEngine
+
+    counters = _all_counters()
+    calls = collections.Counter()             # (model, function): calls
+    got = collections.defaultdict(collections.Counter)   # ...: launches
+    watched = collections.Counter()
+    tier, restore = _watch_attention(torch, attention, watched)
+    stream = dict(wall=0.0, tokens=0)
+    wrapped = set()
+
+    def counting(name, what, fn):
+        def run(*args, **kw):
+            tier[0] = name
+            before = {k: w.launches for k, w in counters.items()}
+            try:
+                return fn(*args, **kw)
+            finally:
+                tier[0] = None
+                calls[name, what] += 1
+                for k, w in counters.items():
+                    got[name, what][k] += w.launches - before[k]
+        return run
+
+    def counted(bundle):
+        new = dataclasses.replace(bundle, **{
+            f: counting(bundle.cfg.name, f, getattr(bundle, f))
+            for f in ("prefill_paged_chunk", "decode_step_paged",
+                      "verify_paged_chunk") if getattr(bundle, f)})
+        wrapped.add(id(new))
+        return new
+
+    def step(orig):         # ContinuousEngine.step: count through its
+        def run(self, *args, **kw):     # tier's and its draft's bundles
+            for attr in ("bundle", "draft_bundle"):
+                b = getattr(self, attr)
+                if b is not None and id(b) not in wrapped:
+                    setattr(self, attr, counted(b))
+            return orig(self, *args, **kw)
+        return run
+
+    def dense(orig):        # Engine.serve
+        def run(self, *args, **kw):
+            return counting(self.bundle.cfg.name, "serve",
+                            lambda: orig(self, *args, **kw))()
+        return run
+
+    def timed(orig):        # the pool's and the dense pair's serve
+        def run(self, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            out = orig(self, *args, **kw)
+            torch.cuda.synchronize()
+            stream["wall"] += time.monotonic() - t0
+            stream["tokens"] += int(out.lengths.sum())
+            return out
+        return run
+
+    for w in counters.values():
+        w.launches = 0
+    printed = io.StringIO()
+    t0 = time.monotonic()
+    try:
+        with contextlib.ExitStack() as patches:
+            for owner, attr, make in ((ContinuousEngine, "step", step),
+                                      (Engine, "serve", dense),
+                                      (ContinuousPoolEngine, "serve", timed),
+                                      (HybridEngine, "serve", timed)):
+                patches.enter_context(mock.patch.object(
+                    owner, attr, make(getattr(owner, attr))))
+            patches.enter_context(contextlib.redirect_stdout(printed))
+            hy = serve.main(argv + LAUNCH_CUT)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+        for line in printed.getvalue().splitlines():
+            log(f"[launch] {path}: {line}")
+    wall = time.monotonic() - t0
+    launches = {k: w.launches for k, w in counters.items()}
+
+    pool = isinstance(hy, ContinuousPoolEngine)
+    summary = (hy.meter if pool else hy.meter.tiers).summary()
+    n_calls = sum(r["calls"] for r in summary.values())
+    if n_calls != LAUNCH_REQUESTS:
+        raise AssertionError(f"{path}: {n_calls} calls for "
+                             f"{LAUNCH_REQUESTS} requests: {summary}")
+    K1, K2, K3 = ("paged_decode_attention", "paged_prefill_attention",
+                  "ssd_chunk_scan")
+    engines = hy.engines if pool else [hy.small, hy.large]
+    for eng in engines:
+        cfg = eng.bundle.cfg
+        kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+        n_attn = sum(k["attn"] for k in kinds)
+        n_ssm = sum(k["ssm"] for k in kinds)
+        if pool:
+            per_call = {"prefill_paged_chunk": {K2: n_attn, K3: n_ssm},
+                        "decode_step_paged": {K1: n_attn},
+                        "verify_paged_chunk": {K2: n_attn}}
+        else:   # one batch a serve: a prefill, max_new_tokens decode steps
+            per_call = {"serve": {"flash_attention": n_attn,
+                                  "decode_attention": n_attn
+                                  * eng.max_new_tokens}}
+        first = next(iter(per_call))
+        if not calls[cfg.name, first]:
+            raise AssertionError(f"{path}: tier {cfg.name} never ran {first}")
+        for what, per in per_call.items():
+            want = {k: per.get(k, 0) * calls[cfg.name, what]
+                    for k in counters}
+            if any(got[cfg.name, what][k] != want[k] for k in counters):
+                raise AssertionError(
+                    f"{path}: tier {cfg.name}'s {calls[cfg.name, what]} "
+                    f"{what} calls launched {dict(got[cfg.name, what])}, "
+                    f"not {want}")
+        if pool and cfg.has_window_layers:
+            windowed = {n: sum(v for key, v in watched.items()
+                               if key[:3] == (cfg.name, n, True))
+                        for n in ("paged_decode_attention_gqa",
+                                  "paged_prefill_attention_gqa")}
+            log(f"[launch] {path}: {cfg.name} windowed launches {windowed}")
+            if not all(windowed.values()):
+                raise AssertionError(f"{path}: no windowed launch on "
+                                     f"{cfg.name}: {windowed}")
+        if pool:
+            caches = [eng.cache] + ([eng.draft_cache] if eng.draft_cache
+                                    is not None else [])
+            for c in caches:
+                tree = c.prefix.resident if c.prefix is not None else 0
+                if c.free_pages + tree != c.num_pages - 1 \
+                        or c.check_refcounts():
+                    raise AssertionError(
+                        f"{path}: tier {cfg.name} did not drain: "
+                        f"{c.free_pages} free + {tree} in the tree of "
+                        f"{c.num_pages - 1} pages")
+        if pool and "--prefix-cache" in argv:
+            shares = not (cfg.has_window_layers or cfg.ssm_state)
+            if (eng.cache.prefix is not None) != shares \
+                    or (not shares and not eng.prefix_reason) \
+                    or (shares and eng.stats.prefix_hits <= 0):
+                raise AssertionError(
+                    f"{path}: tier {cfg.name} prefix tree "
+                    f"{eng.cache.prefix is not None}, reason "
+                    f"{eng.prefix_reason!r}, {eng.stats.prefix_hits} hits")
+            log(f"[launch] {path}: {cfg.name} prefix "
+                + (f"{eng.stats.prefix_hits} hits, "
+                   f"{eng.stats.prefix_misses} misses, "
+                   f"{eng.stats.prefix_hit_tokens} prefill tokens skipped"
+                   if shares else f"off: {eng.prefix_reason}"))
+    served = sum(got.values(), collections.Counter())
+    need = [K1, K2] if pool else ["flash_attention", "decode_attention"]
+    need += [K3] if any(e.bundle.cfg.ssm_state for e in engines) else []
+    if any(served[k] <= 0 for k in need):
+        raise AssertionError(f"{path}: serving launched {dict(served)}")
+    log(f"[launch] {path}: calls and launches by tier model "
+        + json.dumps({f"{n} {w}": [calls[n, w], {k: v for k, v in
+                                                  got[n, w].items() if v}]
+                      for n, w in sorted(calls)}))
+    log(f"[launch] {path}: the run {wall:.3f} s (training, labelling and "
+        f"serving); the stream of {LAUNCH_REQUESTS} requests "
+        f"{stream['wall']:.3f} s, {stream['tokens']} tokens, "
+        f"{stream['tokens'] / stream['wall']:.1f} tokens/s on {card} ({smi}); "
+        f"launches {launches}")
+    return launches
+
+
+def _launch_train(torch, card, smi):
+    """``launch.train.main(LAUNCH_TRAIN + --out)`` on the card; the
+    checkpoint it writes (the JAX package's layout) must load back into a
+    fresh port module with exactly the trained weights, and serve the same
+    greedy tokens."""
+    from repro_torch import bridge
+    from repro_torch.launch import serve, train
+    from repro_torch.serving.generate import build_generate_fn
+    from repro_torch.models.model import build_model
+    from repro_torch.training.checkpoint import load_checkpoint
+    out = ROOT / "build" / "launch" / "mamba2-130m-smoke.npz"
+    t0 = time.monotonic()
+    printed = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(printed):
+            model = train.main(LAUNCH_TRAIN + ["--out", str(out)])
+        torch.cuda.synchronize()
+    finally:
+        for line in printed.getvalue().splitlines():
+            log(f"[launch] train: {line}")
+    wall = time.monotonic() - t0
+    cfg = serve._reduced(LAUNCH_TRAIN[1])
+    loaded = bridge.params_from_numpy(load_checkpoint(str(out)), cfg, "cuda")
+    trained, back = model.state_dict(), loaded.state_dict()
+    if trained.keys() != back.keys() or not all(
+            torch.equal(trained[k], back[k]) for k in trained):
+        raise AssertionError("train: the checkpoint does not load back the "
+                             "trained weights")
+    gen = build_generate_fn(build_model(cfg), 12, 0.0)
+    prompts = {"tokens": torch.randint(
+        4, cfg.vocab_size, (8, 16), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(7))}
+    g = torch.Generator(device="cuda")
+    a, b = gen(model, prompts, g)[0], gen(loaded, prompts, g)[0]
+    if not torch.equal(a, b):
+        raise AssertionError("train: the reloaded module serves other "
+                             "greedy tokens")
+    log(f"[launch] train: {LAUNCH_TRAIN} in {wall:.3f} s on {card} ({smi}); "
+        f"{len(trained)} tensors, {out.stat().st_size} bytes, reloaded "
+        "exactly")
+
+
+def launcher_phase(torch, card: str, smi: str):
+    """Phase 7: the launchers, as a user starts them, on the card (runs
+    (a) to (c) of LAUNCH_SERVES, then LAUNCH_TRAIN). Returns {path:
+    launches by kernel}."""
+    t0 = time.monotonic()
+    by_path = {path: _launch_serve(torch, path, argv, card, smi)
+               for path, argv in LAUNCH_SERVES.items()}
+    _launch_train(torch, card, smi)
+    log(f"[launch] phase 7 {time.monotonic() - t0:.3f} s on {card} ({smi})")
+    return by_path
+
+
 def main() -> int:
     import torch
     card, smi = device_phase(torch)
@@ -3362,12 +3675,17 @@ def main() -> int:
     moe_vs_cpu_phase(torch)
     gc.collect()
     torch.cuda.empty_cache()
-    for row in rows:
-        row["launches"] = launches[row["name"]]
-        row["launches_by_path"] = by_path[row["name"]]
     router_training_phase(torch, card, smi)
     lm_training_phase(torch, card, smi)
     pipeline_phase(torch, card, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for path, counts in launcher_phase(torch, card, smi).items():
+        for name, n in counts.items():
+            by_path[name][path] = n
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+        row["launches_by_path"] = by_path[row["name"]]
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

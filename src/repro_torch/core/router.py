@@ -23,7 +23,7 @@ from repro_torch.models.encoder import (RouterConfig, init_router_encoder,
                                         router_encode)
 from repro_torch.training.optim import (AdamWConfig, adamw_update,
                                         init_opt_state)
-from repro_torch.training.trainer import trainable
+from repro_torch.training.trainer import seeded_init, trainable
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,13 +88,13 @@ def train_router(rcfg: RouterConfig, tokens: np.ndarray, mask: np.ndarray,
     """Train one router. ``val`` = (tokens, mask, labels) selects the best
     checkpoint across epochs (paper §4.1). ``params``: the
     ``RouterEncoder`` to train in place (its device is where training
-    runs), or None for a fresh one on ``device``. Returns (module,
-    history); the module holds the best-val weights when ``val`` is given,
-    else the last epoch's."""
+    runs), or None for a fresh one on ``device`` (``seeded_init``).
+    Returns (module, history); the module holds the best-val weights when
+    ``val`` is given, else the last epoch's."""
     rng = np.random.default_rng(tcfg.seed)
     if params is None:
-        gen = torch.Generator(device=device).manual_seed(tcfg.seed)
-        params = init_router_encoder(rcfg, gen, device)
+        params = seeded_init(lambda g, d: init_router_encoder(rcfg, g, d),
+                             tcfg.seed, device)
     dev = next(params.parameters()).device
     n_steps = max(1, len(tokens) // tcfg.batch_size) * tcfg.epochs
     ocfg = AdamWConfig(lr=tcfg.lr, weight_decay=tcfg.weight_decay,

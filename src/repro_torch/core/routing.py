@@ -34,7 +34,7 @@ from typing import (Dict, Optional, Protocol, Sequence, Tuple,
 import numpy as np
 import torch
 
-from repro_torch.models.encoder import RouterConfig, router_encode
+from repro_torch.models.encoder import RouterConfig, router_score
 
 
 @dataclasses.dataclass
@@ -54,8 +54,7 @@ class HybridRouter:
         dev = next(self.params.parameters()).device
         tokens = torch.as_tensor(np.asarray(tokens), device=dev).long()
         mask = torch.as_tensor(np.asarray(mask, np.float32), device=dev)
-        return torch.sigmoid(router_encode(self.params, tokens, mask,
-                                           self.rcfg))
+        return router_score(self.params, tokens, mask, self.rcfg)
 
     def route(self, tokens, mask) -> torch.Tensor:
         """True where the query goes to the SMALL model ("easy")."""

@@ -204,6 +204,48 @@ class ArchConfig:
         return dict(attn=True, ssm=False, moe=is_moe, ffn=not is_moe,
                     global_attn=is_global)
 
+    def reduced(self) -> "ArchConfig":
+        """Reduced smoke variant of the same family: 2 layers (one whole
+        pattern block for hybrid and local:global stacks), d_model <= 128,
+        head_dim 32, <= 4 experts, SSM state <= 16 with 16-channel heads
+        and 8-token chunks, window <= 8; the name gains ``-smoke``."""
+        n_layers = 2
+        if self.family == "hybrid":
+            n_layers = self.attn_every or 2
+        elif self.local_global_ratio > 0:
+            n_layers = self.local_global_ratio + 1
+        n_heads = min(self.n_heads, 4)
+        n_kv = min(self.n_kv_heads, max(1, n_heads // 2)) \
+            if self.n_kv_heads else n_heads
+        if self.n_kv_heads == self.n_heads:
+            n_kv = n_heads
+        return dataclasses.replace(
+            self,
+            name=self.name + "-smoke",
+            n_layers=n_layers,
+            d_model=min(self.d_model, 128),
+            n_heads=n_heads,
+            n_kv_heads=n_kv,
+            head_dim=32,
+            d_ff=min(self.d_ff, 256) if self.d_ff else 0,
+            vocab_size=min(self.vocab_size, 512),
+            n_experts=min(self.n_experts, 4) if self.n_experts else 0,
+            top_k=min(self.top_k, 2) if self.top_k else 0,
+            ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
+            ssm_headdim=16 if self.ssm_state else self.ssm_headdim,
+            ssm_chunk=8,
+            n_enc_layers=2 if self.is_encoder_decoder else 0,
+            enc_seq=16 if self.is_encoder_decoder else self.enc_seq,
+            num_frontend_tokens=min(self.num_frontend_tokens, 8),
+            sliding_window=min(self.sliding_window, 8)
+            if self.sliding_window else 0,
+            long_context_window=64,
+            attention_sink=4,
+            attn_chunk=16,
+            vocab_pad_multiple=64,
+            remat=False,
+        )
+
     def small_sibling(self, scale: int = 4) -> "ArchConfig":
         """The 'S' role of the hybrid-routing pair for this family: a
         same-family model with ~1/scale the layer count and width."""

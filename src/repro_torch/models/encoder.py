@@ -119,3 +119,10 @@ def router_encode(model: RouterEncoder, tokens, mask,
     pooled = (x * m[..., None]).sum(1) / denom
     h = torch.tanh(pooled @ model.head_w1)
     return (h @ model.head_w2)[:, 0].float()
+
+
+def router_score(model: RouterEncoder, tokens, mask,
+                 cfg: RouterConfig) -> torch.Tensor:
+    """p_w(x) in [0, 1], the paper's router score: the sigmoid of
+    ``router_encode``'s logits (B,)."""
+    return torch.sigmoid(router_encode(model, tokens, mask, cfg))

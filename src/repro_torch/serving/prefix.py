@@ -55,6 +55,11 @@ class PrefixStats:
                               # of an already-resident prefix don't count)
     evicted_pages: int = 0    # tree pages released (LRU pressure or cap)
 
+    @property
+    def hit_rate(self) -> float:
+        """Fraction of admission walks that found any cached prefix."""
+        return self.hits / self.lookups if self.lookups else 0.0
+
 
 class _Node:
     """One cached full page: ``key`` is the page_size token ids whose K/V

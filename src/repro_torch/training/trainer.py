@@ -86,16 +86,23 @@ def batch_iterator(rng: np.random.Generator, arrays: dict, batch_size: int,
                for k, v in arrays.items()}
 
 
+def seeded_init(init, seed: int, device="cuda") -> torch.nn.Module:
+    """``init(generator, "cpu")`` drawn from the CPU's ``torch.Generator``
+    seeded with ``seed``, then moved to ``device``: a seed names the same
+    weights on every device, as a ``jax.random`` key does (a CUDA
+    generator draws another stream from the same seed)."""
+    return init(torch.Generator().manual_seed(seed), "cpu").to(device)
+
+
 def train_lm(bundle: ModelBundle, arrays: dict, tcfg: TrainConfig,
              params=None, device="cuda"):
     """Train an LM on teacher-forced arrays. ``params``: the model
     module to train in place (its device is where training runs), or None
-    for a fresh one on ``device`` from ``torch.Generator`` seeded with
-    ``tcfg.seed``. Returns (module, history)."""
+    for a fresh one on ``device`` (``seeded_init``). Returns (module,
+    history)."""
     rng = np.random.default_rng(tcfg.seed)
     if params is None:
-        gen = torch.Generator(device=device).manual_seed(tcfg.seed)
-        params = bundle.init(gen, device)
+        params = seeded_init(bundle.init, tcfg.seed, device)
     dev = next(params.parameters()).device
     ocfg = AdamWConfig(lr=tcfg.lr, warmup_steps=max(1, tcfg.steps // 20),
                        total_steps=tcfg.steps)

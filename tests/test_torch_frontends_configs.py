@@ -4,10 +4,11 @@ the vlm ``forward``, ``prefill`` and ``decode_step`` on bridged weights,
 ``build_generate_fn`` with 8 frontend tokens (its cache sized with them),
 ``Engine._kv_slab_bytes``, ``make_engine``'s fallback to ``Engine`` and the
 token-only engines' refusal, and mirrors of tests/test_arch_smoke.py and
-tests/test_config_serving_matrix.py over ``ARCH_IDS`` (reduced configs
-built from the reference's ``reduced()``, field by field). Inputs are made
-with numpy from a seed; fp32 at "highest" matmul precision on both sides;
-logits within TOL of their scale, greedy tokens exact."""
+tests/test_config_serving_matrix.py over ``ARCH_IDS`` (the port's
+reduced configs, held field by field to the reference's ``reduced()``).
+Inputs are made with numpy from a seed; fp32 at "highest" matmul
+precision on both sides; logits within TOL of their scale, greedy tokens
+exact."""
 import dataclasses
 
 import numpy as np
@@ -221,9 +222,12 @@ def test_arch_config_exactness(arch):
 
 
 def _reduced(arch, **kw):
-    """The reference's reduced smoke variant, converted field by field."""
-    return _port_cfg(dataclasses.replace(jax_get_config(arch).reduced(),
-                                         **kw))
+    """The port's reduced smoke variant, held field by field to the
+    reference's."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), **kw)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(
+        dataclasses.replace(jax_get_config(arch).reduced(), **kw))
+    return cfg
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)

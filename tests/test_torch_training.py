@@ -31,11 +31,12 @@ from repro_torch.core import router
 from repro_torch.core.quality import scorer_loglik
 from repro_torch.models.common import softmax_xent
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.encoder import RouterConfig
+from repro_torch.models.encoder import RouterConfig, init_router_encoder
 from repro_torch.models.model import build_model
 from repro_torch.training import optim
 from repro_torch.training.checkpoint import save_checkpoint
-from repro_torch.training.trainer import TrainConfig, train_lm, trainable
+from repro_torch.training.trainer import (TrainConfig, seeded_init,
+                                          train_lm, trainable)
 from conftest import tiny_cfg
 
 ATOL = 1e-4      # logits: fp32, another summation order
@@ -270,6 +271,28 @@ def test_train_lm_steps_match_reference():
     np.testing.assert_allclose(got[..., :cfg.vocab_size].numpy(),
                                np.asarray(want)[..., :cfg.vocab_size],
                                atol=ATOL)
+
+
+@pytest.mark.parametrize("what", ["lm", "router"])
+def test_seeded_init_is_the_cpu_draw_on_every_device(what):
+    """``train_lm``'s and ``train_router``'s fresh weights are the CPU
+    generator's draw from the seed, moved to the device, so a seed names
+    the same weights on the card as on the CPU (a CUDA generator draws
+    another stream). The "meta" device has no generator at all: the draw
+    never happens on the target device."""
+    if what == "lm":
+        init = build_model(_port_cfg(TIERS["tiny"][0])).init
+    else:
+        rcfg = RouterConfig(vocab_size=64, n_layers=1, d_model=32,
+                            n_heads=2, d_ff=64)
+        init = lambda g, d: init_router_encoder(rcfg, g, d)
+    want = init(torch.Generator().manual_seed(7), "cpu").state_dict()
+    got = seeded_init(init, 7, "cpu").state_dict()
+    meta = seeded_init(init, 7, "meta").state_dict()
+    assert got.keys() == want.keys() == meta.keys()
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    assert all(meta[k].device.type == "meta"
+               and meta[k].shape == want[k].shape for k in want)
 
 
 def test_bce_loss_matches_reference():

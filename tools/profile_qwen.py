@@ -97,6 +97,7 @@ def build_paths(torch, cs):
     import numpy as np
     from repro_torch.configs.qwen15_32b import CONFIG as QWEN
     from repro_torch.core.routing import HybridRouter, ThresholdPolicy
+    from repro_torch.launch.serve import scaled_sibling
     from repro_torch.models.encoder import RouterConfig, init_router_encoder
     from repro_torch.models.model import build_model
     from repro_torch.serving.engine import ContinuousEngine, Engine
@@ -104,7 +105,7 @@ def build_paths(torch, cs):
     from repro_torch.serving.pool import ContinuousPoolEngine
 
     dev = torch.device("cuda")
-    cfgs = {"half": dataclasses.replace(cs.scaled_sibling(QWEN, 2),
+    cfgs = {"half": dataclasses.replace(scaled_sibling(QWEN, 2),
                                         n_layers=2),
             "full": dataclasses.replace(QWEN, n_layers=4)}
     bundles = {n: build_model(c) for n, c in cfgs.items()}

@@ -118,6 +118,7 @@ def _serving(torch, cs):
     import numpy as np
     from repro_torch.configs.mamba2_130m import CONFIG as MAMBA
     from repro_torch.core.routing import HybridRouter, ThresholdPolicy
+    from repro_torch.launch.serve import scaled_sibling
     from repro_torch.models.encoder import RouterConfig, init_router_encoder
     from repro_torch.models.model import build_model
     from repro_torch.serving.engine import ContinuousEngine, Engine
@@ -125,7 +126,7 @@ def _serving(torch, cs):
     from repro_torch.serving.pool import ContinuousPoolEngine
 
     dev = torch.device("cuda")
-    cfgs = {"half": cs.scaled_sibling(MAMBA, 2), "full": MAMBA}
+    cfgs = {"half": scaled_sibling(MAMBA, 2), "full": MAMBA}
     bundles = {n: build_model(c) for n, c in cfgs.items()}
     models = {n: bundles[n].init(torch.Generator(device=dev)
                                  .manual_seed(200 + i), dev)
