@@ -128,6 +128,18 @@ and prints no result line):
    repro_torch.launch.train.main --arch mamba2-130m --steps 20 --out
    (the checkpoint loads back the trained weights exactly). Each run's
    wall, its stream's tokens/s and the phase's seconds are logged.
+8. The static analysis on the card (after phase 5's qwen and mamba2
+   checks, on the models phases 4 and 4c hold): (a) the port's four
+   passes (repro_torch.analysis) over this checkout, in process: no
+   finding, no allowlist problem; (b) kernel_check's probes on CUDA
+   tensors, every call passed through to the real entry and audited,
+   every output against its plain version at phase 3's tolerances; (c)
+   three short serves of their own with every launch audited (int
+   operands copied to the host at each launch): the qwen1.5-32b pool (K1,
+   K2; K1's rows held to the walk where the decode step uses them), the
+   dense hybrid path on the same models (K4, K5) and a mamba2-130m pool
+   engine (K3). Launches audited by entry, findings (none allowed) and
+   the phase's seconds are logged.
 
 It imports neither JAX nor the JAX package. Weights are random, from
 seeded torch.Generators; nothing is downloaded. The last two lines are a
@@ -3603,6 +3615,155 @@ def launcher_phase(torch, card: str, smi: str):
     return by_path
 
 
+# ------------------------------------------------------------------ phase 8
+AUDIT_PROMPTS, AUDIT_TOKENS = 6, 8    # phase 8(c)'s short serves
+# the C entries each serve of phase 8(c) must launch
+AUDIT_SERVES = {"qwen1.5-32b pool": ("paged_decode_attention_f32",
+                                     "paged_prefill_attention_f32"),
+                "qwen1.5-32b dense": ("flash_attention_f32",
+                                      "decode_attention_f32"),
+                "mamba2-130m pool": ("ssd_chunk_scan_f32",)}
+
+
+def _audited(kernel_check, tag, calls, entries, must=()):
+    """Audit ``calls``; log the launches by entry and the findings. Raises
+    on a finding or on an entry of ``must`` never launched."""
+    found = kernel_check.audit(calls, entries)
+    by_entry = collections.Counter(c.entry for c in calls
+                                   if c.kind == "launch")
+    queries = sum(c.kind == "query" for c in calls)
+    log(f"[analysis] {tag}: audited {dict(sorted(by_entry.items()))} "
+        f"launches and {queries} queries: {len(found)} findings")
+    for f in found[:20]:
+        log(f"[analysis]   {f.format()}")
+    if found:
+        raise AssertionError(f"{tag}: {len(found)} launch audit findings")
+    missing = [e for e in must if not by_entry[e]]
+    if missing:
+        raise AssertionError(f"{tag}: no audited launch of {missing}")
+    return by_entry
+
+
+def _rows_noted(rec, bundle):
+    """``bundle`` whose paged decode step tells the recorder which rows it
+    uses (its ``active`` argument) while the step runs."""
+    step = bundle.decode_step_paged
+
+    def decode(*args, **kw):
+        rec.rows_in_use = args[5].to("cpu").numpy().astype(bool)
+        try:
+            return step(*args, **kw)
+        finally:
+            rec.rows_in_use = None
+    return dataclasses.replace(bundle, decode_step_paged=decode)
+
+
+def analysis_phase(torch, card: str, smi: str, pool_run: dict,
+                   ssm_run: dict):
+    """Phase 8 on the models phases 4 and 4c hold. (a) The port's four
+    static passes over this checkout's src/repro_torch, in process: no
+    finding and no allowlist problem. (b) kernel_check's probes on CUDA
+    tensors, each call passed through to the real entry and audited, each
+    output held against its plain version at phase 3's tolerances. (c)
+    Three short serves of their own (never timed) with the recorder on:
+    the qwen1.5-32b pool (K1, K2), the dense hybrid path on the same
+    models and router (K4, K5) and a mamba2-130m pool engine (K3); every
+    launch audited with its int operands copied to the host. K1's rows
+    are held to the walk only where the decode step uses them."""
+    import numpy as np
+    from repro_torch.analysis import __main__ as analysis_cli
+    from repro_torch.analysis import kernel_check
+    from repro_torch.core.routing import ThresholdPolicy
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import ContinuousEngine, Engine
+    from repro_torch.serving.hybrid import HybridEngine
+    from repro_torch.serving.pool import ContinuousPoolEngine
+
+    t0 = time.monotonic()
+    # ---- (a) the four passes
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = analysis_cli.main(["--root", str(ROOT / "src" / "repro_torch")])
+    for line in printed.getvalue().splitlines():
+        log(f"[analysis] {line}")
+    if rc != 0:
+        raise AssertionError(f"python -m repro_torch.analysis exited {rc}")
+    entries = kernel_check.read_entries(ROOT / "src" / "repro_torch" / "csrc")
+
+    # ---- (b) the probes on the card
+    with kernel_check.capture(live=True) as rec:
+        for family, modes in kernel_check.probe_modes(
+                "cuda", "cuda", seed=1).items():
+            for mode in modes:
+                rec.mode = mode.name
+                got = mode.run()
+                torch.cuda.synchronize()
+                want = mode.plain()
+                err, scale = _max_err(got, want)
+                tol = SSD_TOL * max(1.0, scale) if mode.scaled \
+                    else KERNEL_TOL
+                finite = all(torch.isfinite(t).all().item() for t in
+                             (got if isinstance(got, tuple) else (got,)))
+                log(f"[analysis] probe {family}[{mode.name}]: max abs err "
+                    f"{err:.3g} <= {tol:.3g}")
+                if not (finite and err <= tol):
+                    raise AssertionError(
+                        f"probe {family}[{mode.name}]: max abs err {err} > "
+                        f"{tol} (finite: {finite})")
+    _audited(kernel_check, "probes", rec.calls, entries,
+             must=tuple(e.name for e in entries.values() if e.is_launch))
+
+    # ---- (c) three short serves, every launch audited
+    n = AUDIT_PROMPTS
+    tokens, mask = pool_run["tokens"][:n], pool_run["mask"][:n]
+    router = pool_run["router"]
+    audited = {}
+    with kernel_check.capture(live=True) as rec:
+        rec.mode = "qwen pool"
+        tiers = [(name, ContinuousEngine(
+            _rows_noted(rec, build_model(pool_run["cfgs"][name])),
+            pool_run["models"][name], max_new_tokens=AUDIT_TOKENS,
+            n_slots=N_SLOTS, max_seq=MAX_SEQ)) for name in ("half", "full")]
+        ContinuousPoolEngine(ThresholdPolicy(router), tiers).serve(
+            tokens, mask, seed=0)
+        torch.cuda.synchronize()
+    audited["qwen1.5-32b pool"] = rec.calls
+    with kernel_check.capture(live=True) as rec:
+        rec.mode = "qwen dense"
+        engines = {name: Engine(build_model(pool_run["cfgs"][name]),
+                                pool_run["models"][name],
+                                max_new_tokens=AUDIT_TOKENS)
+                   for name in ("half", "full")}
+        HybridEngine(router, engines["half"], engines["full"]).serve(
+            tokens, mask, seed=0)
+        torch.cuda.synchronize()
+    audited["qwen1.5-32b dense"] = rec.calls
+    rng = np.random.default_rng(11)
+    with kernel_check.capture(live=True) as rec:
+        rec.mode = "mamba2 pool"
+        eng = ContinuousEngine(build_model(ssm_run["cfg"]), ssm_run["model"],
+                               max_new_tokens=AUDIT_TOKENS, n_slots=N_SLOTS,
+                               max_seq=MAX_SEQ)
+        for length in rng.integers(24, 300, n):
+            eng.submit(rng.integers(4, ssm_run["cfg"].vocab_size, length)
+                       .astype(np.int32))
+        eng.run()
+        torch.cuda.synchronize()
+    audited["mamba2-130m pool"] = rec.calls
+    for tag, calls in audited.items():
+        _audited(kernel_check, tag, calls, entries, must=AUDIT_SERVES[tag])
+    # what the rows filter is for: decode launches whose unused rows (idle
+    # or prefilling slots) lie past the walk
+    dec = [dataclasses.replace(c, rows=None)
+           for c in audited["qwen1.5-32b pool"]
+           if c.entry == "paged_decode_attention_f32"]
+    past = sum(bool(kernel_check.audit([c], entries, {"kernel-page-walk"}))
+               for c in dec)
+    log(f"[analysis] qwen pool: {past} of {len(dec)} K1 launches hand the "
+        "kernel unused rows outside the walk (masked by the step)")
+    log(f"[analysis] phase 8 {time.monotonic() - t0:.3f} s on {card} ({smi})")
+
+
 def main() -> int:
     import torch
     card, smi = device_phase(torch)
@@ -3631,6 +3792,7 @@ def main() -> int:
     device_vs_cpu_phase(torch, pool_run["models"]["full"],
                         pool_run["cfgs"]["full"])
     device_vs_cpu_phase(torch, ssm_run["model"], ssm_run["cfg"])
+    analysis_phase(torch, card, smi, pool_run, ssm_run)
     # phase 4d holds 3.88 B + 0.76 B params, their pools and a router over
     # 2048 positions: it runs on the memory phases 4-4c held
     del pool_run, ssm_run

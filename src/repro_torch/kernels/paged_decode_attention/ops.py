@@ -23,8 +23,11 @@ def paged_decode_attention_gqa(q, k_pages, v_pages, page_table, seq_lens, *,
     page_table: (B, MP) int32; seq_lens: (B,) int32. ``pages_bound``: the
     caller guarantees every seq_len fits in that many pages (None walks the
     full table width); ``window``: sliding-window size (0 = global);
-    ``pages_start``: first walked page (window layers only). Returns
-    (B, K, G, D) in q's dtype, accumulated in fp32."""
+    ``pages_start``: first walked page (window layers only). The promise
+    binds the rows whose outputs the caller uses: a row past the walk
+    reads only the walked pages (the engine's idle and prefilling slots,
+    whose outputs its decode step masks). Returns (B, K, G, D) in q's
+    dtype, accumulated in fp32."""
     B, K, G, D = q.shape
     _, ps, Kk, Dk = k_pages.shape
     MP = page_table.shape[1]

@@ -28,6 +28,11 @@ Pages may also be held outside any slot (``hold_pages``: the fault
 harness's page pressure, a co-tenant, a shrinking quota) until
 ``release_pages`` gives them back; held pages count as in use, and come
 only from the free list, never from the tree.
+
+``repro_torch.analysis.page_ledger`` checks the single free path: any
+other write to the free list or a refcount, in this module, the engine,
+the pool or the prefix tree, is a finding, except the two hold hooks,
+allowlisted with their reasons (``analysis/allowlist.py``).
 """
 from __future__ import annotations
 

@@ -73,11 +73,12 @@ DONE = "done"                # retired
 FINISH_REASONS = ("eos", "length", "context_cap", "rejected", "deadline")
 
 # Declared lifecycle edges (from_state, to_state) — the machine-checked
-# source of truth for the request/slot FSM. ``repro.analysis.fsm_check``
-# AST-extracts every ``.state = X`` assignment in scheduler/engine/pool and
-# verifies it lands on one of these edges at a site declared in
-# ``repro.analysis.fsm_spec``; adding a state or a transition without
-# growing this tuple (and the spec) fails the analysis job.
+# source of truth for the request/slot FSM. ``repro_torch.analysis.
+# fsm_check`` AST-extracts every ``.state = X`` assignment in
+# scheduler/engine/pool and verifies it lands on one of these edges at a
+# site declared in ``repro_torch.analysis.fsm_spec``; adding a state or a
+# transition without growing this tuple (and the spec) fails
+# ``python -m repro_torch.analysis``.
 TRANSITIONS = (
     (QUEUED, PREFILLING),       # admit
     (QUEUED, DONE),             # shed / deadline before ever holding a slot
