@@ -140,6 +140,23 @@ and prints no result line):
    dense hybrid path on the same models (K4, K5) and a mamba2-130m pool
    engine (K3). Launches audited by entry, findings (none allowed) and
    the phase's seconds are logged.
+9. The dry run and its steps (after phase 8, on phase 4's models): (a)
+   python -m repro_torch.launch.dryrun on the host, three subprocesses
+   started together with no GPU visible (qwen1.5-32b x decode_32k, which
+   runs the sequence-sharded flash decode, gemma3-4b x train_4k and
+   mamba2-130m x prefill_32k on the (16, 16) mesh of fake ranks): every
+   record ok, its peak, roofline terms and dominant term logged; (c) the
+   fused K-tier step (build_fused_pool_step) on phase 4's two qwen tiers
+   and router, 8 rows after each tier's prefill: every row's logits equal
+   its tier's own decode_step exactly, K5 once a layer of each tier; (b)
+   the decode (B 8 over 4,096 positions, K5), prefill (B 2, S 4,096, K4)
+   and train (B 1, S 1,024, bf16 moments, no kernel) steps of
+   qwen1.5-32b at every width cut to 2 layers, and mamba2-130m's prefill
+   (B 2, S 4,096, K3), each predicted by the fake run of the same config
+   on one device: predicted and measured peak logged, the dispatch
+   counter's products equal to FlopCounterMode's on the card run (and
+   the fake train step's), decode and prefill logits against the CPU
+   (the qwen prefill's first row only).
 
 It imports neither JAX nor the JAX package. Weights are random, from
 seeded torch.Generators; nothing is downloaded. The last two lines are a
@@ -157,7 +174,9 @@ summed over both; "whisper-large-v3" and "internvl2-26b": phase 4h's
 serves; "launch-serve-mixed", "launch-serve-spec" and
 "launch-serve-dense": phase 7's three serving-launcher runs (a) to (c),
 each counted over the whole run: training launches nothing, labelling
-runs K4, K5 and K3 in sample_responses, serving the path's kernels).
+runs K4, K5 and K3 in sample_responses, serving the path's kernels;
+"dryrun-steps": phase 9(b)'s steps, two runs each, and "fused-pool":
+phase 9(c)'s fused step).
 """
 from __future__ import annotations
 
@@ -3764,6 +3783,279 @@ def analysis_phase(torch, card: str, smi: str, pool_run: dict,
     log(f"[analysis] phase 8 {time.monotonic() - t0:.3f} s on {card} ({smi})")
 
 
+# ------------------------------------------------------------------ phase 9
+# (a) the dry run's combinations, each a subprocess on the host
+DRYRUN_COMBOS = (("qwen1.5-32b", "decode_32k"), ("gemma3-4b", "train_4k"),
+                 ("mamba2-130m", "prefill_32k"))
+DRYRUN_TIMEOUT_S = 600
+STEP_DEPTH = 2                          # (b): qwen1.5-32b's layers
+FUSED_B, FUSED_PROMPT = 8, 32           # (c): rows, prompt tokens a row
+
+
+def _step_runs():
+    """(tag, config, shape, kernel the step launches, launches a run):
+    phase 9(b)'s steps on the card."""
+    from repro_torch.configs.mamba2_130m import CONFIG as MAMBA
+    from repro_torch.configs.qwen15_32b import CONFIG as QWEN
+    from repro_torch.models.config import InputShape
+    qwen = dataclasses.replace(QWEN, n_layers=STEP_DEPTH)
+    return (("qwen decode", qwen, InputShape("card-decode", 4096, 8,
+                                             "decode"),
+             "decode_attention", qwen.n_layers),
+            ("qwen prefill", qwen, InputShape("card-prefill", 4096, 2,
+                                              "prefill"),
+             "flash_attention", qwen.n_layers),
+            ("qwen train", qwen, InputShape("card-train", 1024, 1, "train"),
+             None, 0),
+            ("mamba2 prefill", MAMBA, InputShape("card-prefill", 4096, 2,
+                                                 "prefill"),
+             "ssd_chunk_scan", MAMBA.n_layers))
+
+
+def _step_args(torch, bundle, model, shape, dev, gen):
+    """The step's arguments on ``dev``, drawn from ``gen``: a decode cache
+    of random K/V with every entry valid (the new token at the last
+    position, as the dry run's ``cache_specs``), a prompt batch, or a
+    training batch with the dry run's bf16 moments."""
+    from repro_torch.launch.steps import DRYRUN_OPT
+    from repro_torch.training.optim import init_opt_state
+    cfg, B, S = bundle.cfg, shape.global_batch, shape.seq_len
+    tok = lambda n: torch.randint(4, cfg.vocab_size, (B, n), generator=gen,
+                                  device=dev)
+    if shape.kind == "decode":
+        cache = bundle.init_cache(B, S, device=dev)
+        for k in ("k", "v"):
+            cache[k].normal_(generator=gen)
+        cache["pos"] = S - 1
+        return (model, cache, tok(1))
+    if shape.kind == "prefill":
+        return (model, {"tokens": tok(S)})
+    batch = {"tokens": tok(S), "labels": tok(S),
+             "loss_mask": torch.ones((B, S), device=dev)}
+    return (model, init_opt_state(dict(model.named_parameters()),
+                                  DRYRUN_OPT), batch)
+
+
+def _to_cpu(torch, args, cpu_model):
+    """The step's arguments copied to the CPU, ``cpu_model`` in the
+    model's place."""
+    out = [cpu_model]
+    for a in args[1:]:
+        if isinstance(a, dict):
+            out.append({k: v.to("cpu", copy=True) if hasattr(v, "to") else v
+                        for k, v in a.items()})
+        else:
+            out.append(a.to("cpu", copy=True))
+    return tuple(out)
+
+
+def card_steps_phase(torch, card: str, smi: str, counters: dict):
+    """Phase 9(b): the dry run's decode, prefill and train steps as
+    entry points on the card, each predicted first by the fake run of the
+    same config and shape on one device (``launch.dryrun.trace_step``):
+    predicted against measured peak memory (the card's peak over what was
+    allocated before the step's model), the count of products on the card
+    by the port's dispatch counter against ``FlopCounterMode`` on the same
+    run (equal exactly; the train step's also equal to the fake run's,
+    the kernels of decode and prefill doing products neither mode sees),
+    the step's wall, and decode and prefill outputs against the CPU at
+    DEVICE_TOL. Returns the kernels' launches over the steps."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.launch import cost_analysis, steps
+    from repro_torch.launch.dryrun import trace_step
+    from repro_torch.models.model import build_model
+
+    dev = torch.device("cuda")
+    for c in counters.values():
+        c.launches = 0
+    # config name -> (its model on the card, bytes allocated before it)
+    model_of = {}
+    for tag, cfg, shape, kernel, per_run in _step_runs():
+        bundle = build_model(cfg)
+        t0 = time.monotonic()
+        pred = trace_step(cfg, shape)
+        log(f"[steps] {tag}: fake run on one device {time.monotonic() - t0:.2f}"
+            f" s: predicted peak {pred['memory']['peak_gb']:.3f} GB, "
+            f"{pred['flops_per_dev']:.6g} products' FLOPs")
+        if cfg.name not in model_of:
+            model_of.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            g = torch.Generator(device=dev).manual_seed(900)
+            model_of[cfg.name] = (bundle.init(g, dev), base)
+        model, base = model_of[cfg.name]
+        gen = torch.Generator(device=dev).manual_seed(901)
+        args = _step_args(torch, bundle, model, shape, dev, gen)
+        cpu_args = None
+        if shape.kind != "train":
+            cpu = type(model)(cfg, device="cpu")
+            cpu.load_state_dict(model.state_dict())
+            cpu_args = _to_cpu(torch, args, cpu)
+            if tag == "qwen prefill":    # the CPU's prefill on one row
+                cpu_args = (cpu, {"tokens": cpu_args[1]["tokens"][:1]})
+        fn = {"decode": lambda: steps.build_decode_step(bundle, False),
+              "prefill": lambda: steps.build_prefill_step(bundle,
+                                                          shape.seq_len),
+              "train": lambda: steps.build_train_step(bundle)}[shape.kind]()
+        k0 = {k: c.launches for k, c in counters.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with FlopCounterMode(display=False) as fc, \
+                cost_analysis.CostCounter() as cc:
+            out = fn(*args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        if shape.kind == "decode":      # the timed step writes there again
+            args[1]["pos"] = shape.seq_len - 1
+        t0 = time.monotonic()
+        fn(*args)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        ran = {k: c.launches - k0[k] for k, c in counters.items()}
+        want = {k: (2 * per_run if k == kernel else 0) for k in counters}
+        log(f"[steps] {tag} on {card} ({smi}): measured peak "
+            f"{peak / 1e9:.3f} GB against {pred['memory']['peak_gb']:.3f} GB "
+            f"predicted; products {cc.flops:.6g} FLOPs by the counter, "
+            f"{fc.get_total_flops():.6g} by FlopCounterMode "
+            f"({pred['flops_per_dev']:.6g} in the fake run); wall "
+            f"{wall * 1e3:.3f} ms a step; launches {ran} (expected {want})")
+        if cc.flops != fc.get_total_flops():
+            raise AssertionError(f"{tag}: counter {cc.flops} != "
+                                 f"FlopCounterMode {fc.get_total_flops()}")
+        if shape.kind == "train" and cc.flops != pred["flops_per_dev"]:
+            raise AssertionError(f"{tag}: card {cc.flops} != fake run "
+                                 f"{pred['flops_per_dev']} FLOPs")
+        if ran != want:
+            raise AssertionError(f"{tag}: launches {ran} != {want}")
+        if shape.kind == "train":
+            if not torch.isfinite(out[2]):
+                raise AssertionError(f"{tag}: loss {out[2]}")
+            log(f"[steps] {tag}: loss {float(out[2]):.6f}")
+        else:
+            with torch.no_grad():
+                want_logits = fn(*cpu_args)[0]
+            got = out[0][:len(want_logits)].float().cpu()
+            if got.shape != want_logits.shape:
+                raise AssertionError(f"{tag}: logits {tuple(got.shape)}")
+            _compare(torch, f"phase 9 {tag}", [got], [want_logits])
+        del args, out, cpu_args, model
+    del model_of
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: c.launches for k, c in counters.items() if c.launches}
+
+
+def fused_pool_phase(torch, card: str, smi: str, pool_run: dict,
+                     counters: dict):
+    """Phase 9(c): ``build_fused_pool_step`` on phase 4's two qwen1.5-32b
+    tiers and router: FUSED_B rows, one step after each tier's prefill
+    of FUSED_PROMPT tokens. Every row's logits equal its tier's own
+    ``decode_step`` logits exactly (cut to the smaller padded vocab), and
+    K5 launches once a layer of each tier."""
+    import numpy as np
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.pool import build_fused_pool_step
+
+    dev = torch.device("cuda")
+    names = ("half", "full")
+    cfgs, models = pool_run["cfgs"], pool_run["models"]
+    bundles = [build_model(cfgs[n]) for n in names]
+    router = pool_run["router"]
+    prompts = torch.as_tensor(pool_run["tokens"][:FUSED_B, :FUSED_PROMPT]
+                              .astype(np.int64), device=dev)
+    rtok = torch.as_tensor(pool_run["tokens"][:FUSED_B], device=dev)
+    rmask = torch.as_tensor(pool_run["mask"][:FUSED_B], device=dev)
+    token = torch.full((FUSED_B, 1), 17, device=dev)
+    with torch.no_grad():
+        caches = [b.prefill(models[n], {"tokens": prompts},
+                            FUSED_PROMPT + 4)[1]
+                  for b, n in zip(bundles, names)]
+        own = [b.decode_step(models[n], {**c, "k": c["k"].clone(),
+                                         "v": c["v"].clone()}, token)[0]
+               for b, n, c in zip(bundles, names, caches)]
+    step = build_fused_pool_step(router.rcfg, bundles, (router.threshold,))
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.monotonic()
+    logits, _, tier = step(router.params, tuple(models[n] for n in names),
+                           rtok, rmask, tuple(caches), token)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {k: c.launches for k, c in counters.items() if c.launches}
+    want = {"decode_attention": sum(cfgs[n].n_layers for n in names)}
+    V = min(o.shape[-1] for o in own)
+    exact = [bool(torch.equal(logits[r], own[int(tier[r])][r, :V]))
+             for r in range(FUSED_B)]
+    agree = int((tier.cpu().numpy() == pool_run["tier_idx"][:FUSED_B]).sum())
+    log(f"[fused] {FUSED_B} rows, tiers {tier.tolist()} ({agree} of "
+        f"{FUSED_B} as phase 4's pool routed them), logits (B, {V}), "
+        f"{sum(exact)} rows bit-equal to their tier's decode_step, launches "
+        f"{launches} (expected {want}), {wall * 1e3:.3f} ms on {card} "
+        f"({smi})")
+    if launches != want:
+        raise AssertionError(f"fused pool step: launches {launches} != "
+                             f"{want}")
+    if logits.shape != (FUSED_B, V) or not all(exact):
+        raise AssertionError("fused pool step: a row's logits differ from "
+                             "its tier's decode_step")
+    return launches
+
+
+def dryrun_phase(torch, card: str, smi: str, pool_run: dict):
+    """Phase 9 (after phase 8, before phase 4d frees phases 4-4c's
+    models). (a) ``python -m repro_torch.launch.dryrun`` on the host, one
+    subprocess a combination, all three started together and run while
+    the card works (no GPU visible to them): qwen1.5-32b x decode_32k (40
+    KV heads do not divide 16, so the flash decode runs), gemma3-4b x
+    train_4k and mamba2-130m x prefill_32k on the single (16, 16) mesh;
+    each record must be ok; its peak, roofline terms and dominant term are
+    logged. (c) The fused pool step (``fused_pool_phase``). (b) The steps
+    on the card (``card_steps_phase``). Cuts: qwen1.5-32b at depth
+    STEP_DEPTH for (b), the CPU's qwen prefill on the first row only;
+    (c) at FUSED_B rows of FUSED_PROMPT tokens."""
+    import os
+    import tempfile
+    t0 = time.monotonic()
+    out = Path(tempfile.mkdtemp(prefix="dryrun_", dir=ROOT / "build"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    procs = {combo: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         combo[0], "--shape", combo[1], "--mesh", "single", "--out",
+         str(out)], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for combo in DRYRUN_COMBOS}
+    try:
+        counters = _all_counters()
+        fused = fused_pool_phase(torch, card, smi, pool_run, counters)
+        stepped = card_steps_phase(torch, card, smi, counters)
+        for (arch, shape), proc in procs.items():
+            text, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+            for line in text.splitlines()[-6:]:
+                log(f"[dryrun] {line}")
+            rec = json.loads((out / f"{arch}__{shape}__single.json")
+                             .read_text())
+            if proc.returncode != 0 or not rec["ok"]:
+                raise AssertionError(f"dry run {arch} x {shape}: "
+                                     f"{rec.get('error')}")
+            rl, mem = rec["roofline"], rec["memory"]
+            log(f"[dryrun] {arch} x {shape} on {rec['chips']} fake ranks: "
+                f"trace {rec['trace_s']} s on the host, peak "
+                f"{mem['peak_gb']:.3f} GB/device (arguments "
+                f"{mem['argument_gb']:.3f}), compute {rl['compute_s']:.6g} "
+                f"s, memory {rl['memory_s']:.6g} s, collective "
+                f"{rl['collective_s']:.6g} s: dominant {rl['dominant']}; "
+                f"collective bytes {rec['collective_by_kind']}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    log(f"[dryrun] phase 9 {time.monotonic() - t0:.3f} s on {card} ({smi})")
+    return {"dryrun-steps": stepped, "fused-pool": fused}
+
+
 def main() -> int:
     import torch
     card, smi = device_phase(torch)
@@ -3793,6 +4085,9 @@ def main() -> int:
                         pool_run["cfgs"]["full"])
     device_vs_cpu_phase(torch, ssm_run["model"], ssm_run["cfg"])
     analysis_phase(torch, card, smi, pool_run, ssm_run)
+    for path, counts in dryrun_phase(torch, card, smi, pool_run).items():
+        for name, n in counts.items():
+            by_path[name][path] = n
     # phase 4d holds 3.88 B + 0.76 B params, their pools and a router over
     # 2048 positions: it runs on the memory phases 4-4c held
     del pool_run, ssm_run

@@ -1,7 +1,9 @@
 """Routing policies and tier cost accounting (the port of
-``repro.core.routing``, without the fused XLA scoring helper
-``route_scores_jit``): ``HybridRouter``, ``RoutingPolicy``, the policies,
-``TierMeter`` and its two-tier view ``CostMeter``.
+``repro.core.routing``): ``HybridRouter``, ``RoutingPolicy``, the
+policies, ``TierMeter`` and its two-tier view ``CostMeter``. The
+reference's jit-friendly scoring helper ``route_scores_jit`` is
+``models.encoder.router_score`` here, which the fused serving step
+(``serving.pool.build_fused_pool_step``) calls.
 
 The paper's router is binary: a score threshold splits queries between one
 small and one large model. ``RoutingPolicy`` is the protocol the serving

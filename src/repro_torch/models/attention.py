@@ -23,8 +23,12 @@ kernel: its flash wrapper takes equal lengths only). In decode,
 ``decode_cross_attention`` reads a layer's (B, enc_seq, K, Dh) cross slab
 in place through the dense decode kernel, every key valid.
 
-The sequence-sharded flash decode serves a multi-device mesh and is not
-ported.
+On a launcher's mesh (DTensor weights, ``launch.dryrun``) each rank
+computes its own shard of the projections and of the attention cores
+(``sharding.layers``). Under ``sharding.context.flash_decode``
+``decode_attention`` takes ``_flash_decode_seq_sharded`` over a cache
+sequence-sharded on the mesh's "model" axis: plain PyTorch on each rank's
+shard, combined by all-reduces, as the reference's shard_map is.
 """
 from __future__ import annotations
 
@@ -33,11 +37,14 @@ from torch import nn
 
 from repro_torch.kernels.decode_attention.ops import decode_attention_kv
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.paged_decode_attention.ops import \
     paged_decode_attention_gqa
 from repro_torch.kernels.paged_prefill_attention.ops import \
     paged_prefill_attention_gqa
+from repro_torch.sharding import context as shard_ctx
+from repro_torch.sharding import layers as mesh_layers
+from repro_torch.sharding.context import cache_zeros, flash_decode_ctx
+from repro_torch.sharding.rules import placements
 from .common import apply_rope, dtype_of, empty_param
 
 NEG_INF = -1e30
@@ -65,7 +72,42 @@ class Attention(nn.Module):
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk") as one matmul over the flattened heads."""
     D, H, Dh = w.shape
+    if hasattr(w, "device_mesh"):
+        return mesh_layers.proj(x, w)
     return (x @ w.reshape(D, H * Dh)).reshape(*x.shape[:-1], H, Dh)
+
+
+def _attend(kernel, q, k, v, q_pos, *, causal: bool, window: int,
+            chunk: int):
+    """Attention of q (B, Sq, H, Dh), pre-scaled, over k, v (B, Skv, K,
+    Dh): ``kernel(q, k, v)`` (the flash wrapper), or, where ``kernel`` is
+    None, the plain masked softmax by query chunks of ``chunk`` (the whole
+    sequence when 0). On a launcher's mesh each rank attends its own rows
+    (``sharding.layers.attend``)."""
+    if any(hasattr(t, "device_mesh") for t in (q, k, v)):
+        return mesh_layers.attend(kernel, q, k, v, q_pos, causal=causal,
+                                  window=window, chunk=chunk)
+    if kernel is not None:
+        return kernel(q, k, v)
+    return _chunked_attention(q, k, v, q_pos, causal=causal, window=window,
+                              chunk=chunk or q.shape[1])
+
+
+def _chunked_attention(q, k, v, q_pos, *, causal: bool, window: int,
+                       chunk: int):
+    """``_masked_attention`` over query chunks of ``chunk`` (one chunk when
+    the queries are not a multiple of it)."""
+    S = q.shape[1]
+    chunk = min(chunk, S)
+    if S % chunk:
+        chunk = S
+    G = q.shape[2] // k.shape[2]
+    if G > 1 and chunk < S:      # expand the KV heads once, not per chunk
+        k, v = k.repeat_interleave(G, 2), v.repeat_interleave(G, 2)
+    return torch.cat([_masked_attention(q[:, i:i + chunk], k, v,
+                                        q_pos[i:i + chunk], causal=causal,
+                                        window=window)
+                      for i in range(0, S, chunk)], 1)
 
 
 def _project_qkv(attn: Attention, x, cfg, positions):
@@ -80,6 +122,8 @@ def _project_qkv(attn: Attention, x, cfg, positions):
 
 
 def _out_proj(attn: Attention, out, B, S, H, Dh):
+    if hasattr(attn.wo, "device_mesh"):
+        return mesh_layers.out_proj(attn.wo, out, B, S, H, Dh)
     return out.reshape(B, S, H * Dh) @ attn.wo
 
 
@@ -111,8 +155,8 @@ def _masked_attention(q, k, v, q_pos, *, causal: bool, window: int):
     key j at position j, query head h reading kv head h // (H // K).
     Returns (B, Sq, H, Dh)."""
     G = q.shape[2] // k.shape[2]
-    kk = k.repeat_interleave(G, 2)
-    vv = v.repeat_interleave(G, 2)
+    kk = k.repeat_interleave(G, 2) if G > 1 else k
+    vv = v.repeat_interleave(G, 2) if G > 1 else v
     s = torch.einsum("bqhd,bshd->bhqs", q, kk).float()
     k_pos = torch.arange(k.shape[1], device=q.device)
     allowed = torch.ones((len(q_pos), len(k_pos)), dtype=torch.bool,
@@ -134,21 +178,22 @@ def attention_forward(attn: Attention, x, cfg, *, is_global: bool = True,
     (k, v), each (B, Skv, K, Dh), from an encoder for cross-attention
     (``positions`` then index the decoder side only); ``use_rope=False``
     applies no RoPE. Self-attention runs the flash kernel (causal or not);
-    cross-attention the plain masked softmax (``_masked_attention``) on
-    any device. Returns (B, S, D)."""
+    cross-attention the plain masked softmax by query chunks of
+    ``cfg.attn_chunk`` (``_chunked_attention``) on any device. Returns (B,
+    S, D)."""
     B, S, _ = x.shape
     H, Dh = cfg.n_heads, cfg.resolved_head_dim
     if positions is None:
         positions = torch.arange(S, device=x.device)
     q, k, v = _qkv(attn, x, cfg, positions, kv_override, use_rope)
     window = cfg.sliding_window if not is_global else 0
+    q_pos = positions if positions.ndim == 1 else positions[0]
+    kernel = None       # cross-attention: the plain masked softmax
     if kv_override is None:
-        out = flash_attention(q * Dh ** -0.5, k, v, causal=causal,
-                              window=window)
-    else:
-        q_pos = positions if positions.ndim == 1 else positions[0]
-        out = _masked_attention(q * Dh ** -0.5, k, v, q_pos, causal=causal,
-                                window=window)
+        kernel = lambda q, k, v: flash_attention(q, k, v, causal=causal,
+                                                 window=window)
+    out = _attend(kernel, q * Dh ** -0.5, k, v, q_pos, causal=causal,
+                  window=window, chunk=cfg.attn_chunk)
     return _out_proj(attn, out, B, S, H, Dh)
 
 
@@ -156,12 +201,13 @@ def training_attention(attn: Attention, x, cfg, *, is_global: bool = True,
                        causal: bool = True, positions=None, kv_override=None,
                        use_rope: bool = True):
     """``attention_forward`` for training's teacher-forced pass,
-    differentiable: the flash kernel's plain version (one masked softmax
-    over the whole (S, S) score matrix) for self-attention under autograd,
-    on any device; cross-attention is ``attention_forward``'s, plain
-    already. No kernel launches here — the kernels have no backward pass,
-    and the reference's training forward reaches none either. x: (B, S,
-    D). Returns (B, S, D)."""
+    differentiable: the plain masked softmax under autograd for
+    self-attention, on any device, chunked over queries by
+    ``cfg.attn_chunk`` as the reference chunks it (one chunk when S is not
+    a multiple), so no (S, S) score matrix is built whole; cross-attention
+    is ``attention_forward``'s, plain already. No kernel launches here —
+    the kernels have no backward pass, and the reference's training
+    forward reaches none either. x: (B, S, D). Returns (B, S, D)."""
     if kv_override is not None:
         return attention_forward(attn, x, cfg, is_global=is_global,
                                  causal=causal, positions=positions,
@@ -172,23 +218,22 @@ def training_attention(attn: Attention, x, cfg, *, is_global: bool = True,
         positions = torch.arange(S, device=x.device)
     q, k, v = _qkv(attn, x, cfg, positions, None, use_rope)
     window = cfg.sliding_window if not is_global else 0
-    bhsd = lambda t: t.repeat_interleave(H // t.shape[2], 2).movedim(2, 1) \
-        .reshape(B * H, S, Dh)
-    out = attention_ref(bhsd(q * Dh ** -0.5), bhsd(k), bhsd(v), causal=causal,
-                        window=window)
-    return _out_proj(attn, out.reshape(B, H, S, Dh).movedim(1, 2), B, S, H,
-                     Dh)
+    q_pos = positions if positions.ndim == 1 else positions[0]
+    out = _attend(None, q * Dh ** -0.5, k, v, q_pos, causal=causal,
+                  window=window, chunk=cfg.attn_chunk)
+    return _out_proj(attn, out, B, S, H, Dh)
 
 
 def init_kv_cache(cfg, batch: int, max_seq: int, n_layers: int,
-                  device="cuda"):
+                  device="cuda", like=None):
     """Dense per-request cache: (n_layers, batch, max_seq, K, Dh) per
-    tensor, zero-filled."""
+    tensor, zero-filled (sharded like ``like`` under a launcher's
+    activation-sharding context: ``sharding.context.cache_zeros``)."""
     K, Dh = cfg.n_kv_heads, cfg.resolved_head_dim
     shape = (n_layers, batch, max_seq, K, Dh)
     dt = dtype_of(cfg)
-    return {"k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device)}
+    return {n: cache_zeros(n, shape, dt, device, batch, like)
+            for n in ("k", "v")}
 
 
 def prefill_attention(attn: Attention, x, cfg, *, is_global: bool = True,
@@ -202,7 +247,11 @@ def prefill_attention(attn: Attention, x, cfg, *, is_global: bool = True,
         positions = torch.arange(S, device=x.device)
     q, k, v = _project_qkv(attn, x, cfg, positions)
     window = cfg.sliding_window if not is_global else 0
-    out = flash_attention(q * Dh ** -0.5, k, v, causal=True, window=window)
+    q_pos = positions if positions.ndim == 1 else positions[0]
+    out = _attend(lambda q, k, v: flash_attention(q, k, v, causal=True,
+                                                  window=window),
+                  q * Dh ** -0.5, k, v, q_pos, causal=True, window=window,
+                  chunk=cfg.attn_chunk)
     return _out_proj(attn, out, B, S, H, Dh), (k, v)
 
 
@@ -216,7 +265,10 @@ def decode_attention(attn: Attention, x_t, layer_k, layer_v, pos: int, cfg,
     ``pos`` IN PLACE (the reference's ``dynamic_update_slice`` returns a new
     array). ``windowed``: long-context serving mode — attend only to an
     attention-sink prefix plus the trailing ``cfg.long_context_window``
-    positions. Returns out (B, 1, D)."""
+    positions. Under ``flash_decode`` a global layer of a stack without
+    window layers (the reference's static-flag condition) over a cache
+    sequence-sharded on "model" takes ``_flash_decode_seq_sharded``.
+    Returns out (B, 1, D)."""
     B = x_t.shape[0]
     H, Dh = cfg.n_heads, cfg.resolved_head_dim
     Smax = layer_k.shape[1]
@@ -226,8 +278,15 @@ def decode_attention(attn: Attention, x_t, layer_k, layer_v, pos: int, cfg,
     dev = x_t.device
     positions = torch.full((B, 1), pos, device=dev)
     q, k_t, v_t = _project_qkv(attn, x_t, cfg, positions)
-    layer_k[:, pos] = k_t[:, 0]
-    layer_v[:, pos] = v_t[:, 0]
+    fctx = flash_decode_ctx()
+    if (fctx is not None and not windowed and is_global
+            and not cfg.has_window_layers
+            and _seq_sharded(layer_k, fctx[0])):
+        out = _flash_decode_seq_sharded(q * Dh ** -0.5, layer_k, layer_v,
+                                        k_t, v_t, pos, H, *fctx)
+        return _out_proj(attn, out, B, 1, H, Dh)
+    shard_ctx.write_seq(layer_k, pos, k_t)
+    shard_ctx.write_seq(layer_v, pos, v_t)
     if windowed:
         W = min(cfg.long_context_window, Smax)
         sink = min(cfg.attention_sink, Smax)
@@ -245,8 +304,68 @@ def decode_attention(attn: Attention, x_t, layer_k, layer_v, pos: int, cfg,
     if cfg.sliding_window and not is_global:
         valid &= (pos - kpos) < cfg.sliding_window
     valid = valid.to(torch.int8)[None].expand(B, -1).contiguous()
-    out = decode_attention_kv(q[:, 0] * Dh ** -0.5, keys, vals, valid)
+    out = _decode_core(q[:, 0] * Dh ** -0.5, keys, vals, valid)
     return _out_proj(attn, out, B, 1, H, Dh)
+
+
+def _decode_core(q, keys, vals, valid):
+    """``decode_attention_kv`` (q (B, H, Dh), keys/vals (B, S, K, Dh),
+    valid (B, S) int8); on a launcher's mesh on each rank's rows
+    (``sharding.layers.decode_core``)."""
+    if any(hasattr(t, "device_mesh") for t in (q, keys, vals)):
+        return mesh_layers.decode_core(decode_attention_kv, q, keys, vals,
+                                       valid)
+    return decode_attention_kv(q, keys, vals, valid)
+
+
+def _seq_sharded(layer_k, mesh) -> bool:
+    """True when ``layer_k`` (B, S, K, Dh) is a DTensor on ``mesh`` whose
+    sequence dim is sharded on "model" and divides it."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(layer_k, DTensor) or "model" not in mesh.mesh_dim_names:
+        return False
+    m = mesh.mesh_dim_names.index("model")
+    return (layer_k.placements[m] == Shard(1)
+            and layer_k.shape[1] % mesh.shape[m] == 0)
+
+
+def _flash_decode_seq_sharded(q, layer_k, layer_v, k_t, v_t, pos: int,
+                              n_heads: int, mesh, batch_axes=None):
+    """Flash decode over a sequence-sharded KV cache (the reference's
+    shard_map over "model").
+
+    q: (B, 1, H, Dh) pre-scaled; layer_k/v: (B, S, K, Dh) DTensors sharded
+    S -> "model" (batch optionally on ``batch_axes``); k_t/v_t: (B, 1, K,
+    Dh). Each rank writes the new K/V into its shard only if it owns
+    ``pos`` (in place), computes its local max, denominator and weighted
+    sum in plain PyTorch, and all-reduces them over the "model" group
+    (MAX for the max, SUM for the other two): (B, H, 1, 1) and (B, 1, H,
+    Dh) each, instead of gathering the cache. Returns (B, 1, H, Dh), a
+    DTensor batch-sharded as the cache and replicated over "model"."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor
+
+    shard_ctx.write_seq(layer_k, pos, k_t)      # on the rank that holds pos
+    shard_ctx.write_seq(layer_v, pos, v_t)
+    rows = placements((batch_axes, None, None, None), mesh)
+    q = shard_ctx.local_shard(q, mesh, (batch_axes, None, None, None))
+    k, v = layer_k.to_local(), layer_v.to_local()
+    group = (mesh, mesh.mesh_dim_names.index("model"))
+    S_loc = k.shape[1]
+    start = mesh.get_local_rank("model") * S_loc
+    G = n_heads // k.shape[2]
+    kk = k.repeat_interleave(G, 2) if G > 1 else k
+    vv = v.repeat_interleave(G, 2) if G > 1 else v
+    s = torch.einsum("bqhk,bshk->bhqs", q, kk).float()
+    kpos = start + torch.arange(S_loc, device=s.device)
+    s = torch.where(kpos <= pos, s, NEG_INF)
+    m = funcol.all_reduce(s.amax(-1, keepdim=True), "max", group)
+    p = torch.exp(s - m)
+    l = funcol.all_reduce(p.sum(-1, keepdim=True), "sum", group)
+    o = funcol.all_reduce(torch.einsum("bhqs,bshk->bqhk", p.to(vv.dtype),
+                                       vv).float(), "sum", group)
+    out = o / torch.clamp(l.transpose(1, 2), min=1e-30)
+    return DTensor.from_local(out.to(q.dtype), mesh, rows, run_check=False)
 
 
 def init_paged_kv_cache(cfg, num_pages: int, page_size: int, n_layers: int,
@@ -367,5 +486,5 @@ def decode_cross_attention(attn: Attention, x_t, enc_k, enc_v, cfg,
     if valid is None:
         valid = torch.ones((B, enc_k.shape[1]), dtype=torch.int8,
                            device=x_t.device)
-    out = decode_attention_kv(q[:, 0] * Dh ** -0.5, enc_k, enc_v, valid)
+    out = _decode_core(q[:, 0] * Dh ** -0.5, enc_k, enc_v, valid)
     return _out_proj(attn, out, B, 1, H, Dh)

@@ -16,6 +16,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.sharding import layers as mesh_layers
+from repro_torch.sharding.context import (constrain_batch, param_layout_grad,
+                                          sequence_gather, sequence_scatter,
+                                          vocab_layout)
+
 
 def dtype_of(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
@@ -77,6 +82,19 @@ def init_params_(module: nn.Module, generator) -> nn.Module:
     return module
 
 
+def remat(cfg, fn, *args):
+    """``fn(*args)``; under ``cfg.remat`` (and autograd) through
+    ``torch.utils.checkpoint`` (non-reentrant), so the backward pass keeps
+    only the layer's inputs and recomputes the rest, as the reference's
+    ``jax.checkpoint`` of each scanned layer does."""
+    if not cfg.remat:
+        return fn(*args)
+    from torch.utils.checkpoint import checkpoint
+    grad_on = torch.is_grad_enabled()
+    return checkpoint(fn, *args, use_reentrant=False) if grad_on \
+        else fn(*args)
+
+
 # --------------------------------------------------------------------- norms
 class RMSNorm(nn.Module):
     def __init__(self, dim: int, dtype, device=None):
@@ -85,10 +103,14 @@ class RMSNorm(nn.Module):
 
 
 def rmsnorm(norm: RMSNorm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm over the last dim. Under a launcher's sequence sharding
+    the norm runs on the sequence shard and its output, which feeds a
+    projection, is gathered whole (``sharding.context.sequence_gather``;
+    a no-op otherwise)."""
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
-    return (y * norm.scale.float()).to(x.dtype)
+    return sequence_gather((y * norm.scale.float()).to(x.dtype))
 
 
 # ---------------------------------------------------------------------- RoPE
@@ -125,8 +147,10 @@ class MLP(nn.Module):
 
 
 def mlp(m: MLP, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU MLP."""
-    return (F.silu(x @ m.w_gate) * (x @ m.w_in)) @ m.w_out
+    """SwiGLU MLP (its output scattered to the residual stream's sequence
+    shard under a launcher's sequence sharding:
+    ``sharding.context.sequence_scatter``)."""
+    return sequence_scatter((F.silu(x @ m.w_gate) * (x @ m.w_in)) @ m.w_out)
 
 
 # ---------------------------------------------------------------- embeddings
@@ -139,22 +163,38 @@ class Embedding(nn.Module):
 
 
 def embed(emb: Embedding, tokens: torch.Tensor) -> torch.Tensor:
+    """The tokens' rows of the table; a DTensor table (a launcher's mesh)
+    through ``sharding.layers.embed``, each rank on its vocab shard."""
+    if hasattr(emb.table, "device_mesh"):
+        return constrain_batch(mesh_layers.embed(
+            param_layout_grad(emb.table), tokens))
     return emb.table[tokens]
 
 
 def _mask_padded_vocab(logits: torch.Tensor, logical_vocab: int):
     """Padded vocab tail -> the dtype's most negative finite value, as the
     reference masks it: a softmax over the padded width (``softmax_xent``)
-    gives the tail zero mass and zero gradient."""
+    gives the tail zero mass and zero gradient. On a launcher's mesh the
+    logits are first laid out for the loss
+    (``sharding.context.vocab_layout``)."""
+    logits = vocab_layout(logits)
     padded = logits.shape[-1]
-    if padded != logical_vocab:
-        logits[..., logical_vocab:] = torch.finfo(logits.dtype).min
+    if padded == logical_vocab:
+        return logits
+    low = torch.finfo(logits.dtype).min
+    if hasattr(logits, "device_mesh"):   # a DTensor: no in-place fill rule
+        cols = torch.arange(padded, device=logits.device)
+        return torch.where(cols < logical_vocab, logits, low)
+    logits[..., logical_vocab:] = low
     return logits
 
 
 def unembed(emb: Embedding, x: torch.Tensor, logical_vocab: int):
-    """Tied head: project to (padded) vocab logits, padded tail masked."""
-    return _mask_padded_vocab(x @ emb.table.T.to(x.dtype), logical_vocab)
+    """Tied head: project to (padded) vocab logits, padded tail masked
+    (on a launcher's mesh the table's gradient from here takes the
+    table's layout, as the embedding's does: ``param_layout_grad``)."""
+    table = param_layout_grad(emb.table)
+    return _mask_padded_vocab(x @ table.T.to(x.dtype), logical_vocab)
 
 
 class OutputHead(nn.Module):
@@ -175,8 +215,12 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     """Mean token cross-entropy, in fp32. logits (..., V), labels (...)
     int; ``mask`` (...) weights each position (1 = counted)."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if hasattr(logits, "device_mesh"):
+        logz = mesh_layers.logsumexp(logits)
+        ll = mesh_layers.picked(logits, labels)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = logz - ll
     if mask is None:
         return nll.mean()

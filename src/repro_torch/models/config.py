@@ -2,12 +2,14 @@
 
 ``ArchConfig`` keeps the reference's fields, names and defaults one for one,
 so a reference config converts with ``ArchConfig(**dataclasses.asdict(c))``.
-The helpers are those the port's serving path and config registry read.
+The helpers are those the port's serving path, config registry and dry
+run read; ``InputShape`` and ``INPUT_SHAPES`` are the dry run's four
+shapes.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 
 def _round_up(x: int, m: int) -> int:
@@ -26,7 +28,10 @@ class ArchConfig:
     ``use_pallas`` is kept for the 1:1 conversion and selects nothing here:
     in the port a tensor's device decides between a kernel and its plain
     version (CUDA tensors launch the kernel, CPU tensors take the plain
-    PyTorch version).
+    PyTorch version). ``launch.inputs.dryrun_config`` sets
+    ``use_pallas=False`` and ``dtype="bfloat16"``, and the port traces that
+    config only on fake CPU tensors, which run the plain versions, as the
+    reference's jnp path does.
     """
 
     name: str
@@ -113,6 +118,22 @@ class ArchConfig:
         return self.d_inner // self.ssm_headdim
 
     @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def has_recurrent_layers(self) -> bool:
+        """True when serving needs per-slot recurrent (SSD + conv) state."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
+    def has_subquadratic_path(self) -> bool:
+        """True if the arch natively supports long-context decode without a
+        full-attention read of the whole cache (SSM, hybrid, sliding
+        window)."""
+        return self.family in ("ssm", "hybrid") or self.local_global_ratio > 0
+
+    @property
     def frontend_positions(self) -> int:
         """Positions the vision stub frontend prepends to the tokens (its
         ``num_frontend_tokens`` patch embeddings, which the dense cache
@@ -187,6 +208,16 @@ class ArchConfig:
             total += enc + cross
         return int(total)
 
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top_k of n_experts)."""
+        if self.n_experts == 0:
+            return self.param_count()
+        D, F = self.d_model, self.d_ff
+        inactive = sum((self.n_experts - self.top_k) * 3 * D * F
+                       for i in range(self.n_layers)
+                       if self.layer_kind(i)["moe"])
+        return int(self.param_count() - inactive)
+
     def layer_kind(self, i: int) -> dict:
         """What layer ``i`` contains: attention / ssm mixer, moe or dense ffn."""
         if self.family == "ssm":
@@ -203,6 +234,10 @@ class ArchConfig:
             is_global = True
         return dict(attn=True, ssm=False, moe=is_moe, ffn=not is_moe,
                     global_attn=is_global)
+
+    def is_global_layer_flags(self) -> Tuple[bool, ...]:
+        return tuple(self.layer_kind(i)["global_attn"]
+                     for i in range(self.n_layers))
 
     def reduced(self) -> "ArchConfig":
         """Reduced smoke variant of the same family: 2 layers (one whole
@@ -264,3 +299,20 @@ class ArchConfig:
             n_enc_layers=max(2, self.n_enc_layers // scale)
             if self.is_encoder_decoder else 0,
         )
+
+
+# ------------------------------------------------------------------ input shapes
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}

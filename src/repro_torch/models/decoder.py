@@ -22,18 +22,22 @@ stack with MoE layers) puts a routed MoE FFN (``models.moe``) in every
 layer in place of the MLP. ``decoder_forward`` is training's
 teacher-forced pass for every family here: differentiable, it launches no
 kernel, and it returns the MoE layers' load-balance aux summed over
-layers.
+layers. ``cfg.remat`` checkpoints each layer of ``decoder_forward``; the
+layer loops pin their activations batch-sharded
+(``sharding.context.constrain_batch``) where the reference does, a no-op
+unless a launcher installed an activation-sharding context.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from repro_torch.sharding.context import constrain_batch, write_seq
 from . import attention as attn
 from . import moe as moe_lib
 from . import ssm as ssm_lib
 from .common import (MLP, Embedding, OutputHead, RMSNorm, dtype_of, embed,
-                     init_params_, mlp, output_head, rmsnorm, unembed)
+                     init_params_, mlp, output_head, remat, rmsnorm, unembed)
 
 
 class DecoderLayer(nn.Module):
@@ -108,7 +112,7 @@ def _embed_inputs(model: Decoder, batch: dict, cfg):
     x = embed(model.embed, batch["tokens"])
     if cfg.frontend_positions:
         x = torch.cat([batch["frontend_embeds"].to(x.dtype), x], dim=1)
-    return x
+    return constrain_batch(x)
 
 
 def decoder_prefill(model: Decoder, batch: dict, cfg, max_seq=None):
@@ -122,26 +126,39 @@ def decoder_prefill(model: Decoder, batch: dict, cfg, max_seq=None):
     x = _embed_inputs(model, batch, cfg)
     B, S = x.shape[:2]
     max_seq = max(max_seq or S, S)
-    cache = init_decode_cache(cfg, B, max_seq, x.device)
+    cache = init_decode_cache(cfg, B, max_seq, x.device, like=x)
     positions = torch.arange(S, device=x.device)
     for i, layer in enumerate(model.layers):
         if cfg.family == "ssm":
             y, cache["ssm_h"][i], cache["ssm_conv"][i] = ssm_lib.ssm_prefill(
                 layer.ssm, rmsnorm(layer.ln, x, cfg.norm_eps), cfg)
-            x = x + y
+            x = constrain_batch(x + y)
             continue
         is_global = cfg.layer_kind(i)["global_attn"]
         h = rmsnorm(layer.ln1, x, cfg.norm_eps)
         o, (k, v) = attn.prefill_attention(layer.attn, h, cfg,
                                            is_global=is_global,
                                            positions=positions)
-        cache["k"][i, :, :S] = k
-        cache["v"][i, :, :S] = v
+        write_seq(cache["k"][i], 0, k)
+        write_seq(cache["v"][i], 0, v)
         x = x + o
-        x = x + _ffn(layer, x, cfg)[0]
+        x = constrain_batch(x + _ffn(layer, x, cfg)[0])
     cache["pos"] = S
     x = rmsnorm(model.ln_f, x[:, -1:], cfg.norm_eps)
     return _unembed(model, x, cfg)[:, 0], cache
+
+
+def _forward_layer(layer, x, cfg, is_global: bool, positions):
+    """One layer of the teacher-forced pass: (x, the MoE aux or None)."""
+    if cfg.family == "ssm":
+        y = ssm_lib.ssm_forward(layer.ssm, rmsnorm(layer.ln, x, cfg.norm_eps),
+                                cfg)
+        return constrain_batch(x + y), None
+    h = rmsnorm(layer.ln1, x, cfg.norm_eps)
+    x = x + attn.training_attention(layer.attn, h, cfg, is_global=is_global,
+                                    positions=positions)
+    y, aux = _ffn(layer, x, cfg)
+    return constrain_batch(x + y), aux
 
 
 def decoder_forward(model: Decoder, batch: dict, cfg):
@@ -150,8 +167,8 @@ def decoder_forward(model: Decoder, batch: dict, cfg):
     layers' load-balance losses summed over layers, a 0-d fp32 zero
     without experts). Differentiable, and no kernel launches: the
     attention is the plain masked softmax under autograd
-    (``attention.training_attention``; the reference chunks queries by
-    ``attn_chunk``, which gives the same values) and the SSM mixer the
+    (``attention.training_attention``, chunked over queries by
+    ``attn_chunk`` as the reference's) and the SSM mixer the
     plain chunked scan (``ssm.ssm_forward``). The vlm family's frontend
     positions run through every layer and are dropped before the head,
     so the logits cover the token positions only."""
@@ -159,30 +176,23 @@ def decoder_forward(model: Decoder, batch: dict, cfg):
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, layer in enumerate(model.layers):
-        if cfg.family == "ssm":
-            x = x + ssm_lib.ssm_forward(
-                layer.ssm, rmsnorm(layer.ln, x, cfg.norm_eps), cfg)
-            continue
-        h = rmsnorm(layer.ln1, x, cfg.norm_eps)
-        x = x + attn.training_attention(
-            layer.attn, h, cfg, is_global=cfg.layer_kind(i)["global_attn"],
-            positions=positions)
-        y, layer_aux = _ffn(layer, x, cfg)
-        x = x + y
+        x, layer_aux = remat(cfg, _forward_layer, layer, x, cfg,
+                             cfg.layer_kind(i)["global_attn"], positions)
         if layer_aux is not None:
             aux = aux + layer_aux
     x = rmsnorm(model.ln_f, x, cfg.norm_eps)
     return _unembed(model, x[:, cfg.frontend_positions:], cfg), aux
 
 
-def init_decode_cache(cfg, batch: int, max_seq: int, device="cuda"):
+def init_decode_cache(cfg, batch: int, max_seq: int, device="cuda",
+                      like=None):
     """Dense KV cache {"k", "v": (L, B, max_seq, K, Dh), "pos": 0}; for the
     SSM family the state slabs {"ssm_h": (L, B, H, P, N) fp32, "ssm_conv":
     (L, B, cw - 1, di + 2 N), "pos": 0}."""
     if cfg.family == "ssm":
-        st = ssm_lib.init_ssm_state(cfg, batch, cfg.n_layers, device)
+        st = ssm_lib.init_ssm_state(cfg, batch, cfg.n_layers, device, like)
         return {"ssm_h": st["h"], "ssm_conv": st["conv"], "pos": 0}
-    kv = attn.init_kv_cache(cfg, batch, max_seq, cfg.n_layers, device)
+    kv = attn.init_kv_cache(cfg, batch, max_seq, cfg.n_layers, device, like)
     return {"k": kv["k"], "v": kv["v"], "pos": 0}
 
 
@@ -200,7 +210,7 @@ def decoder_decode_step(model: Decoder, cache, token, cfg, *,
                 ssm_lib.ssm_decode_step(
                     layer.ssm, rmsnorm(layer.ln, x, cfg.norm_eps),
                     cache["ssm_h"][i], cache["ssm_conv"][i], cfg)
-            x = x + y
+            x = constrain_batch(x + y)
             continue
         is_global = cfg.layer_kind(i)["global_attn"]
         h = rmsnorm(layer.ln1, x, cfg.norm_eps)
@@ -208,7 +218,7 @@ def decoder_decode_step(model: Decoder, cache, token, cfg, *,
                                       cache["v"][i], pos, cfg,
                                       is_global=is_global,
                                       windowed=windowed)
-        x = x + _ffn(layer, x, cfg)[0]
+        x = constrain_batch(x + _ffn(layer, x, cfg)[0])
     cache["pos"] = pos + 1
     x = rmsnorm(model.ln_f, x, cfg.norm_eps)
     return _unembed(model, x, cfg)[:, 0], cache
@@ -254,7 +264,7 @@ def _paged_chunk_attn_hidden(model: Decoder, cache, x, page_table, start,
             layer.attn, h, cache["k_pages"][i], cache["v_pages"][i],
             page_table, start, n_new, cfg, pages_bound, window=w,
             pages_start=window_start if w else 0)
-        x = x + _ffn(layer, x, cfg)[0]
+        x = constrain_batch(x + _ffn(layer, x, cfg)[0])
     return rmsnorm(model.ln_f, x, cfg.norm_eps)
 
 
@@ -328,7 +338,7 @@ def _ssm_chunk_hidden(model: Decoder, rec, x, start, n_new, rows, cfg):
         y, h_new, tail = ssm_lib.ssm_prefill_chunk(
             layer.ssm, rmsnorm(layer.ln, x, cfg.norm_eps), h0[:, i],
             tails[:, i], n_new, cfg)
-        x = x + y
+        x = constrain_batch(x + y)
         hs.append(h_new)
         ts.append(tail)
     # every padding row writes the scratch row 0; which of them lands last
@@ -363,7 +373,7 @@ def decoder_decode_step_paged(model: Decoder, cache, token, page_table,
                 cfg)
             h_st.copy_(torch.where(act[:, None, None, None], h_new, h_st))
             tail.copy_(torch.where(act[:, None, None], tail_new, tail))
-            x = x + y
+            x = constrain_batch(x + y)
         x = rmsnorm(model.ln_f, x, cfg.norm_eps)
         return _unembed(model, x, cfg)[:, 0]
     for i, layer in enumerate(model.layers):
@@ -373,6 +383,6 @@ def decoder_decode_step_paged(model: Decoder, cache, token, page_table,
             layer.attn, h, cache["k_pages"][i], cache["v_pages"][i],
             page_table, seq_lens, active, cfg, pages_bound, window=w,
             pages_start=window_start if w else 0)
-        x = x + _ffn(layer, x, cfg)[0]
+        x = constrain_batch(x + _ffn(layer, x, cfg)[0])
     x = rmsnorm(model.ln_f, x, cfg.norm_eps)
     return _unembed(model, x, cfg)[:, 0]

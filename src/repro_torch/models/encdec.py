@@ -22,16 +22,21 @@ outside any kernel. The dense cache holds the decoder's self K/V
 the all-valid (B, enc_seq) int8 vector the cross decode reads, and
 ``pos``, a host int; decode updates it in place. ``encdec_forward``
 (training) launches no kernel: all three attentions are the plain
-versions under autograd.
+versions under autograd. ``cfg.remat`` checkpoints each encoder and
+decoder layer of ``encdec_forward``, and the loops pin activations
+batch-sharded where the reference does
+(``sharding.context.constrain_batch``).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from repro_torch.sharding.context import (cache_zeros, constrain_batch,
+                                          write_seq)
 from . import attention as attn
 from .common import (MLP, Embedding, OutputHead, RMSNorm, dtype_of,
-                     embed, empty_param, init_params_, mlp, rmsnorm)
+                     embed, empty_param, init_params_, mlp, remat, rmsnorm)
 from .decoder import _unembed
 
 
@@ -93,10 +98,15 @@ def _encode(model: EncDec, enc_embeds, cfg, attend):
     x = enc_embeds.to(dtype_of(cfg)) + model.enc_pos[None,
                                                      :enc_embeds.shape[1]]
     for layer in model.enc_layers:
-        h = rmsnorm(layer.ln1, x, cfg.norm_eps)
-        x = x + attend(layer.attn, h, cfg, causal=False, use_rope=False)
-        x = x + mlp(layer.mlp, rmsnorm(layer.ln2, x, cfg.norm_eps))
+        x = remat(cfg, _enc_layer, layer, x, cfg, attend)
     return rmsnorm(model.enc_ln_f, x, cfg.norm_eps)
+
+
+def _enc_layer(layer: EncLayer, x, cfg, attend):
+    h = rmsnorm(layer.ln1, x, cfg.norm_eps)
+    x = x + attend(layer.attn, h, cfg, causal=False, use_rope=False)
+    return constrain_batch(x + mlp(layer.mlp,
+                                   rmsnorm(layer.ln2, x, cfg.norm_eps)))
 
 
 def encode(model: EncDec, enc_embeds, cfg):
@@ -113,6 +123,18 @@ def _cross_kv(layer: DecLayer, enc_out, cfg):
         attn._proj(enc_out, layer.cross.wv)
 
 
+def _dec_layer(layer: DecLayer, x, enc_out, cfg, positions):
+    """One decoder layer of the teacher-forced pass."""
+    h = rmsnorm(layer.ln1, x, cfg.norm_eps)
+    x = x + attn.training_attention(layer.attn, h, cfg, positions=positions)
+    h = rmsnorm(layer.ln_x, x, cfg.norm_eps)
+    x = x + attn.training_attention(
+        layer.cross, h, cfg, causal=False, use_rope=False,
+        kv_override=_cross_kv(layer, enc_out, cfg))
+    return constrain_batch(x + mlp(layer.mlp,
+                                   rmsnorm(layer.ln2, x, cfg.norm_eps)))
+
+
 def encdec_forward(model: EncDec, batch: dict, cfg):
     """Teacher-forced forward. batch: {"enc_embeds" (B, enc_seq, D),
     "tokens" (B, S)}. Returns (logits (B, S, V) over the padded vocab, tail
@@ -123,14 +145,7 @@ def encdec_forward(model: EncDec, batch: dict, cfg):
     x = embed(model.embed, batch["tokens"])
     positions = torch.arange(x.shape[1], device=x.device)
     for layer in model.dec_layers:
-        h = rmsnorm(layer.ln1, x, cfg.norm_eps)
-        x = x + attn.training_attention(layer.attn, h, cfg,
-                                        positions=positions)
-        h = rmsnorm(layer.ln_x, x, cfg.norm_eps)
-        x = x + attn.training_attention(
-            layer.cross, h, cfg, causal=False, use_rope=False,
-            kv_override=_cross_kv(layer, enc_out, cfg))
-        x = x + mlp(layer.mlp, rmsnorm(layer.ln2, x, cfg.norm_eps))
+        x = remat(cfg, _dec_layer, layer, x, enc_out, cfg, positions)
     x = rmsnorm(model.ln_f, x, cfg.norm_eps)
     return _unembed(model, x, cfg), torch.zeros((), dtype=torch.float32,
                                                 device=x.device)
@@ -145,14 +160,14 @@ def encdec_prefill(model: EncDec, batch: dict, cfg, max_seq=None):
     x = embed(model.embed, batch["tokens"])
     B, S = x.shape[:2]
     max_seq = max(max_seq or S, S)
-    cache = init_encdec_cache(cfg, B, max_seq, x.device)
+    cache = init_encdec_cache(cfg, B, max_seq, x.device, like=x)
     positions = torch.arange(S, device=x.device)
     for i, layer in enumerate(model.dec_layers):
         h = rmsnorm(layer.ln1, x, cfg.norm_eps)
         o, (k, v) = attn.prefill_attention(layer.attn, h, cfg,
                                            positions=positions)
-        cache["k"][i, :, :S] = k
-        cache["v"][i, :, :S] = v
+        write_seq(cache["k"][i], 0, k)
+        write_seq(cache["v"][i], 0, v)
         x = x + o
         h = rmsnorm(layer.ln_x, x, cfg.norm_eps)
         ck, cv = _cross_kv(layer, enc_out, cfg)
@@ -160,23 +175,25 @@ def encdec_prefill(model: EncDec, batch: dict, cfg, max_seq=None):
         cache["cross_v"][i] = cv
         x = x + attn.attention_forward(layer.cross, h, cfg, causal=False,
                                        kv_override=(ck, cv), use_rope=False)
-        x = x + mlp(layer.mlp, rmsnorm(layer.ln2, x, cfg.norm_eps))
+        x = constrain_batch(x + mlp(layer.mlp,
+                                    rmsnorm(layer.ln2, x, cfg.norm_eps)))
     cache["pos"] = S
     x = rmsnorm(model.ln_f, x[:, -1:], cfg.norm_eps)
     return _unembed(model, x, cfg)[:, 0], cache
 
 
-def init_encdec_cache(cfg, batch: int, max_seq: int, device="cuda"):
+def init_encdec_cache(cfg, batch: int, max_seq: int, device="cuda",
+                      like=None):
     """{"k", "v": (L, B, max_seq, K, Dh), "cross_k", "cross_v":
     (L, B, enc_seq, K, Dh), zero-filled; "cross_valid": (B, enc_seq) int8
     ones; "pos": 0}."""
     K, Dh, L = cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_layers
     dt = dtype_of(cfg)
-    kv = attn.init_kv_cache(cfg, batch, max_seq, L, device)
+    kv = attn.init_kv_cache(cfg, batch, max_seq, L, device, like)
     cross = (L, batch, cfg.enc_seq, K, Dh)
     return {"k": kv["k"], "v": kv["v"],
-            "cross_k": torch.zeros(cross, dtype=dt, device=device),
-            "cross_v": torch.zeros(cross, dtype=dt, device=device),
+            "cross_k": cache_zeros("cross_k", cross, dt, device, batch, like),
+            "cross_v": cache_zeros("cross_v", cross, dt, device, batch, like),
             "cross_valid": torch.ones((batch, cfg.enc_seq), dtype=torch.int8,
                                       device=device),
             "pos": 0}
@@ -200,7 +217,8 @@ def encdec_decode_step(model: EncDec, cache, token, cfg, *,
         x = x + attn.decode_cross_attention(
             layer.cross, h, cache["cross_k"][i], cache["cross_v"][i], cfg,
             cache["cross_valid"])
-        x = x + mlp(layer.mlp, rmsnorm(layer.ln2, x, cfg.norm_eps))
+        x = constrain_batch(x + mlp(layer.mlp,
+                                    rmsnorm(layer.ln2, x, cfg.norm_eps)))
     cache["pos"] = pos + 1
     x = rmsnorm(model.ln_f, x, cfg.norm_eps)
     return _unembed(model, x, cfg)[:, 0], cache

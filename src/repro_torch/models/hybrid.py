@@ -16,18 +16,23 @@ recurrent-state pool's rows (n_rows, n_blocks, n_mamba, ...) on the paged
 path. Caches, pools and rows are updated in place. On the card the
 attention layers run the paged kernels (decode, chunked prefill) or the
 flash and dense decode kernels, and each Mamba prefill runs the SSD chunk
-kernel; the teacher-forced ``hybrid_forward`` launches none.
+kernel; the teacher-forced ``hybrid_forward`` launches none. ``cfg.remat``
+checkpoints each sub-layer (mixer + FFN) of ``hybrid_forward``, and the
+loops pin activations batch-sharded where the reference does
+(``sharding.context.constrain_batch``).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from repro_torch.sharding.context import (cache_zeros, constrain_batch,
+                                          write_seq)
 from . import attention as attn
 from . import moe as moe_lib
 from . import ssm as ssm_lib
 from .common import (MLP, Embedding, OutputHead, RMSNorm, dtype_of, embed,
-                     init_params_, mlp, rmsnorm)
+                     init_params_, mlp, remat, rmsnorm)
 from .decoder import SSMLayer, _unembed
 
 
@@ -143,6 +148,19 @@ def _attn_in(block: HybridBlock, x, cfg):
 
 
 # ------------------------------------------------------------------ forward
+def _forward_sublayer(block: HybridBlock, x, cfg, sub, positions):
+    """One (mixer + FFN) sub-layer of the teacher-forced pass: (x, the
+    MoE aux or None)."""
+    mixer, jm, ffn, jf = sub
+    if mixer == "attn":
+        a, h = _attn_in(block, x, cfg)
+        x = x + attn.training_attention(a, h, cfg, positions=positions)
+    else:
+        x = x + ssm_lib.ssm_forward(*_mamba_in(block, jm, x, cfg), cfg)
+    x, aux = _apply_ffn(block, x, ffn, jf, cfg)
+    return constrain_batch(x), aux
+
+
 def hybrid_forward(model: Hybrid, batch: dict, cfg):
     """Teacher-forced forward over ``batch["tokens"]`` (B, S). Returns
     (logits (B, S, V), aux summed over the MoE layers). Differentiable,
@@ -153,15 +171,9 @@ def hybrid_forward(model: Hybrid, batch: dict, cfg):
     positions = torch.arange(tokens.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for block in model.blocks:
-        for mixer, jm, ffn, jf in _sublayers(cfg):
-            if mixer == "attn":
-                a, h = _attn_in(block, x, cfg)
-                x = x + attn.training_attention(a, h, cfg,
-                                                positions=positions)
-            else:
-                x = x + ssm_lib.ssm_forward(*_mamba_in(block, jm, x, cfg),
-                                            cfg)
-            x, layer_aux = _apply_ffn(block, x, ffn, jf, cfg)
+        for sub in _sublayers(cfg):
+            x, layer_aux = remat(cfg, _forward_sublayer, block, x, cfg, sub,
+                                 positions)
             if layer_aux is not None:
                 aux = aux + layer_aux
     x = rmsnorm(model.ln_f, x, cfg.norm_eps)
@@ -169,24 +181,26 @@ def hybrid_forward(model: Hybrid, batch: dict, cfg):
 
 
 # -------------------------------------------------------------- dense cache
-def _state_zeros(cfg, lead, device):
+def _state_zeros(cfg, lead, device, batch=0, like=None):
     """Zero Mamba state {"h": lead + (H, P, N) fp32, "conv": lead +
-    (cw - 1, di + 2 N)}."""
+    (cw - 1, di + 2 N)} (a dense cache's is sharded like ``like``:
+    ``sharding.context.cache_zeros``)."""
     H, P, N = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state
     tail = (cfg.ssm_conv_width - 1, cfg.d_inner + 2 * N)
-    return {"h": torch.zeros(lead + (H, P, N), dtype=torch.float32,
-                             device=device),
-            "conv": torch.zeros(lead + tail, dtype=dtype_of(cfg),
-                                device=device)}
+    return {"h": cache_zeros("ssm_h", lead + (H, P, N), torch.float32,
+                             device, batch, like),
+            "conv": cache_zeros("ssm_conv", lead + tail, dtype_of(cfg),
+                                device, batch, like)}
 
 
-def init_hybrid_cache(cfg, batch: int, max_seq: int, device="cuda"):
+def init_hybrid_cache(cfg, batch: int, max_seq: int, device="cuda",
+                      like=None):
     """Dense serving cache: K/V {"k", "v": (n_blocks, B, max_seq, K, Dh)},
     SSD state "ssm_h" (n_blocks, n_mamba, B, H, P, N) fp32, raw conv tail
     "ssm_conv" (n_blocks, n_mamba, B, cw - 1, di + 2 N), "pos" 0."""
     nb, nm, _, _ = _counts(cfg)
-    kv = attn.init_kv_cache(cfg, batch, max_seq, nb, device)
-    st = _state_zeros(cfg, (nb, nm, batch), device)
+    kv = attn.init_kv_cache(cfg, batch, max_seq, nb, device, like)
+    st = _state_zeros(cfg, (nb, nm, batch), device, batch, like)
     return {"k": kv["k"], "v": kv["v"], "ssm_h": st["h"],
             "ssm_conv": st["conv"], "pos": 0}
 
@@ -198,22 +212,23 @@ def hybrid_prefill(model: Hybrid, batch: dict, cfg, max_seq=None):
     tokens = batch["tokens"]
     B, S = tokens.shape
     max_seq = max(max_seq or S, S)
-    cache = init_hybrid_cache(cfg, B, max_seq, tokens.device)
     x = embed(model.embed, tokens)
+    cache = init_hybrid_cache(cfg, B, max_seq, tokens.device, like=x)
     positions = torch.arange(S, device=x.device)
     for b, block in enumerate(model.blocks):
         for mixer, jm, ffn, jf in _sublayers(cfg):
             if mixer == "attn":
                 o, (k, v) = attn.prefill_attention(
                     *_attn_in(block, x, cfg), cfg, positions=positions)
-                cache["k"][b, :, :S] = k
-                cache["v"][b, :, :S] = v
+                write_seq(cache["k"][b], 0, k)
+                write_seq(cache["v"][b], 0, v)
                 x = x + o
             else:
                 y, cache["ssm_h"][b, jm], cache["ssm_conv"][b, jm] = \
                     ssm_lib.ssm_prefill(*_mamba_in(block, jm, x, cfg), cfg)
                 x = x + y
             x = _apply_ffn(block, x, ffn, jf, cfg)[0]
+        x = constrain_batch(x)
     cache["pos"] = S
     x = rmsnorm(model.ln_f, x[:, -1:], cfg.norm_eps)
     return _unembed(model, x, cfg)[:, 0], cache
@@ -239,6 +254,7 @@ def hybrid_decode_step(model: Hybrid, cache, token, cfg, *,
                         cache["ssm_conv"][b, jm], cfg)
                 x = x + y
             x = _apply_ffn(block, x, ffn, jf, cfg)[0]
+        x = constrain_batch(x)
     cache["pos"] = pos + 1
     x = rmsnorm(model.ln_f, x, cfg.norm_eps)
     return _unembed(model, x, cfg)[:, 0], cache
@@ -305,6 +321,7 @@ def hybrid_prefill_paged_chunk(model: Hybrid, cache, tokens, page_table,
                     tails[:, b, jm], n_new, cfg)
                 x = x + y
             x = _apply_ffn(block, x, ffn, jf, cfg)[0]
+        x = constrain_batch(x)
     # padding rows all write the scratch row 0, which no slot reads
     rec["h"][rows] = hs
     rec["conv"][rows] = ts
@@ -341,5 +358,6 @@ def hybrid_decode_step_paged(model: Hybrid, cache, token, page_table,
                 tail.copy_(torch.where(act[:, None, None], tail_new, tail))
                 x = x + y
             x = _apply_ffn(block, x, ffn, jf, cfg)[0]
+        x = constrain_batch(x)
     x = rmsnorm(model.ln_f, x, cfg.norm_eps)
     return _unembed(model, x, cfg)[:, 0]

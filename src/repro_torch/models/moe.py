@@ -20,13 +20,29 @@ in its own row of a (B·T·k, D) buffer (a dropped one stays zero), which
 is weighed by the top-k weights and summed over k, as the reference's
 combine does. That costs one host sync a layer: the experts' kept counts
 size the per-expert products.
+
+On a launcher's mesh (``x`` a DTensor), and wherever the caller enters
+``capacity_dispatch()`` (the dry run does, on its fake tensors, which
+have no values to count), the layer is the reference's compute instead,
+which has no host sync: every row's kept assignments scattered into an
+(E, C, D) buffer, the expert products over the whole buffer, and the
+combine. The dispatch and the combine are group-local, one group a batch
+row, so each rank runs them on its own rows in plain PyTorch (the
+reference's "local to the data shard under SPMD"); DTensor shards the
+expert products. Both computes share the gate and the slot ranks
+(``_gate``, ``_ranks``) with ``route``.
 """
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.sharding.context import sequence_scatter
+from repro_torch.sharding.layers import from_rows, rows_of
 from .common import dtype_of, empty_param
 
 
@@ -52,34 +68,66 @@ def capacity_of(group_tokens: int, cfg) -> int:
     return max(8, ((c + 127) // 128) * 128)
 
 
-def route(moe: MoE, x, cfg):
-    """The gate and the dispatch of ``x`` (B, S, D), one group a row.
-    Returns (top_w (B, S, k) renormalised, top_i (B, S, k), keep (B, S·k)
-    bool in assignment order (token-major, then k), aux 0-d fp32)."""
-    B, S, _ = x.shape
+def _gate(moe: MoE, x, cfg):
+    """The gate of ``x`` (B, S, D): (top_w (B, S, k) renormalised, top_i
+    (B, S, k), the Switch aux loss 0-d fp32)."""
     E, k = cfg.n_experts, cfg.top_k
-    A = S * k
-    C = capacity_of(S, cfg)
     probs = torch.softmax((x @ moe.w_gate_logits).float(), dim=-1)
     top_w, top_i = torch.topk(probs, k, dim=-1)               # (B, S, k)
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
     # Switch aux loss: E * sum(mean prob * fraction routed first)
     ce = F.one_hot(top_i[..., 0], E).float().mean((0, 1))
     aux = E * torch.sum(probs.mean((0, 1)) * ce)
-    eid = top_i.reshape(B, A)
+    return top_w, top_i, aux
+
+
+def _ranks(eid, E: int):
+    """Each row's assignments ``eid`` (b, A) sorted stably by expert:
+    (order (b, A), the sorted experts, each sorted assignment's rank in
+    its expert's segment)."""
+    A = eid.shape[1]
     order = torch.argsort(eid, dim=1, stable=True)
     sorted_e = torch.gather(eid, 1, order)
-    experts = torch.arange(E, device=x.device).expand(B, E).contiguous()
-    seg_start = torch.searchsorted(sorted_e, experts, side="left")
-    rank = torch.arange(A, device=x.device) - torch.gather(seg_start, 1,
-                                                           sorted_e)
-    keep = torch.zeros_like(rank, dtype=torch.bool).scatter_(1, order,
-                                                             rank < C)
+    experts = torch.arange(E, device=eid.device).expand(eid.shape[0], E)
+    seg_start = torch.searchsorted(sorted_e, experts.contiguous(),
+                                   side="left")
+    rank = torch.arange(A, device=eid.device) - torch.gather(seg_start, 1,
+                                                             sorted_e)
+    return order, sorted_e, rank
+
+
+def route(moe: MoE, x, cfg):
+    """The gate and the dispatch of ``x`` (B, S, D), one group a row.
+    Returns (top_w (B, S, k) renormalised, top_i (B, S, k), keep (B, S·k)
+    bool in assignment order (token-major, then k), aux 0-d fp32)."""
+    B, S, _ = x.shape
+    top_w, top_i, aux = _gate(moe, x, cfg)
+    order, _, rank = _ranks(top_i.reshape(B, S * cfg.top_k), cfg.n_experts)
+    keep = torch.zeros_like(rank, dtype=torch.bool).scatter_(
+        1, order, rank < capacity_of(S, cfg))
     return top_w, top_i, keep, aux
+
+
+_CAPACITY = contextvars.ContextVar("moe_capacity_dispatch", default=False)
+
+
+@contextlib.contextmanager
+def capacity_dispatch():
+    """Run every MoE layer as the reference's capacity-buffer compute
+    (``_moe_capacity``) on any device, as the dry run does on its fake
+    tensors: the per-expert compute sizes its products by the experts'
+    counts, which a fake tensor does not hold."""
+    token = _CAPACITY.set(True)
+    try:
+        yield
+    finally:
+        _CAPACITY.reset(token)
 
 
 def moe_forward(moe: MoE, x, cfg):
     """x: (B, S, D) -> (y (B, S, D), aux 0-d fp32). Differentiable."""
+    if _CAPACITY.get() or hasattr(x, "device_mesh"):
+        return _moe_capacity(moe, x, cfg)
     B, S, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
     top_w, top_i, keep, aux = route(moe, x, cfg)
@@ -100,3 +148,34 @@ def moe_forward(moe: MoE, x, cfg):
     y = (out.reshape(B, S, k, D) * top_w[..., None].to(out.dtype)).sum(2)
     return y, aux
 
+
+def _moe_capacity(moe: MoE, x, cfg):
+    """The reference's GShard compute, on DTensors or plain tensors (the
+    dry run's fake ones): (y, aux)."""
+    B, S, D = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    A, C = S * k, capacity_of(S, cfg)
+    top_w, top_i, aux = _gate(moe, x, cfg)
+    # dispatch, each rank over its own rows
+    xl, where = rows_of(x, 2)
+    order, sorted_e, rank = _ranks(rows_of(top_i, 2)[0].reshape(-1, A), E)
+    b = order.shape[0]
+    keep = rank < C
+    slot = torch.where(keep, sorted_e * C + rank, E * C)      # E*C: dropped
+    rows = torch.gather(xl, 1, (order // k)[..., None].expand(-1, -1, D))
+    buf = xl.new_zeros((b, E * C + 1, D)).scatter(
+        1, slot[..., None].expand(-1, -1, D), rows)
+    buf = from_rows(buf[:, :-1].reshape(b, E, C, D), where)
+    act = F.silu(torch.einsum("becd,edf->becf", buf, moe.w_glu)) \
+        * torch.einsum("becd,edf->becf", buf, moe.w_in)
+    out = torch.einsum("becf,efd->becd", act.contiguous(), moe.w_out)
+    # combine, each rank over its own rows
+    ol = rows_of(out, 3)[0].reshape(b, E * C, D)
+    ol = torch.cat([ol, ol.new_zeros((b, 1, D))], 1)
+    per = torch.gather(ol, 1, slot[..., None].expand(-1, -1, D)) \
+        * keep[..., None].to(ol.dtype)
+    unsorted = torch.zeros_like(per).scatter(
+        1, order[..., None].expand(-1, -1, D), per)
+    twl = rows_of(top_w, 2)[0]
+    y = (unsorted.reshape(b, S, k, D) * twl[..., None].to(ol.dtype)).sum(2)
+    return sequence_scatter(from_rows(y, where)), aux

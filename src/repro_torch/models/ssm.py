@@ -19,6 +19,8 @@ from torch import nn
 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import ssd_chunk_reference
+from repro_torch.sharding import layers as mesh_layers
+from repro_torch.sharding.context import cache_zeros, sequence_scatter
 from .common import RMSNorm, dtype_of, empty_param, rmsnorm
 
 
@@ -123,9 +125,30 @@ def _full_sequence(ssm: SSM, x, cfg, plain: bool):
     of ``cfg.ssm_chunk`` with dt = 0 rows (which leave the state as it
     is). Returns (y (B, S, D), final state (B, H, P, N), the raw conv
     inputs xBC (B, S, di + 2 N))."""
-    Bsz, S, _ = x.shape
+    zxbcdt = x @ ssm.w_in
+    if not hasattr(zxbcdt, "device_mesh"):
+        y, final, xBC_raw = _mixer(ssm, zxbcdt, cfg, plain)
+        return y @ ssm.w_out, final, xBC_raw
+    # on a launcher's mesh each rank runs the mixer on its own rows (the
+    # scan is per row) with the small weights whole; the projections
+    # stay DTensor products
+    y, final, xBC_raw = mesh_layers.on_rows(
+        lambda w, z: _mixer(w, z, cfg, plain),
+        mesh_layers.whole_params(ssm, _MIXER_WEIGHTS), zxbcdt)
+    return sequence_scatter(y @ ssm.w_out), final, xBC_raw
+
+
+# the mixer's small weights, whole on each rank of a launcher's mesh
+_MIXER_WEIGHTS = ("conv_w", "dt_bias", "A_log", "D", "norm")
+
+
+def _mixer(ssm, zxbcdt, cfg, plain: bool):
+    """The mixer between its two projections: conv, SSD scan and gated
+    norm over (B, S, ...) rows. Returns (y (B, S, di), final state,
+    xBC_raw)."""
+    Bsz, S, _ = zxbcdt.shape
     di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim
-    z, xBC_raw, dt_raw = _split_proj(x @ ssm.w_in, cfg)
+    z, xBC_raw, dt_raw = _split_proj(zxbcdt, cfg)
     xBC = _causal_conv(xBC_raw, ssm.conv_w)
     xs = xBC[..., :di].reshape(Bsz, S, H, P)
     Bmat, Cmat = xBC[..., di:di + N], xBC[..., di + N:]
@@ -137,7 +160,7 @@ def _full_sequence(ssm: SSM, x, cfg, plain: bool):
         dt_p, B_p, C_p = (F.pad(t, (0, 0, 0, pad)) for t in (dt, Bmat, Cmat))
     y, final = ssd_chunked(xs_p, dt_p, -torch.exp(ssm.A_log), B_p, C_p,
                            cfg.ssm_chunk, plain=plain)
-    return _gate_out(ssm, y[:, :S], xs, z, cfg), final, xBC_raw
+    return _gate(ssm, y[:, :S], xs, z, cfg), final, xBC_raw
 
 
 def ssm_forward(ssm: SSM, x, cfg):
@@ -162,25 +185,27 @@ def ssm_prefill(ssm: SSM, x, cfg):
 
 
 # ------------------------------------------------------------------ serving
-def init_ssm_state(cfg, batch: int, n_layers: int, device="cuda"):
+def init_ssm_state(cfg, batch: int, n_layers: int, device="cuda",
+                   like=None):
     """Zero decode state: SSD state ``h`` (n_layers, batch, H, P, N) fp32
-    and the raw conv tail ``conv`` (n_layers, batch, cw - 1, di + 2 N)."""
+    and the raw conv tail ``conv`` (n_layers, batch, cw - 1, di + 2 N)
+    (sharded like ``like``: ``sharding.context.cache_zeros``)."""
     H, P, N = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state
     ch = cfg.d_inner + 2 * N
-    return {"h": torch.zeros((n_layers, batch, H, P, N), dtype=torch.float32,
-                             device=device),
-            "conv": torch.zeros((n_layers, batch, cfg.ssm_conv_width - 1, ch),
-                                dtype=dtype_of(cfg), device=device)}
+    return {"h": cache_zeros("ssm_h", (n_layers, batch, H, P, N),
+                             torch.float32, device, batch, like),
+            "conv": cache_zeros("ssm_conv",
+                                (n_layers, batch, cfg.ssm_conv_width - 1, ch),
+                                dtype_of(cfg), device, batch, like)}
 
 
-def _gate_out(ssm: SSM, y, xs, z, cfg):
-    """Skip term, gated norm and output projection of the mixer.
-    y, xs (B, S, H, P); z (B, S, di). Returns (B, S, D)."""
+def _gate(ssm: SSM, y, xs, z, cfg):
+    """Skip term and gated norm of the mixer. y, xs (B, S, H, P); z (B,
+    S, di). Returns (B, S, di), the output projection's input."""
     Bsz, S = y.shape[:2]
     y = y + xs * ssm.D[None, None, :, None].to(y.dtype)
-    y = rmsnorm(ssm.norm, y.reshape(Bsz, S, cfg.d_inner) * F.silu(z),
-                cfg.norm_eps)
-    return y @ ssm.w_out
+    return rmsnorm(ssm.norm, y.reshape(Bsz, S, cfg.d_inner) * F.silu(z),
+                   cfg.norm_eps)
 
 
 def ssm_prefill_chunk(ssm: SSM, x, h0, conv_tail, n_new, cfg):
@@ -214,16 +239,30 @@ def ssm_prefill_chunk(ssm: SSM, x, h0, conv_tail, n_new, cfg):
     # n_new - 1 + (cw - 1) is that token
     idx = n_new.long()[:, None] + torch.arange(cw - 1, device=x.device)
     tail = torch.gather(buf, 1, idx[..., None].expand(-1, -1, buf.shape[2]))
-    return _gate_out(ssm, y, xs, z, cfg), h_final, tail
+    return _gate(ssm, y, xs, z, cfg) @ ssm.w_out, h_final, tail
 
 
 def ssm_decode_step(ssm: SSM, x_t, h, conv_tail, cfg):
     """One-token recurrent step. x_t (B, 1, D); h (B, H, P, N) fp32;
     conv_tail (B, cw - 1, di + 2 N). Returns (y_t (B, 1, D), h_new,
-    conv_tail_new)."""
-    Bsz = x_t.shape[0]
+    conv_tail_new). On a launcher's mesh each rank steps its own rows."""
+    zxbcdt = x_t[:, 0] @ ssm.w_in
+    if any(hasattr(t, "device_mesh") for t in (zxbcdt, h, conv_tail)):
+        y, h_new, tail = mesh_layers.on_rows(
+            lambda w, *rows: _decode_mixer(w, *rows, cfg),
+            mesh_layers.whole_params(ssm, _MIXER_WEIGHTS), zxbcdt, h,
+            conv_tail)
+    else:
+        y, h_new, tail = _decode_mixer(ssm, zxbcdt, h, conv_tail, cfg)
+    return (y.to(x_t.dtype) @ ssm.w_out)[:, None, :], h_new, tail
+
+
+def _decode_mixer(ssm, zxbcdt, h, conv_tail, cfg):
+    """The step between the two projections: (y (B, di) gated and
+    normed, h_new, conv_tail_new)."""
+    Bsz = zxbcdt.shape[0]
     di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim
-    z, xBC_t, dt_raw = _split_proj(x_t[:, 0] @ ssm.w_in, cfg)
+    z, xBC_t, dt_raw = _split_proj(zxbcdt, cfg)
     window = torch.cat([conv_tail, xBC_t[:, None, :]], dim=1)  # (B, cw, ch)
     xBC = F.silu(torch.einsum("bwc,wc->bc", window, ssm.conv_w))
     xh = xBC[:, :di].reshape(Bsz, H, P).float()
@@ -233,6 +272,6 @@ def ssm_decode_step(ssm: SSM, x_t, h, conv_tail, cfg):
     upd = torch.einsum("bh,bn,bhp->bhpn", dt, Bm, xh)
     h_new = h * dec[..., None, None] + upd
     y = torch.einsum("bn,bhpn->bhp", Cm, h_new) + xh * ssm.D[None, :, None]
-    y = rmsnorm(ssm.norm, y.reshape(Bsz, di).to(x_t.dtype) * F.silu(z),
+    y = rmsnorm(ssm.norm, y.reshape(Bsz, di).to(zxbcdt.dtype) * F.silu(z),
                 cfg.norm_eps)
-    return (y @ ssm.w_out)[:, None, :], h_new, window[:, 1:]
+    return y, h_new, window[:, 1:]

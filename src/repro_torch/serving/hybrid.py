@@ -11,9 +11,9 @@ facades (the port of ``repro.serving.hybrid``).
   classifies each query once at admission, and the two continuous engines
   step independently, so the small stream never waits for the large one.
 
-The reference's ``build_fused_hybrid_step`` (one XLA program over router
-and both decoders, for the TPU mesh's dry run) is multi-device tooling and
-is not ported.
+``build_fused_hybrid_step`` is the two-tier wrapper over
+``serving.pool.build_fused_pool_step``: router and both decoders in one
+eager step over dense caches.
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ import numpy as np
 from repro_torch.core.routing import CostMeter, HybridRouter, ThresholdPolicy
 from repro_torch.data import tokenizer as tok
 from .engine import ContinuousEngine, Engine
-from .pool import ContinuousPoolEngine
+from .pool import ContinuousPoolEngine, build_fused_pool_step
 from .scheduler import Request
 
 
@@ -109,3 +109,25 @@ class ContinuousHybridEngine:
         res = self.pool.serve(query_tokens, query_mask, seed)
         return HybridResult(res.responses, res.lengths, res.tier_idx == 0,
                             res.scores)
+
+
+def build_fused_hybrid_step(router_cfg, small, large,
+                            threshold: float = 0.5):
+    """One-token hybrid decode step: the two-tier wrapper over
+    ``build_fused_pool_step``.
+
+    fn(router_model, small_model, large_model, router_tokens, router_mask,
+       small_cache, large_cache, token) -> (logits, small_cache,
+       large_cache, route_mask)
+    """
+    pool_step = build_fused_pool_step(router_cfg, (small, large),
+                                      (threshold,))
+
+    def step(router_model, small_model, large_model, router_tokens,
+             router_mask, small_cache, large_cache, token):
+        logits, (sc, lc), tier = pool_step(
+            router_model, (small_model, large_model), router_tokens,
+            router_mask, (small_cache, large_cache), token)
+        return logits, sc, lc, tier == 0
+
+    return step

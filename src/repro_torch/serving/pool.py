@@ -27,6 +27,12 @@ decode, recorded in ``plan.skipped``; a target whose draft tier is
 stalled plain-decodes until the stall lifts. Shared-prefix reuse is per tier: each
 engine built with ``prefix_cache > 0`` keeps its own tree over its own
 pages.
+
+``build_fused_pool_step`` is the reference's one-token K-tier decode step
+over dense caches: the router scores the batch and every tier decodes all
+of it. The reference lowers it as one XLA program; the port runs it
+eagerly (no CUDA graph, no ``torch.compile``), each tier's step one dense
+decode kernel launch a layer on the card.
 """
 from __future__ import annotations
 
@@ -344,3 +350,50 @@ class ContinuousPoolEngine:
             lengths[i] = req.n_generated
             responses[i, :req.n_generated] = req.out[:T]
         return PoolResult(responses, lengths, tier_idx, scores)
+
+
+def build_fused_pool_step(router_cfg, bundles: Sequence, thresholds:
+                          Sequence[float]):
+    """One-token K-tier decode step over dense caches.
+
+    ``bundles`` are ordered cheapest -> priciest; ``thresholds`` are the
+    K-1 non-increasing cascade gates (``core.thresholds
+    .cascade_thresholds``).
+
+    fn(router_model, models_tuple, router_tokens, router_mask,
+       caches_tuple, token) -> (logits, caches_tuple, tier_idx)
+
+    The router scores each query (``models.encoder.router_score``); its
+    tier counts the gates its score falls below. Every tier decodes the
+    full batch through its ``decode_step`` (caches updated in place), and
+    each row takes its tier's logits. Vocabs may differ in padding, so
+    logits align on the smallest padded width.
+    """
+    import torch
+    from repro_torch.models.encoder import router_score
+    thresholds = tuple(float(t) for t in thresholds)
+    if len(thresholds) != len(bundles) - 1:
+        raise ValueError(f"{len(bundles)} tiers need {len(bundles) - 1} "
+                         f"cascade thresholds, got {len(thresholds)}")
+    if any(a < b for a, b in zip(thresholds, thresholds[1:])):
+        raise ValueError(f"cascade thresholds must be non-increasing: "
+                         f"{thresholds}")
+
+    @torch.no_grad()
+    def step(router_model, models, router_tokens, router_mask, caches,
+             token):
+        score = router_score(router_model, router_tokens, router_mask,
+                             router_cfg)
+        tier = torch.zeros(score.shape, dtype=torch.int64,
+                           device=score.device)                  # (B,)
+        for t in thresholds:
+            tier += (score < t).long()
+        outs = [b.decode_step(m, c, token)
+                for b, m, c in zip(bundles, models, caches)]
+        V = min(lg.shape[-1] for lg, _ in outs)
+        stacked = torch.stack([lg[:, :V] for lg, _ in outs])     # (K, B, V)
+        rows = torch.arange(stacked.shape[1], device=stacked.device)
+        logits = stacked[tier.to(stacked.device), rows]
+        return logits, tuple(c for _, c in outs), tier
+
+    return step

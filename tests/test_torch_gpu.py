@@ -1036,3 +1036,114 @@ def test_cuda_kernels_at_encdec_and_vlm_shapes(mode, cuda):
     assert {o.__name__: o.launches - n for o, n in n0.items()} == \
         {o.__name__: int(o is op) for o in ops}
     assert err <= GPU_TOL, (mode, err)
+
+
+# ------------------------------------------------------ the dry run's steps
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_cuda_bf16_step_raises(kind, cuda):
+    """A bf16 config (the dry run's dtype) reaches the kernels through
+    ``launch.steps``' prefill and decode steps on the card; the kernels
+    take fp32 only, so the wrapper raises and nothing switches to the
+    plain version."""
+    from repro_torch.launch import steps
+    from repro_torch.models.config import ArchConfig
+    from repro_torch.models.model import build_model
+    cfg = ArchConfig("bf16", "dense", 2, 64, 4, 2, 128, 256, head_dim=16,
+                     vocab_pad_multiple=64, dtype="bfloat16")
+    bundle = build_model(cfg)
+    model = bundle.init(torch.Generator().manual_seed(0), "cpu").to(cuda)
+    tokens = torch.randint(3, 256, (2, 8), device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        if kind == "prefill":
+            steps.build_prefill_step(bundle, 8)(model, {"tokens": tokens})
+        else:
+            cache = bundle.init_cache(2, 8, device=cuda)
+            cache["pos"] = 3
+            steps.build_decode_step(bundle, False)(model, cache,
+                                                   tokens[:, :1])
+
+
+# The attention core on a launcher's mesh, on the card: one process is
+# rank 0 of a fake process group of 8 (collectives return at once), a
+# (2, 4) ("data", "model") mesh over CUDA. Replicated inputs cut to this
+# rank's shard move no data, so rank 0's output is exact.
+MESH_ATTEND = r"""
+import json, sys
+import torch
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Replicate
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.launch.mesh import fake_process_group
+from repro_torch.models.attention import _attend, _chunked_attention
+from repro_torch.sharding.context import activation_sharding
+
+fake_process_group(8)
+mesh = DeviceMesh("cuda", torch.arange(8).reshape(2, 4),
+                  mesh_dim_names=("data", "model"))
+case = sys.argv[1]
+# "heads": 8 query heads on 4 ranks, 2 KV heads (rank 0 reads a slice of
+# KV head 0: a strided view); "query_shard": 6 heads do not divide 4, so
+# sequence parallelism shards the queries
+H, K = (8, 2) if case == "heads" else (6, 2)
+B, S, D = 2, 64, 32
+g = torch.Generator().manual_seed(0)
+q, k, v = (torch.randn(B, S, n, D, generator=g).cuda() * (D ** -0.25)
+           for n in (H, K, K))
+rep = lambda t: DTensor.from_local(t, mesh, (Replicate(), Replicate()),
+                                   run_check=False)
+kernel = lambda q, k, v: flash_attention(q, k, v, causal=True, window=0)
+pos = torch.arange(S, device="cuda")
+n0 = flash_attention.launches
+try:
+    with activation_sharding(mesh, "data", seq_shard=(case != "heads")):
+        out = _attend(kernel, rep(q), rep(k), rep(v), pos, causal=True,
+                      window=0, chunk=16)
+except NotImplementedError as e:
+    print(json.dumps({"raised": str(e),
+                      "launches": flash_attention.launches - n0}))
+    raise SystemExit(0)
+local = out.to_local()
+want = _chunked_attention(q[:1, :, :2].cpu(), k[:1, :, :1].cpu(),
+                          v[:1, :, :1].cpu(), pos.cpu(), causal=True,
+                          window=0, chunk=S)
+print(json.dumps({"shape": list(local.shape),
+                  "launches": flash_attention.launches - n0,
+                  "err": (local.cpu() - want).abs().max().item()}))
+"""
+
+
+def _mesh_attend(case):
+    import json
+    import os
+    import subprocess
+    import sys
+    env = dict(os.environ, PYTHONPATH=os.path.join(
+        os.path.dirname(__file__), "..", "src"))
+    proc = subprocess.run([sys.executable, "-c", MESH_ATTEND, case],
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.gpu
+def test_cuda_mesh_attend_runs_the_flash_kernel_on_head_shards(cuda):
+    """On a CUDA mesh a rank's shard of whole sequences (its batch rows,
+    its query heads and, as a strided slice, the one KV head they read)
+    goes through the flash kernel, once, and equals the plain version."""
+    got = _mesh_attend("heads")
+    assert got["shape"] == [1, 64, 2, 32]
+    assert got["launches"] == 1
+    assert got["err"] <= GPU_TOL, got
+
+
+@pytest.mark.gpu
+def test_cuda_mesh_attend_query_shard_raises(cuda):
+    """A query shard (sequence parallelism: the heads do not divide
+    "model") has no kernel path on the card, since the flash kernel takes
+    equal query and key lengths: it raises, launching nothing, and never
+    runs the plain version on the card."""
+    got = _mesh_attend("query_shard")
+    assert "query shard" in got["raised"], got
+    assert got["launches"] == 0
