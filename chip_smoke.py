@@ -19,7 +19,10 @@ and prints no result line):
    late first page under a window); the
    kernel's time (CUDA events around back-to-back launches), the plain
    version's, one library call's where PyTorch has one (SDPA), and the
-   least time the card could take for the same work.
+   least time the card could take for the same work. The main and gemma3
+   cases of K1, K2, K4 and K5 run again at bf16 (their bf16 instances),
+   held to BF16_TOL against the plain version at bf16, timed beside it
+   and SDPA at bf16 (K4, K5), bounded by bf16 bytes and the bf16 peak.
 4. The routed pool at full width: a router at DeBERTa-v3-large's widths
    scores 16 prompts, a ThresholdPolicy splits them between two
    qwen1.5-32b tiers ("half": the reference's scaled_sibling(., 2) at 2
@@ -157,6 +160,23 @@ and prints no result line):
    counter's products equal to FlopCounterMode's on the card run (and
    the fake train step's), decode and prefill logits against the CPU
    (the qwen prefill's first row only).
+10. bf16 (after phase 9's card work and while its dry runs finish on the
+   host, on phase 4's models, router and prompts, the tiers cast to bf16
+   in place): (b) phase 4's routed pool at bf16 (every
+   query on phase 4's tier, the bf16 K1 and K2 on both tiers, no page
+   leaked; tokens/s beside phase 4's and the peak memory), then the card
+   against the CPU on phase 4's 4 shortest prompts through the full
+   tier, the tolerance twice the largest gap
+   between the CPU's bf16 and fp32 first-token logits (two bf16
+   computations, each that close to fp32): the card's bf16 first-token
+   logits within it of the CPU's, and greedy tokens equal up to the first
+   position where the CPU's top-2 margin is under it; (c) phase 4b's dense
+   hybrid path at bf16 (routed as phase 4, the bf16 K4 once a layer a
+   prefill and K5 once a layer a decode step); (d) phase 9(b)'s decode and
+   prefill steps at the dry run's own bf16 (``dryrun_config``) on the
+   card, peaks beside the bf16 fake run's, the decode logits against the
+   CPU's bf16 within the same kind of dtype gap. (a) is phase 3's bf16
+   cases.
 
 It imports neither JAX nor the JAX package. Weights are random, from
 seeded torch.Generators; nothing is downloaded. The last two lines are a
@@ -176,7 +196,10 @@ serves; "launch-serve-mixed", "launch-serve-spec" and
 each counted over the whole run: training launches nothing, labelling
 runs K4, K5 and K3 in sample_responses, serving the path's kernels;
 "dryrun-steps": phase 9(b)'s steps, two runs each, and "fused-pool":
-phase 9(c)'s fused step).
+phase 9(c)'s fused step). Each attention kernel's row also has "bf16",
+its main case at bf16 (max_abs_err, ms, plain_ms, bound_ms, bound_by,
+library_ms), and "qwen1.5-32b-bf16", its launches by dtype on phase
+10's pool (K1, K2) and dense path (K4, K5).
 """
 from __future__ import annotations
 
@@ -195,7 +218,13 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FP32_FLOP_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
 PEAK_TF32_FLOP_PER_S = 495e12   # H100 SXM TF32 on the tensor cores, dense
+PEAK_BF16_FLOP_PER_S = 989e12   # H100 SXM bf16 on the tensor cores, dense
 KERNEL_TOL = 1e-4               # fp32 kernel vs plain: another summation order
+BF16_TOL = 2e-2                 # bf16 kernel vs plain at bf16, allclose with
+                                # rtol = atol: the reference's own bf16
+                                # tolerance for its kernels (the plain
+                                # version rounds scores to bf16, the kernel
+                                # keeps them in fp32)
 SSD_TOL = 1e-4                  # SSD scan: sums over N + l terms reach tens,
                                 # so 1e-4 relative to max(1, max |plain|)
 DEVICE_TOL = 1e-3               # fp32 card vs CPU logits through a 5120-wide
@@ -291,14 +320,14 @@ def _time_ms(torch, fn, runs: int = 7, launches: int = 10) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def _bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOP_PER_S
+def _bound(nbytes: float, flops: float, peak: float = PEAK_FP32_FLOP_PER_S):
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
 def _case(name, desc, kernel, plain, nbytes, flops, library=None,
-          check=None, timed=False, scaled=False, report=None):
+          check=None, timed=False, scaled=False, report=None, bf16=False):
     """One launch mode: callables for the kernel's wrapper, its plain
     version and (main path only) the library yardstick, the bytes and
     flops of the work, and an extra check of the kernel's output.
@@ -307,10 +336,29 @@ def _case(name, desc, kernel, plain, nbytes, flops, library=None,
     max(1, max |plain|) against SSD_TOL instead of KERNEL_TOL. ``report``
     logs more about a timed case: called with (torch, case, kernel ms,
     plain ms, library ms). ``check`` raises if the output is wrong, and may
-    return what it checked, for the log."""
+    return what it checked, for the log. ``bf16``: a bf16 case, held to
+    BF16_TOL and bounded by bf16 bytes and the bf16 peak."""
     return dict(name=name, desc=desc, kernel=kernel, plain=plain,
                 library=library, nbytes=nbytes, flops=flops, check=check,
-                timed=timed or name == "main", scaled=scaled, report=report)
+                timed=timed or name == "main", scaled=scaled, report=report,
+                bf16=bf16)
+
+
+def _bf16_args(torch, args):
+    """``args`` with every float tensor cast to bf16."""
+    return tuple(a.to(torch.bfloat16) if torch.is_tensor(a)
+                 and a.is_floating_point() else a for a in args)
+
+
+def _bf16_bytes(torch, args, keys_bytes):
+    """A bf16 case's bytes: every input tensor read once (floats at 2
+    bytes), the output (q's size) written once, ``keys_bytes`` the K and V
+    rows the case must read at 2 bytes a value; the tensors' other
+    elements are the pools' and caches' unread rows."""
+    q = args[0]
+    ints = sum(a.numel() * a.element_size() for a in args
+               if torch.is_tensor(a) and not a.is_floating_point())
+    return 2 * 2 * q.numel() + keys_bytes + ints
 
 
 def _idle_slot_is_zero(out):
@@ -319,13 +367,13 @@ def _idle_slot_is_zero(out):
 
 
 def _paged_case(name, op, ref, args, kw, nbytes, flops, check=None,
-                report=None, ps=16, timed=False):
+                report=None, ps=16, timed=False, bf16=False):
     shape = "x".join(map(str, args[0].shape))
     if check is None and name == "ragged_idle":
         check = _idle_slot_is_zero
-    c = _case(name, f"q {shape}, ps {ps} {kw}", lambda: op(*args, **kw),
-              lambda: ref(*args, **kw), nbytes, flops, check=check,
-              report=report, timed=timed)
+    c = _case(name, f"q {shape}, ps {ps} {kw}" + (" bf16" if bf16 else ""),
+              lambda: op(*args, **kw), lambda: ref(*args, **kw), nbytes,
+              flops, check=check, report=report, timed=timed, bf16=bf16)
     c.update(args=args, kw=kw)
     return c
 
@@ -406,6 +454,12 @@ def decode_cases(torch, dev):
             name, op, ops.paged_decode_attention_ref, args, kw, nbytes, flops,
             check=check, report=_paged_standing("paged_decode_attention")
             if timed else None, ps=ps, timed=timed))
+        if main:     # the same launch at bf16
+            bargs = _bf16_args(torch, args)
+            out.append(_paged_case(
+                f"{name}_bf16", op, ops.paged_decode_attention_ref, bargs,
+                kw, _bf16_bytes(torch, bargs, 2 * 2 * int(keys.sum()) * K * D),
+                flops, ps=ps, timed=True, bf16=True))
     return out
 
 
@@ -505,6 +559,12 @@ def prefill_cases(torch, dev):
             flops, check=check,
             report=_paged_standing("paged_prefill_attention") if timed
             else None, ps=ps, timed=timed))
+        if main:     # the same launch at bf16
+            bargs = _bf16_args(torch, args)
+            out.append(_paged_case(
+                f"{name}_bf16", op, ops.paged_prefill_attention_ref, bargs,
+                kw, _bf16_bytes(torch, bargs, 2 * 2 * int(keys.sum()) * K * D),
+                flops, ps=ps, timed=True, bf16=True))
     return out
 
 
@@ -677,6 +737,21 @@ def flash_cases(torch, dev):
                          plain, nbytes, flops, library, timed=library
                          is not None, report=_flash_standing
                          if library is not None else None))
+        if name in ("main", "gemma3"):   # the same launch at bf16
+            qb, kb, vb = _bf16_args(torch, (q, k, v))
+            mask = torch.tensor(seen, device=dev) if window else None
+            out.append(_case(
+                f"{name}_bf16", desc + " bf16",
+                lambda q=qb, k=kb, v=vb, kw=kw:
+                    ops.flash_attention(q, k, v, **kw),
+                lambda q=qb, k=kb, v=vb, f=plain: f(q, k, v),
+                nbytes // 2, flops,
+                lambda q=qb, k=kb, v=vb, m=mask, c=causal and not window,
+                gqa=H != K: F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    attn_mask=m, is_causal=c, scale=1.0,
+                    enable_gqa=gqa).transpose(1, 2),
+                timed=True, bf16=True))
     return out
 
 
@@ -878,8 +953,8 @@ def dense_decode_cases(torch, dev):
             check = _dense_exact(torch, ops, q, k, v, valid)
         elif layout == "no_valid_row":
             check = _no_valid_row(torch, ops, q, k, v, valid)
-        out.append(_case(name, f"q {B}x{H}x{D}, cache {B}x{S}x{K}x{D}, "
-                         f"{n_valid} valid keys",
+        desc = f"q {B}x{H}x{D}, cache {B}x{S}x{K}x{D}, {n_valid} valid keys"
+        out.append(_case(name, desc,
                          lambda q=q, k=k, v=v, valid=valid:
                              ops.decode_attention_kv(q, k, v, valid),
                          lambda q=q, k=k, v=v, valid=valid:
@@ -887,6 +962,23 @@ def dense_decode_cases(torch, dev):
                          nbytes, flops, library, check=check,
                          timed=library is not None,
                          report=_dense_standing if library else None))
+        if name in ("main", "gemma3"):   # the same launch at bf16 (layer 1
+            # of the bf16 slab, read in place)
+            qb, cb = _bf16_args(torch, (q, cache))
+            kb, vb = cb[0, 1], cb[1, 1]
+            out.append(_case(
+                f"{name}_bf16", desc + " bf16",
+                lambda q=qb, k=kb, v=vb, valid=valid:
+                    ops.decode_attention_kv(q, k, v, valid),
+                lambda q=qb, k=kb, v=vb, valid=valid:
+                    _dense_plain(torch, ops, q, k, v, valid),
+                2 * (2 * q.numel() + 2 * n_valid * K * D) + B * S, flops,
+                lambda q=qb, k=kb, v=vb, valid=valid, gqa=G > 1:
+                    F.scaled_dot_product_attention(
+                        q[:, :, None], k.movedim(2, 1), v.movedim(2, 1),
+                        attn_mask=valid.bool()[:, None, None, :],
+                        scale=1.0, enable_gqa=gqa)[:, :, 0],
+                timed=True, bf16=True))
     return out
 
 
@@ -1123,6 +1215,14 @@ def _max_err(got, want):
     return err, max(b.abs().max().item() for _, b in pairs)
 
 
+def _bf16_excess(got, want):
+    """How far a bf16 output lies outside allclose(rtol = atol =
+    BF16_TOL) of the plain version: max(|got - want| - BF16_TOL |want|),
+    which must be at most BF16_TOL."""
+    return ((got.float() - want.float()).abs()
+            - BF16_TOL * want.float().abs()).max().item()
+
+
 def kernel_phase(torch):
     dev = torch.device("cuda")
     rows = []
@@ -1135,34 +1235,56 @@ def kernel_phase(torch):
             torch.cuda.synchronize()
             want = c["plain"]()
             err, scale = _max_err(got, want)
-            worst = max(worst, err)
-            tol = SSD_TOL * max(1.0, scale) if c["scaled"] else KERNEL_TOL
             finite = all(torch.isfinite(t).all().item() for t in
                          (got if isinstance(got, tuple) else (got,)))
-            if not (finite and err <= tol):
+            if c["bf16"]:
+                if got.dtype != torch.bfloat16:
+                    raise AssertionError(f"{kname}[{c['name']}]: output "
+                                         f"{got.dtype}, not bf16")
+                excess = _bf16_excess(got, want)
+                ok = excess <= BF16_TOL
+                tol_note = (f"allclose(rtol=atol={BF16_TOL:g}) "
+                            f"excess {excess:.3g} <= {BF16_TOL:g}")
+            else:
+                worst = max(worst, err)
+                tol = SSD_TOL * max(1.0, scale) if c["scaled"] \
+                    else KERNEL_TOL
+                ok = err <= tol
+                tol_note = f"<= {tol:.3g}"
+            if not (finite and ok):
                 raise AssertionError(f"{kname}[{c['name']}]: max abs err "
-                                     f"{err} > {tol} (finite: {finite})")
+                                     f"{err}, {tol_note} fails (finite: "
+                                     f"{finite})")
             note = ""
             if c["check"] is not None:
                 note = "; " + (c["check"](got) or (
                     "dt = 0 row's state exactly 0" if c["scaled"]
                     else "idle slot exactly 0"))
             log(f"[kernels] {kname}[{c['name']}] {c['desc']}: max abs err "
-                f"{err:.3g} <= {tol:.3g}{note}")
+                f"{err:.3g}, {tol_note}{note}")
             if not c["timed"]:
                 continue
             ms = _time_ms(torch, c["kernel"])
             plain_ms = _time_ms(torch, c["plain"])
-            bound_ms, bound_by = _bound(c["nbytes"], c["flops"])
+            bound_ms, bound_by = _bound(c["nbytes"], c["flops"],
+                                        PEAK_BF16_FLOP_PER_S if c["bf16"]
+                                        else PEAK_FP32_FLOP_PER_S)
             if c["name"] == "main":
                 row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                            bound_by=bound_by)
+            elif c["name"] == "main_bf16":
+                row["bf16"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                   bound_ms=bound_ms, bound_by=bound_by,
+                                   library_ms=None)
             lib, lib_ms = "", None
             if c["library"] is not None:
-                lib_err = (c["library"]() - want).abs().max().item()
+                lib_err = (c["library"]().float() - want.float()).abs() \
+                    .max().item()
                 lib_ms = _time_ms(torch, c["library"])
                 if c["name"] == "main":
                     row["library_ms"] = lib_ms
+                elif c["name"] == "main_bf16":
+                    row["bf16"]["library_ms"] = lib_ms
                 lib = (f", library {lib_ms:.4f} ms (max abs err "
                        f"{lib_err:.3g})")
             log(f"[kernels] {kname}[{c['name']}] kernel {ms:.4f} ms, plain "
@@ -1289,11 +1411,12 @@ def main_path_phase(torch, card: str, smi: str):
 
 
 # ----------------------------------------------------------------- phase 4b
-def dense_hybrid_phase(torch, card: str, smi: str, pool_run: dict):
+def dense_hybrid_phase(torch, card: str, smi: str, pool_run: dict,
+                       tag: str = "dense"):
     """The paper's dense-batch hybrid path on the pool phase's models and
     router: HybridEngine over two dense Engines, the same 16 prompts as
     (16, 512) PAD-padded tokens. One warm-up serve, then one counted and
-    timed serve."""
+    timed serve. ``tag`` names the log's lines."""
     import numpy as np
     from repro_torch.kernels.decode_attention import ops as dec
     from repro_torch.kernels.flash_attention import ops as fa
@@ -1333,7 +1456,7 @@ def dense_hybrid_phase(torch, card: str, smi: str, pool_run: dict):
     for name, eng in engines.items():
         L = pool_run["cfgs"][name].n_layers
         want = {"flash": L, "decode": L * NEW_TOKENS}
-        log(f"[dense] {name}: {eng.stats.requests} requests in "
+        log(f"[{tag}] {name}: {eng.stats.requests} requests in "
             f"{eng.stats.batches} batches, kernel launches {per_tier[name]} "
             f"(expected {want}), KV slab "
             f"{eng.stats.kv_high_water_bytes / 1e9:.3f} GB")
@@ -1350,7 +1473,7 @@ def dense_hybrid_phase(torch, card: str, smi: str, pool_run: dict):
             pool_run["cfgs"]["full"].vocab_size or res.responses.min() < 0:
         raise AssertionError("responses out of range")
     n_tok = int(res.lengths.sum())
-    log(f"[dense] {N_PROMPTS} requests ({int(res.routed_small.sum())} half, "
+    log(f"[{tag}] {N_PROMPTS} requests ({int(res.routed_small.sum())} half, "
         f"{int((~res.routed_small).sum())} full), {n_tok} tokens in "
         f"{wall:.3f} s = {n_tok / wall:.1f} tokens/s on {card} ({smi})")
     return launches
@@ -3721,9 +3844,14 @@ def analysis_phase(torch, card: str, smi: str, pool_run: dict,
                 err, scale = _max_err(got, want)
                 tol = SSD_TOL * max(1.0, scale) if mode.scaled \
                     else KERNEL_TOL
+                what = "max abs err"
+                if not isinstance(got, tuple) and \
+                        got.dtype == torch.bfloat16:   # a bf16 mode
+                    tol, err = BF16_TOL, _bf16_excess(got, want)
+                    what = f"allclose(rtol=atol={BF16_TOL:g}) excess"
                 finite = all(torch.isfinite(t).all().item() for t in
                              (got if isinstance(got, tuple) else (got,)))
-                log(f"[analysis] probe {family}[{mode.name}]: max abs err "
+                log(f"[analysis] probe {family}[{mode.name}]: {what} "
                     f"{err:.3g} <= {tol:.3g}")
                 if not (finite and err <= tol):
                     raise AssertionError(
@@ -4003,7 +4131,8 @@ def fused_pool_phase(torch, card: str, smi: str, pool_run: dict,
     return launches
 
 
-def dryrun_phase(torch, card: str, smi: str, pool_run: dict):
+def dryrun_phase(torch, card: str, smi: str, pool_run: dict,
+                 meanwhile=None):
     """Phase 9 (after phase 8, before phase 4d frees phases 4-4c's
     models). (a) ``python -m repro_torch.launch.dryrun`` on the host, one
     subprocess a combination, all three started together and run while
@@ -4014,7 +4143,8 @@ def dryrun_phase(torch, card: str, smi: str, pool_run: dict):
     logged. (c) The fused pool step (``fused_pool_phase``). (b) The steps
     on the card (``card_steps_phase``). Cuts: qwen1.5-32b at depth
     STEP_DEPTH for (b), the CPU's qwen prefill on the first row only;
-    (c) at FUSED_B rows of FUSED_PROMPT tokens."""
+    (c) at FUSED_B rows of FUSED_PROMPT tokens. ``meanwhile`` (phase 10)
+    runs after (b), while the host's dry runs finish."""
     import os
     import tempfile
     t0 = time.monotonic()
@@ -4030,6 +4160,9 @@ def dryrun_phase(torch, card: str, smi: str, pool_run: dict):
         counters = _all_counters()
         fused = fused_pool_phase(torch, card, smi, pool_run, counters)
         stepped = card_steps_phase(torch, card, smi, counters)
+        t_card = time.monotonic() - t0
+        if meanwhile is not None:
+            meanwhile()
         for (arch, shape), proc in procs.items():
             text, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
             for line in text.splitlines()[-6:]:
@@ -4052,8 +4185,355 @@ def dryrun_phase(torch, card: str, smi: str, pool_run: dict):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    log(f"[dryrun] phase 9 {time.monotonic() - t0:.3f} s on {card} ({smi})")
+    log(f"[dryrun] phase 9 {time.monotonic() - t0:.3f} s on {card} ({smi}),"
+        f" its card work {t_card:.3f} s" + ("; phase 10 ran while the host's "
+                                             "dry runs worked"
+                                             if meanwhile else ""))
     return {"dryrun-steps": stepped, "fused-pool": fused}
+
+
+# ----------------------------------------------------------------- phase 10
+BF16_CPU_PROMPTS = 4    # (b): phase 4's shortest prompts, on "full"
+
+
+def _dtype_tol(cpu16, cpu32, V):
+    """The card's bf16 tolerance from the dtype itself: ``gap``, the
+    largest gap between the CPU's bf16 and fp32 logits (the same bf16
+    weights), is how far one bf16 computation of the model lands from
+    fp32. The card's bf16 and the CPU's bf16 are two such computations,
+    rounding in other orders (and the kernels keep the scores in fp32,
+    where the plain versions round them), so each as close to fp32 as the
+    other lies within 2 gap of it: returns (gap, 2 gap)."""
+    gap = max((a[..., :V] - b[..., :V]).abs().max().item()
+              for a, b in zip(cpu16, cpu32))
+    return gap, 2 * gap
+
+
+def _reset_counts(counters):
+    for c in counters.values():
+        c.launches = 0
+        if hasattr(c, "launches_by_dtype"):
+            c.launches_by_dtype = {}
+
+
+def _by_dtype(counters):
+    """{kernel: {dtype: launches}} of the wrappers that launched."""
+    return {k: dict(c.launches_by_dtype) for k, c in counters.items()
+            if getattr(c, "launches_by_dtype", None)}
+
+
+def _only_bf16(tag, by_dtype, names):
+    """Raise unless each kernel of ``names`` launched, and only its bf16
+    instance."""
+    for k in names:
+        got = by_dtype.get(k, {})
+        if not got.get("bfloat16") or set(got) != {"bfloat16"}:
+            raise AssertionError(f"{tag}: {k} launches by dtype {got}; "
+                                 "the bf16 instance alone must launch")
+
+
+def bf16_pool_phase(torch, card: str, smi: str, pool_run: dict, bf16: dict):
+    """Phase 10(b): phase 4's routed pool with both tiers at bf16 (phase
+    4's models cast by ``.to(torch.bfloat16)``, their configs at dtype
+    bfloat16, so the pools are bf16 too), phase 4's fp32 router and
+    prompts, one warm-up and one counted and timed serve: every query on
+    phase 4's tier, K1 and K2 on both tiers and only their bf16 instances,
+    no page leaked; tokens/s beside phase 4's, the peak memory."""
+    import numpy as np
+    from repro_torch.core.routing import ThresholdPolicy
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import ContinuousEngine
+    from repro_torch.serving.pool import ContinuousPoolEngine
+
+    counters = _all_counters()
+    paged = ("paged_decode_attention", "paged_prefill_attention")
+    tiers = [(n, ContinuousEngine(build_model(bf16["cfgs"][n]),
+                                  bf16["models"][n], max_new_tokens=NEW_TOKENS,
+                                  n_slots=N_SLOTS, max_seq=MAX_SEQ))
+             for n in ("half", "full")]
+    pool = ContinuousPoolEngine(ThresholdPolicy(pool_run["router"]), tiers)
+    tokens, mask = pool_run["tokens"], pool_run["mask"]
+    for _, eng in tiers:
+        eng.serve(tokens[:2, :48], seed=1)
+        eng.stats = type(eng.stats)()
+    pool.meter.reset()
+    per_tier = {name: {k: 0 for k in paged} for name, _ in tiers}
+
+    def counted(name, step):
+        def run(*args, **kw):
+            n0 = {k: counters[k].launches for k in paged}
+            out = step(*args, **kw)
+            for k in paged:
+                per_tier[name][k] += counters[k].launches - n0[k]
+            return out
+        return run
+
+    for name, eng in tiers:
+        eng.step = counted(name, eng.step)
+    _reset_counts(counters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    res = pool.serve(tokens, mask, seed=0)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated()
+    by_dtype = _by_dtype(counters)
+    for name, eng in tiers:
+        log(f"[bf16 pool] {name}: calls {pool.meter.summary()[name]['calls']}"
+            f", decode steps {eng.stats.decode_steps}, prefill dispatches "
+            f"{eng.stats.prefill_dispatches}, kernel launches "
+            f"{per_tier[name]}, free pages {eng.cache.free_pages} of "
+            f"{eng.cache.num_pages}")
+        if not all(per_tier[name].values()):
+            raise AssertionError(f"bf16 tier {name}: a paged kernel never "
+                                 f"launched: {per_tier[name]}")
+        if eng.cache.free_pages != eng.cache.num_pages - 1:
+            raise AssertionError(f"bf16 tier {name}: pages leaked")
+    _only_bf16("phase 10(b)", by_dtype, paged)
+    if not np.array_equal(res.tier_idx, pool_run["tier_idx"]):
+        raise AssertionError("the bf16 pool routes differently from phase 4")
+    if not (res.lengths >= 1).all() or res.responses.max() >= \
+            pool_run["cfgs"]["full"].vocab_size or res.responses.min() < 0:
+        raise AssertionError("bf16 responses out of range")
+    n_tok = int(res.lengths.sum())
+    n4 = int(pool_run["lengths"].sum())
+    same = sum(np.array_equal(a[:n], b[:n]) for a, b, n, m in zip(
+        res.responses, pool_run["responses"], res.lengths,
+        pool_run["lengths"]) if n == m)
+    log(f"[bf16 pool] {N_PROMPTS} requests on phase 4's tiers, launches by "
+        f"dtype {by_dtype}; {n_tok} tokens in {wall:.3f} s = "
+        f"{n_tok / wall:.1f} tokens/s (phase 4, fp32: {n4} tokens in "
+        f"{pool_run['wall']:.3f} s = {n4 / pool_run['wall']:.1f} tokens/s); "
+        f"{same} of {N_PROMPTS} streams emit phase 4's fp32 tokens; peak "
+        f"memory {peak / 1e9:.3f} GB on {card} ({smi})")
+    return by_dtype
+
+
+def _greedy_margins(eng):
+    """Record on ``eng`` each request's first-token logits
+    (``_first_logits``) and the top-2 margin of the logits behind each
+    token it emits. Returns ({rid: first logits}, {rid: [margins]}),
+    filled as the engine runs (one host read a token: the CPU's)."""
+    firsts = _first_logits(eng)
+    margins = collections.defaultdict(list)
+    last = [None]
+    bundle = eng.bundle
+
+    def decode(*args, **kw):
+        last[0] = bundle.decode_step_paged(*args, **kw)
+        return last[0]
+
+    eng.bundle = dataclasses.replace(bundle, decode_step_paged=decode)
+    push = eng._push_token
+
+    def push_token(req, token):
+        first, slot = not req.out, req.slot
+        out = push(req, token)        # sets firsts[req.rid] on the first
+        row = firsts[req.rid] if first else last[0][slot]
+        top2 = row.float().topk(2).values
+        margins[req.rid].append(float(top2[0] - top2[1]))
+        return out
+
+    eng._push_token = push_token
+    return firsts, margins
+
+
+def bf16_vs_cpu(torch, card: str, smi: str, pool_run: dict, bf16: dict):
+    """Phase 10(b), the card against the CPU on the BF16_CPU_PROMPTS
+    shortest of phase 4's prompts, each device's "full" tier at bf16
+    through a pool engine of phase 4's geometry. The tolerance comes from
+    the dtype (``_dtype_tol``: twice the largest gap between the CPU's
+    bf16 and fp32 first-token logits). The card's bf16 first-token logits
+    must lie within it of the CPU's bf16, and the card's greedy tokens
+    must equal the CPU's bf16 greedy tokens up to the first position where
+    the CPU's top-2 margin is under it."""
+    import numpy as np
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import ContinuousEngine
+
+    cfg16 = bf16["cfgs"]["full"]
+    gpu = bf16["models"]["full"]
+    lens = pool_run["lens"]
+    idx = [int(i) for i in np.argsort(lens, kind="stable")
+           [:BF16_CPU_PROMPTS]]
+    prompts = [pool_run["tokens"][i, :lens[i]].astype(np.int32) for i in idx]
+
+    def run(model, cfg, new_tokens):
+        eng = ContinuousEngine(build_model(cfg), model,
+                               max_new_tokens=new_tokens, n_slots=N_SLOTS,
+                               max_seq=MAX_SEQ)
+        firsts, margins = _greedy_margins(eng)
+        reqs = [eng.submit(p) for p in prompts]
+        eng.run()
+        return ([firsts[r.rid].float().cpu() for r in reqs],
+                [list(r.out) for r in reqs], [margins[r.rid] for r in reqs])
+
+    t0 = time.monotonic()
+    with torch.no_grad():
+        card_first, card_tok, _ = run(gpu, cfg16, NEW_TOKENS)
+        cpu16 = type(gpu)(cfg16, device="cpu")
+        cpu16.load_state_dict(gpu.state_dict())
+        first16, tok16, marg16 = run(cpu16, cfg16, NEW_TOKENS)
+        del cpu16
+        cfg32 = dataclasses.replace(cfg16, dtype="float32")
+        cpu32 = type(gpu)(cfg32, device="cpu")
+        cpu32.load_state_dict(gpu.state_dict())    # bf16 values, widened
+        first32, _, _ = run(cpu32, cfg32, 1)
+        del cpu32
+    V = cfg16.vocab_size
+    gap, tol = _dtype_tol(first16, first32, V)
+    err = max((a[:V] - b[:V]).abs().max().item()
+              for a, b in zip(card_first, first16))
+    err32 = max((a[:V] - b[:V]).abs().max().item()
+                for a, b in zip(card_first, first32))
+    log(f"[bf16 vs cpu] {len(idx)} prompts of {[len(p) for p in prompts]} "
+        f"tokens on full: the dtype's gap (CPU bf16 against CPU fp32 "
+        f"first-token logits) {gap:.4g}, tolerance {tol:.4g}; card bf16 "
+        f"against CPU bf16 {err:.4g}, against CPU fp32 {err32:.4g}")
+    if not err <= tol:
+        raise AssertionError(f"bf16 card vs CPU first-token logits {err} > "
+                             f"{tol}, twice the dtype's gap")
+    for i, got, want, margins in zip(idx, card_tok, tok16, marg16):
+        sure = next((j for j, m in enumerate(margins) if m < tol),
+                    len(margins))
+        agree = next((j for j, (a, b) in enumerate(zip(got, want))
+                      if a != b), min(len(got), len(want)))
+        log(f"[bf16 vs cpu] prompt {i}: card and CPU agree on the first "
+            f"{agree} of {len(want)} greedy tokens; the CPU's top-2 margin "
+            f"first falls under {tol:.4g} at position "
+            f"{sure if sure < len(margins) else 'none'}")
+        if agree < min(sure, len(want)):
+            raise AssertionError(f"prompt {i}: card and CPU bf16 greedy "
+                                 f"tokens differ at {agree}, before the "
+                                 f"first near-tie ({sure})")
+    log(f"[bf16 vs cpu] {time.monotonic() - t0:.1f} s (most of it the "
+        f"CPU's bf16 serve) on {card} ({smi})")
+
+
+def bf16_steps_phase(torch, card: str, smi: str):
+    """Phase 10(d): phase 9(b)'s qwen1.5-32b decode and prefill steps at
+    ``dryrun_config``'s bf16 (depth STEP_DEPTH) on the card, each predicted
+    first by the bf16 fake run on one device: predicted against measured
+    peak, K5 / K4 once a layer a run, their bf16 instances only, finite
+    logits, and the decode logits against the CPU's bf16 within the
+    dtype's tolerance there (``_dtype_tol``: the CPU's bf16 against its
+    fp32 on the same weights)."""
+    from repro_torch.launch import steps
+    from repro_torch.launch.dryrun import trace_step
+    from repro_torch.launch.inputs import dryrun_config
+    from repro_torch.models.model import build_model
+
+    dev = torch.device("cuda")
+    counters = _all_counters()
+    t_phase = time.monotonic()
+    model = None
+    for tag, cfg, shape, kernel, per_run in _step_runs()[:2]:
+        rcfg = dryrun_config(cfg, shape)
+        bundle = build_model(rcfg)
+        t0 = time.monotonic()
+        pred = trace_step(rcfg, shape)
+        log(f"[bf16 steps] {tag}: bf16 fake run on one device "
+            f"{time.monotonic() - t0:.2f} s: predicted peak "
+            f"{pred['memory']['peak_gb']:.3f} GB")
+        if model is None:
+            gc.collect()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            model = bundle.init(torch.Generator(device=dev).manual_seed(900),
+                                dev)
+        gen = torch.Generator(device=dev).manual_seed(901)
+        args = _step_args(torch, bundle, model, shape, dev, gen)
+        cpu_args = None
+        if shape.kind == "decode":
+            cpu16 = type(model)(rcfg, device="cpu")
+            cpu16.load_state_dict(model.state_dict())
+            cpu_args = _to_cpu(torch, args, cpu16)
+        fn = (steps.build_decode_step(bundle, False) if shape.kind == "decode"
+              else steps.build_prefill_step(bundle, shape.seq_len))
+        _reset_counts(counters)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        if shape.kind == "decode":
+            args[1]["pos"] = shape.seq_len - 1
+        t0 = time.monotonic()
+        fn(*args)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        by_dtype = _by_dtype(counters)
+        want = {kernel: {"bfloat16": 2 * per_run}}
+        logits = out[0]
+        log(f"[bf16 steps] {tag} on {card} ({smi}): measured peak "
+            f"{peak / 1e9:.3f} GB against {pred['memory']['peak_gb']:.3f} "
+            f"GB predicted (bf16 fake run); wall {wall * 1e3:.3f} ms a "
+            f"step; launches by dtype {by_dtype} (expected {want}); logits "
+            f"{tuple(logits.shape)} {logits.dtype}")
+        if by_dtype != want:
+            raise AssertionError(f"bf16 {tag}: launches {by_dtype} != {want}")
+        if logits.dtype != torch.bfloat16 or \
+                not torch.isfinite(logits.float()).all():
+            raise AssertionError(f"bf16 {tag}: logits not finite bf16")
+        if cpu_args is not None:
+            cfg32 = dataclasses.replace(rcfg, dtype="float32")
+            with torch.no_grad():
+                cpu32 = type(model)(cfg32, device="cpu")
+                cpu32.load_state_dict(cpu16.state_dict())  # widened
+                a32 = (cpu32, {k: v.float() if torch.is_tensor(v)
+                               and v.is_floating_point() else v
+                               for k, v in cpu_args[1].items()},
+                       cpu_args[2])
+                c16 = fn(*cpu_args)[0].float()
+                c32 = steps.build_decode_step(build_model(cfg32),
+                                              False)(*a32)[0]
+            gap, tol = _dtype_tol([c16], [c32], rcfg.vocab_size)
+            err = (logits.float().cpu() - c16)[:, :rcfg.vocab_size].abs() \
+                .max().item()
+            log(f"[bf16 steps] {tag}: card against CPU bf16 logits {err:.4g}"
+                f"; the dtype's gap (CPU bf16 against fp32) {gap:.4g}, "
+                f"tolerance {tol:.4g}")
+            if not err <= tol:
+                raise AssertionError(f"bf16 {tag}: card vs CPU {err} > "
+                                     f"{tol}")
+            del cpu16, cpu32, cpu_args, a32
+        del args, out, logits
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[bf16 steps] {time.monotonic() - t_phase:.1f} s")
+
+
+def bf16_phase(torch, card: str, smi: str, pool_run: dict):
+    """Phase 10 (after phase 9's card work, while its dry runs finish on
+    the host; on phase 4's models, router and prompts):
+    the tiers cast to bf16 in place (phase 4's fp32 models are not used
+    after it), then (a) is phase 3's bf16 cases, (b) the routed pool
+    (``bf16_pool_phase``) and the card against the CPU (``bf16_vs_cpu``),
+    (c) phase 4b's dense hybrid path at bf16 (K4 once a layer a prefill,
+    K5 once a layer a decode step, their bf16 instances only) and (d)
+    the dry run's decode and prefill steps at bf16 (``bf16_steps_phase``).
+    Returns {kernel: {dtype: launches}} over (b) and (c)."""
+    t0 = time.monotonic()
+    bf16 = dict(cfgs={n: dataclasses.replace(c, dtype="bfloat16")
+                      for n, c in pool_run["cfgs"].items()},
+                models={n: m.to(torch.bfloat16)
+                        for n, m in pool_run["models"].items()})
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = bf16_pool_phase(torch, card, smi, pool_run, bf16)
+    bf16_vs_cpu(torch, card, smi, pool_run, bf16)
+    counters = _all_counters()
+    _reset_counts(counters)
+    dense = dense_hybrid_phase(torch, card, smi, dict(pool_run, **bf16),
+                               tag="bf16 dense")
+    # its warm-up serve and its counted serve: the bf16 instances only
+    _only_bf16("phase 10(c)", _by_dtype(counters), dense)
+    launches.update({k: {"bfloat16": n} for k, n in dense.items()})
+    bf16_steps_phase(torch, card, smi)
+    log(f"[bf16] phase 10 {time.monotonic() - t0:.3f} s on {card} ({smi})")
+    return launches
 
 
 def main() -> int:
@@ -4085,7 +4565,14 @@ def main() -> int:
                         pool_run["cfgs"]["full"])
     device_vs_cpu_phase(torch, ssm_run["model"], ssm_run["cfg"])
     analysis_phase(torch, card, smi, pool_run, ssm_run)
-    for path, counts in dryrun_phase(torch, card, smi, pool_run).items():
+    # phase 10 runs while phase 9's dry runs work on the host, after 9(b)
+    # and (c); it casts phase 4's models to bf16 in place: nothing after
+    # it uses them at fp32
+    bf16_launches = {}
+    phase10 = lambda: bf16_launches.update(
+        bf16_phase(torch, card, smi, pool_run))
+    for path, counts in dryrun_phase(torch, card, smi, pool_run,
+                                     meanwhile=phase10).items():
         for name, n in counts.items():
             by_path[name][path] = n
     # phase 4d holds 3.88 B + 0.76 B params, their pools and a router over
@@ -4143,11 +4630,12 @@ def main() -> int:
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["launches_by_path"] = by_path[row["name"]]
+        row["qwen1.5-32b-bf16"] = bf16_launches.get(row["name"], {})
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")
+            "bound_by", "library_ms", "bf16", "qwen1.5-32b-bf16")
     log(smi)
-    log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    log(json.dumps({"kernels": [{k: r.get(k) for k in keys} for r in rows]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,
         "count": torch.cuda.device_count()}}))

@@ -13,7 +13,8 @@ fail silently on the card. This pass turns those into findings:
   the argument count (the stream is last and implicit), a tensor where the
   source has a pointer and a Python int where it has an ``int``, the
   pointee's dtype (``float`` fp32, ``int`` int32, ``int8_t`` int8,
-  ``void`` anything), every int within a C int, and the return type the
+  ``elem::bf16`` bf16, ``void`` anything), every int within a C int, and
+  the return type the
   binding assumes (``int`` for a launch, ``long long`` for a query).
   ``query`` calls are checked against their signatures the same way.
 * ``kernel-extent``      — for every pointer operand, the highest element
@@ -77,6 +78,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels.common import ENTRY_SUFFIX, float_dtype
 from .report import Finding
 
 RULES = frozenset({
@@ -87,8 +89,8 @@ RULES = frozenset({
 AUDITED_STATIC_ARGS = ("pages_bound", "pages_start", "window")
 SHIMMED = ("launch", "query", "check_inputs")
 C_INT_MIN, C_INT_MAX = -2 ** 31, 2 ** 31 - 1
-_POINTEES = {"float": torch.float32, "int": torch.int32,
-             "int8_t": torch.int8, "void": None}
+_POINTEES = {"float": torch.float32, "elem::bf16": torch.bfloat16,
+             "int": torch.int32, "int8_t": torch.int8, "void": None}
 
 
 # ------------------------------------------------------------ the C side
@@ -236,6 +238,12 @@ LAYOUTS: Dict[str, Dict[str, object]] = {
 }
 
 
+# the attention kernels' bf16 instances take their fp32 twins' layouts
+LAYOUTS.update({name.replace("_f32", "_bf16"): LAYOUTS[name] for name in (
+    "decode_attention_f32", "flash_attention_f32",
+    "paged_decode_attention_f32", "paged_prefill_attention_f32")})
+
+
 @dataclasses.dataclass(frozen=True)
 class Walk:
     """A paged kernel's walk, by its C parameter names. ``rows`` names the
@@ -252,9 +260,10 @@ WALK_INTS = ("ps", "pages_start", "pages_end", "window")
 
 
 PAGE_WALKS: Dict[str, Walk] = {
-    "paged_decode_attention_f32": Walk(("seq_lens",)),
-    "paged_prefill_attention_f32": Walk(("start", "total")),
-}
+    f"paged_{kind}_attention_{suffix}": Walk(rows)
+    for kind, rows in (("decode", ("seq_lens",)),
+                       ("prefill", ("start", "total")))
+    for suffix in ("f32", "bf16")}
 
 
 def check_layouts(entries: Dict[str, Entry],
@@ -394,7 +403,8 @@ class Recorder:
         def check_inputs(name, floats, ints, **kw):
             if self.live:
                 return real["check_inputs"](name, floats, ints, **kw)
-            return next(iter(floats.values())).device
+            return float_dtype(name, {a: t.dtype for a, t in floats.items()},
+                               kw.get("dtypes", tuple(ENTRY_SUFFIX)))
 
         return {"launch": launch, "query": query,
                 "check_inputs": check_inputs}
@@ -411,14 +421,15 @@ def capture(live: bool = False, modules: Optional[Dict] = None):
     """Swap ``launch``, ``query`` and ``check_inputs`` in each family's
     ``ops`` module (``modules``: {family: module}, default every probed
     family) for the recorder's shims; yields the recorder. The wrappers'
-    ``launches`` counters are restored on exit: an audit's launches count
-    on no path."""
+    ``launches`` counters (and ``launches_by_dtype``) are restored on
+    exit: an audit's launches count on no path."""
     modules = family_modules() if modules is None else modules
     rec = Recorder(live)
     saved = []
     for family, mod in modules.items():
         real = {n: getattr(mod, n) for n in SHIMMED if hasattr(mod, n)}
-        counts = {f: f.launches for f in vars(mod).values()
+        counts = {f: (f.launches, dict(getattr(f, "launches_by_dtype", {})))
+                  for f in vars(mod).values()
                   if callable(f) and hasattr(f, "launches")}
         saved.append((mod, real, counts))
         for n, shim in rec.shims(family, real).items():
@@ -430,8 +441,10 @@ def capture(live: bool = False, modules: Optional[Dict] = None):
         for mod, real, counts in saved:
             for n, f in real.items():
                 setattr(mod, n, f)
-            for f, n in counts.items():
+            for f, (n, by_dtype) in counts.items():
                 f.launches = n
+                if hasattr(f, "launches_by_dtype"):
+                    f.launches_by_dtype = by_dtype
 
 
 # ---------------------------------------------------------------- probes
@@ -455,9 +468,10 @@ class Inputs:
         self.fdev, self.idev = torch.device(fdev), torch.device(idev)
         self.rng = np.random.default_rng(seed)
 
-    def f(self, *shape, scale: float = 1.0) -> torch.Tensor:
+    def f(self, *shape, scale: float = 1.0,
+          dtype=torch.float32) -> torch.Tensor:
         a = (self.rng.standard_normal(shape) * scale).astype(np.float32)
-        return torch.from_numpy(a).to(self.fdev)
+        return torch.from_numpy(a).to(self.fdev, dtype)
 
     def uniform(self, lo: float, hi: float, *shape) -> np.ndarray:
         return self.rng.uniform(lo, hi, shape).astype(np.float32)
@@ -492,13 +506,17 @@ def _probe_paged_decode(mk: Inputs) -> List[Mode]:
     q = mk.f(B, K, G, D, scale=D ** -0.5)
     kp, vp = mk.f(P, ps, K, D), mk.f(P, ps, K, D)
     pt = mk.i(mk.rng.integers(1, P, (B, MP)))
+    bf = [t.to(torch.bfloat16) for t in (q, kp, vp)]
     # the full table width, a live bound, and a window walked from page 2
-    # (each row's window inside [16, 40)); the last slot idle
-    return [_mode(name, ops.paged_decode_attention_gqa, q, kp, vp, pt,
-                  mk.i(lens), **kw) for name, lens, kw in (
-        ("full_walk", [37, 9, 0], {}),
-        ("live_bound", [24, 17, 0], dict(pages_bound=3)),
-        ("window_late_start", [40, 26, 0],
+    # (each row's window inside [16, 40)); the last slot idle; the window
+    # walk again at bf16
+    return [_mode(name, ops.paged_decode_attention_gqa, *floats, pt,
+                  mk.i(lens), **kw) for name, floats, lens, kw in (
+        ("full_walk", (q, kp, vp), [37, 9, 0], {}),
+        ("live_bound", (q, kp, vp), [24, 17, 0], dict(pages_bound=3)),
+        ("window_late_start", (q, kp, vp), [40, 26, 0],
+         dict(pages_bound=5, pages_start=2, window=8)),
+        ("bf16_window_late_start", bf, [40, 26, 0],
          dict(pages_bound=5, pages_start=2, window=8)))]
 
 
@@ -508,13 +526,18 @@ def _probe_paged_prefill(mk: Inputs) -> List[Mode]:
     q = mk.f(B, K, C, G, D, scale=D ** -0.5)
     kp, vp = mk.f(P, ps, K, D), mk.f(P, ps, K, D)
     pt = mk.i(mk.rng.integers(1, P, (B, MP)))
-    # a full chunk and a ragged one per launch, the last row padding
-    return [_mode(name, ops.paged_prefill_attention_gqa, q, kp, vp, pt,
+    bf = [t.to(torch.bfloat16) for t in (q, kp, vp)]
+    # a full chunk and a ragged one per launch, the last row padding; the
+    # window walk again at bf16
+    return [_mode(name, ops.paged_prefill_attention_gqa, *floats, pt,
                   mk.i(start), mk.i(total), **kw)
-            for name, start, total, kw in (
-        ("full_walk", [20, 3, 0], [24, 5, 0], {}),
-        ("live_bound", [16, 9, 0], [20, 13, 0], dict(pages_bound=3)),
-        ("window_late_start", [30, 25, 0], [34, 27, 0],
+            for name, floats, start, total, kw in (
+        ("full_walk", (q, kp, vp), [20, 3, 0], [24, 5, 0], {}),
+        ("live_bound", (q, kp, vp), [16, 9, 0], [20, 13, 0],
+         dict(pages_bound=3)),
+        ("window_late_start", (q, kp, vp), [30, 25, 0], [34, 27, 0],
+         dict(pages_bound=5, pages_start=2, window=8)),
+        ("bf16_window_late_start", bf, [30, 25, 0], [34, 27, 0],
          dict(pages_bound=5, pages_start=2, window=8)))]
 
 
@@ -546,6 +569,10 @@ def _probe_decode(mk: Inputs) -> List[Mode]:
         # decode cross-attention: every encoder key valid, two splits
         _mode("cross", ops.decode_attention_kv, qh, enc[0], enc[1],
               mk.i(np.ones((B, 150)), torch.int8)),
+        # the strided views again at bf16
+        _mode("bf16_kv_strided", ops.decode_attention_kv,
+              qh.to(torch.bfloat16), *kv.to(torch.bfloat16).unbind(2),
+              _valid(mk, B, Sx)),
     ]
 
 
@@ -557,9 +584,10 @@ def _probe_flash(mk: Inputs) -> List[Mode]:
     B, Sm, H, K, Dm = 2, 24, 4, 2, 16
     # q, k and v as views of one packed projection (the model's layout)
     qkv = mk.f(B, Sm, (H + 2 * K) * Dm)
-    qm = qkv[..., :H * Dm].view(B, Sm, H, Dm)
-    km = qkv[..., H * Dm:(H + K) * Dm].view(B, Sm, K, Dm)
-    vm = qkv[..., (H + K) * Dm:].view(B, Sm, K, Dm)
+    views = lambda t: (t[..., :H * Dm].view(B, Sm, H, Dm),
+                       t[..., H * Dm:(H + K) * Dm].view(B, Sm, K, Dm),
+                       t[..., (H + K) * Dm:].view(B, Sm, K, Dm))
+    qm, km, vm = views(qkv)
     return [
         _mode("causal", ops.flash_attention_bhsd, q, k, v),
         _mode("window", ops.flash_attention_bhsd, q, k, v, window=8),
@@ -568,6 +596,13 @@ def _probe_flash(mk: Inputs) -> List[Mode]:
         _mode("irregular", ops.flash_attention_bhsd, q[:, :12], k[:, :12],
               v[:, :12]),
         _mode("gqa_strided", ops.flash_attention, qm, km, vm),
+        # the packed projection's views again at bf16, q pre-scaled as the
+        # model hands it over: the plain version rounds the scores to bf16
+        # and the kernel does not, which at unscaled scores' magnitude
+        # exceeds the bf16 tolerance
+        _mode("bf16_gqa_strided", ops.flash_attention,
+              *views(torch.cat([qkv[..., :H * Dm] * Dm ** -0.5,
+                                qkv[..., H * Dm:]], -1).to(torch.bfloat16))),
     ]
 
 

@@ -17,6 +17,13 @@ two axes: ``blocks/mamba/ssm/w_in`` (n_blocks, n_mamba, ...) becomes
 ``enc_pos``, ``enc_ln_f``, ``ln_f``, ``embed`` and ``head`` are copied as
 they are. ``load_checkpoint`` (from
 ``training.checkpoint``) reads either side's ``.npz``.
+
+bf16 crosses bit for bit: the reference's bf16 arrays (``ml_dtypes``'
+bfloat16, or the 2-byte ``V2`` records ``np.load`` gives back for them
+from a ``.npz`` that ``save_checkpoint`` wrote) are read as their 16 bits
+and viewed as ``torch.bfloat16`` (``tensor_from_numpy``), without
+``ml_dtypes``; a bf16 parameter comes back as fp32 arrays, which hold
+every bf16 value exactly.
 """
 from __future__ import annotations
 
@@ -31,6 +38,21 @@ from repro_torch.models.encoder import RouterConfig, RouterEncoder
 from repro_torch.training.checkpoint import _flatten
 # re-exported: the bridge reads the reference's checkpoints
 from repro_torch.training.checkpoint import load_checkpoint  # noqa: F401
+
+
+def is_bf16_bits(arr: np.ndarray) -> bool:
+    """A 2-byte array of no numeric kind: the reference's bf16
+    (``ml_dtypes.bfloat16``, or the ``V2`` records of a bf16 ``.npz``)."""
+    return arr.dtype.kind == "V" and arr.dtype.itemsize == 2
+
+
+def tensor_from_numpy(arr) -> torch.Tensor:
+    """A CPU tensor of ``arr`` (anything ``np.asarray`` takes), bf16 bits
+    (``is_bf16_bits``) viewed as ``torch.bfloat16``, bit for bit."""
+    arr = np.array(arr, order="C")     # a writable copy
+    if is_bf16_bits(arr):
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def _state_from_tree(tree: dict, n_layers: int) -> dict:
@@ -62,11 +84,13 @@ def _state_from_tree(tree: dict, n_layers: int) -> dict:
 @torch.no_grad()
 def params_from_numpy(tree: dict, cfg, device="cuda"):
     """The port's module for ``cfg`` holding the reference param ``tree``
-    (numpy arrays, or anything ``np.asarray`` takes): a ``Decoder`` for an
-    ``ArchConfig`` (a ``Hybrid`` for ``family="hybrid"``, an ``EncDec``
-    for an encoder-decoder), a ``RouterEncoder`` for a ``RouterConfig``,
-    on ``device``. Raises on a missing, unexpected or mis-shaped
-    tensor."""
+    (numpy arrays, or anything ``np.asarray`` takes; bf16 as
+    ``tensor_from_numpy`` reads it): a ``Decoder`` for an ``ArchConfig``
+    (a ``Hybrid`` for ``family="hybrid"``, an ``EncDec`` for an
+    encoder-decoder), a ``RouterEncoder`` for a ``RouterConfig``, on
+    ``device``, each parameter in the config's dtype (a bf16 array into a
+    bf16 parameter bit for bit, into an fp32 one exactly). Raises on a
+    missing, unexpected or mis-shaped tensor."""
     if isinstance(cfg, ArchConfig):
         model = (EncDec if cfg.is_encoder_decoder else Hybrid
                  if cfg.family == "hybrid" else Decoder)(cfg, device)
@@ -85,7 +109,7 @@ def params_from_numpy(tree: dict, cfg, device="cuda"):
         arr = state[name]
         if tuple(arr.shape) != tuple(p.shape):
             raise ValueError(f"{name}: shape {arr.shape} != {tuple(p.shape)}")
-        p.copy_(torch.tensor(arr, dtype=p.dtype))
+        p.copy_(tensor_from_numpy(arr))
     return model
 
 
@@ -95,15 +119,17 @@ def numpy_from_params(module: torch.nn.Module, cfg) -> dict:
     of numpy arrays, each stacked tensor on its leading axes (``layers``
     and ``dec_layers``: one of ``cfg.n_layers``; ``enc_layers``: one of
     ``cfg.n_enc_layers``; the hybrid's ``blocks``: blocks, then
-    sub-layers); every array is a copy. The inverse of ``params_from_numpy``;
-    ``training.checkpoint.save_checkpoint`` writes it as the reference's
-    ``.npz``."""
+    sub-layers); every array is a copy, a bf16 parameter's widened to fp32
+    (exact: fp32 holds every bf16 value). The inverse of
+    ``params_from_numpy``; ``training.checkpoint.save_checkpoint`` writes it
+    as the reference's ``.npz``."""
     stacked: dict = {}
     tree: dict = {}
     for name, p in module.state_dict().items():
         # a copy: on the CPU ``.numpy()`` shares the parameter's memory,
         # which training updates in place
-        arr = p.detach().to("cpu", copy=True).numpy()
+        arr = p.detach().to("cpu", torch.float32 if p.dtype == torch.bfloat16
+                            else p.dtype, copy=True).numpy()
         parts = name.split(".")
         index = tuple(int(q) for q in parts if q.isdigit())
         path = tuple(q for q in parts if not q.isdigit())

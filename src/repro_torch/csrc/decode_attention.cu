@@ -1,5 +1,5 @@
 // One-token GQA decode attention over a dense KV cache, for Hopper
-// (sm_90a), fp32.
+// (sm_90a), fp32 or bf16.
 //
 // Replaces the TPU kernel src/repro/kernels/decode_attention/kernel.py ::
 // decode_attention_gqa (body _dec_kernel): the G query rows of one kv head
@@ -53,6 +53,14 @@
 // - Rows of a block: G rounded up to 1, 2, 4 or 8 (at most 4 at
 //   D > 128); past 8 rows the grid's y axis takes more row blocks.
 //   Padding rows are zero queries that are never stored.
+// - The element type of q, k, v and out is a template parameter, fp32 or
+//   bf16 (entries *_f32 and *_bf16), as the TPU kernel takes either. A
+//   bf16 row is read in the same lane groups, a group in one access of up
+//   to 16 bytes (8 values at D = 256, 4 at D = 128), and widened exactly
+//   to fp32 in registers; scores, (m, l), the accumulator and the
+//   workspace stay fp32; P is rounded to bf16 before P V and l sums it
+//   unrounded, as the TPU body's p.astype(v.dtype); the output is rounded
+//   once. At bf16 the bytes, and so the bound, halve.
 //
 // Layouts: q and out (B, K, G, D) contiguous (the model's (B, H, D)); k, v
 // (B, S, K, D) read through element strides (sb, ss, sh; unit stride on D),
@@ -111,16 +119,16 @@ static_assert(sizeof(float) * kWarps * 8 * state_floats(4) <= 48 * 1024 &&
 // keys (vb: key 0's V row of the head), summed by each warp over keys w,
 // w + kWarps, ... and over the warps in warp order. Called by every thread
 // of the block.
-template <int NC, bool VEC>
-__device__ void store_mean_of_v(const float* __restrict__ vb, int ss, int S,
-                                float* __restrict__ ob, int rows, int D,
+template <int NC, int W, typename T>
+__device__ void store_mean_of_v(const T* __restrict__ vb, int ss, int S,
+                                T* __restrict__ ob, int rows, int D,
                                 float* smem, int lane, int warp) {
   float x[NC];
 #pragma unroll
   for (int j = 0; j < NC; ++j) x[j] = 0.f;
   for (int s = warp; s < S; s += kWarps) {
     float y[NC];
-    load_row<NC, VEC>(y, vb + (size_t)s * ss, lane, D, true);
+    load_row<NC, W>(y, vb + (size_t)s * ss, lane, D, true);
 #pragma unroll
     for (int j = 0; j < NC; ++j) x[j] += y[j];
   }
@@ -134,18 +142,19 @@ __device__ void store_mean_of_v(const float* __restrict__ vb, int ss, int S,
     for (int w = 0; w < kWarps; ++w) x[j] += smem[(w * NC + j) * 32 + lane];
   }
   for (int r = warp; r < rows; r += kWarps)
-    store_row<NC, VEC>(ob + (size_t)r * D, x, 1.f / S, lane, D);
+    store_row<NC, W>(ob + (size_t)r * D, x, 1.f / S, lane, D);
 }
 
-template <int NC, bool VEC, int R>
+template <typename T, int NC, bool VEC, int R>
 __global__ void __launch_bounds__(kThreads, DENSE_MIN_BLOCKS)
-decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const int8_t* __restrict__ valid,
-              float* __restrict__ out, float* __restrict__ ws_acc,
+decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const int8_t* __restrict__ valid,
+              T* __restrict__ out, float* __restrict__ ws_acc,
               float* __restrict__ ws_ml, int* __restrict__ counters, int S,
               int K, int G, int D, int sb, int ss, int sh) {
   constexpr int U = stage_keys(NC, R);
   constexpr int SW = state_floats(NC);
+  constexpr int W = group_width<NC, VEC, T>();
   extern __shared__ float smem[];   // kWarps x R (warp, row) states
   __shared__ bool last, none;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -165,10 +174,10 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const unsigned mask = __ballot_sync(
       kFull, mine && __ldg(valid + (size_t)b * S + sl + lane) > 0);
   float qr[R][NC];
-  const float* qb = q + (head * G + row0) * D;
+  const T* qb = q + (head * G + row0) * D;
 #pragma unroll
   for (int r = 0; r < R; ++r)
-    load_row<NC, VEC>(qr[r], qb + (size_t)r * D, lane, D, r < rows);
+    load_row<NC, W>(qr[r], qb + (size_t)r * D, lane, D, r < rows);
 
   float m[R], l[R], acc[R][NC];
 #pragma unroll
@@ -178,8 +187,8 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NC; ++j) acc[r][j] = 0.f;
   }
-  const float* kb = k + (size_t)b * sb + (size_t)h * sh;
-  const float* vb = v + (size_t)b * sb + (size_t)h * sh;
+  const T* kb = k + (size_t)b * sb + (size_t)h * sh;
+  const T* vb = v + (size_t)b * sb + (size_t)h * sh;
   // the slice's keys from its first valid one to its last, U at a time:
   // bit u of `bits` says key k0 + u is valid (no walk where mask is 0)
   const int a = mask ? sl + __ffs(mask) - 1 : sl;
@@ -192,8 +201,8 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int u = 0; u < U; ++u) {
       const bool ok = (bits >> u) & 1u;
       const size_t row = (size_t)(k0 + u) * ss;
-      load_row<NC, VEC>(kx[u], kb + row, lane, D, ok);
-      load_row<NC, VEC>(vx[u], vb + row, lane, D, ok);
+      load_row<NC, W>(kx[u], kb + row, lane, D, ok);
+      load_row<NC, W>(vx[u], vb + row, lane, D, ok);
     }
     float sc[R][U];
 #pragma unroll
@@ -230,6 +239,11 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
       l[r] = alpha * l[r] + sum;
       m[r] = m_new;
+      // at bf16, P V takes P rounded to bf16 and l the unrounded sum, as
+      // the TPU kernel's p.astype(v.dtype)
+      if constexpr (elem::is_bf16<T>())
+#pragma unroll
+        for (int u = 0; u < U; ++u) sc[r][u] = elem::round_bf16(sc[r][u]);
 #pragma unroll
       for (int j = 0; j < NC; ++j) {
         float x = acc[r][j] * alpha;
@@ -254,12 +268,12 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   const bool any = __syncthreads_or(mask != 0u);
   const bool single = NS == 1;
-  float* ob = out + (head * G + row0) * D;
+  T* ob = out + (head * G + row0) * D;
   const size_t part = (head * NS + s) * G + row0;
   if (!any) {
     // no valid key in the split: in a one-split row, none in the row
     if (single) {
-      store_mean_of_v<NC, VEC>(vb, ss, S, ob, rows, D, smem, lane, warp);
+      store_mean_of_v<NC, W>(vb, ss, S, ob, rows, D, smem, lane, warp);
       return;
     }
     if ((int)threadIdx.x < rows) {
@@ -280,9 +294,9 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
       // one split: normalise and write; else this split's partial
       if (single) {
-        store_row<NC, VEC>(ob + (size_t)r * D, A, inverse(L), lane, D);
+        store_row<NC, W>(ob + (size_t)r * D, A, inverse(L), lane, D);
       } else {
-        store_row<NC, VEC>(ws_acc + (part + r) * D, A, 1.f, lane, D);
+        store_row<NC, W>(ws_acc + (part + r) * D, A, 1.f, lane, D);
         if (lane == 0) {
           ws_ml[2 * (part + r)] = M;
           ws_ml[2 * (part + r) + 1] = L;
@@ -324,8 +338,8 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
         mi[i] = in ? __ldcg(ws_ml + 2 * at) : kNegInf;
         li[i] = in ? __ldcg(ws_ml + 2 * at + 1) : 0.f;
         // an empty split stored no accumulator
-        load_row<NC, VEC, true>(x[i], ws_acc + at * D, lane, D,
-                                in && li[i] > 0.f);
+        load_row<NC, W, true>(x[i], ws_acc + at * D, lane, D,
+                              in && li[i] > 0.f);
       }
       float m_new = M;
 #pragma unroll
@@ -344,12 +358,12 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
       M = m_new;
     }
     if (L > 0.f)
-      store_row<NC, VEC>(ob + (size_t)r * D, A, inverse(L), lane, D);
+      store_row<NC, W>(ob + (size_t)r * D, A, inverse(L), lane, D);
     else if (lane == 0)
       none = true;   // every split empty: no valid key in the row
   }
   __syncthreads();
-  if (none) store_mean_of_v<NC, VEC>(vb, ss, S, ob, rows, D, smem, lane, warp);
+  if (none) store_mean_of_v<NC, W>(vb, ss, S, ob, rows, D, smem, lane, warp);
 }
 
 // Bytes of the workspace a launch takes: each split's partial (m, l,
@@ -362,31 +376,66 @@ size_t workspace_bytes(int B, int S, int K, int G, int D) {
          sizeof(int) * (size_t)B * K * row_blocks(G, D);
 }
 
-template <int NC, bool VEC, int R>
-int launch_as(const float* q, const float* k, const float* v,
-              const int8_t* valid, float* out, float* ws_acc, float* ws_ml,
+template <typename T, int NC, bool VEC, int R>
+int launch_as(const T* q, const T* k, const T* v,
+              const int8_t* valid, T* out, float* ws_acc, float* ws_ml,
               int* counters, int B, int S, int K, int G, int D, int sb,
               int ss, int sh, cudaStream_t stream) {
   const size_t smem = sizeof(float) * kWarps * R * state_floats(NC);
   const dim3 grid(n_splits(S), K * row_blocks(G, D), B);
-  decode_kernel<NC, VEC, R><<<grid, kThreads, smem, stream>>>(
+  decode_kernel<T, NC, VEC, R><<<grid, kThreads, smem, stream>>>(
       q, k, v, valid, out, ws_acc, ws_ml, counters, S, K, G, D, sb, ss, sh);
   return (int)cudaGetLastError();
 }
 
-using Launch = int (*)(const float*, const float*, const float*,
-                       const int8_t*, float*, float*, float*, int*, int, int,
-                       int, int, int, int, int, int, cudaStream_t);
+template <typename T>
+using Launch = int (*)(const T*, const T*, const T*, const int8_t*, T*,
+                       float*, float*, int*, int, int, int, int, int, int,
+                       int, int, cudaStream_t);
 
-template <int NC, bool VEC>
-Launch rows_as(int R) {
+template <typename T, int NC, bool VEC>
+Launch<T> rows_as(int R) {
   if constexpr (NC > 4)   // at most 4 rows at D > 128
-    return R == 1 ? launch_as<NC, VEC, 1>
-         : R == 2 ? launch_as<NC, VEC, 2> : launch_as<NC, VEC, 4>;
+    return R == 1 ? launch_as<T, NC, VEC, 1>
+         : R == 2 ? launch_as<T, NC, VEC, 2> : launch_as<T, NC, VEC, 4>;
   else
-    return R == 1 ? launch_as<NC, VEC, 1>
-         : R == 2 ? launch_as<NC, VEC, 2>
-         : R == 4 ? launch_as<NC, VEC, 4> : launch_as<NC, VEC, 8>;
+    return R == 1 ? launch_as<T, NC, VEC, 1>
+         : R == 2 ? launch_as<T, NC, VEC, 2>
+         : R == 4 ? launch_as<T, NC, VEC, 4> : launch_as<T, NC, VEC, 8>;
+}
+
+// One launch of the kernel's T instance (decode_attention_f32's
+// arguments).
+template <typename T>
+int run(const T* q, const T* k, const T* v, const int8_t* valid, T* out,
+        void* workspace, int B, int S, int K, int G, int D, int sb, int ss,
+        int sh, cudaStream_t st) {
+  if (S == 0)   // no key: softmax over nothing sums to 0
+    return (int)cudaMemsetAsync(out, 0, sizeof(T) * (size_t)B * K * G * D,
+                                st);
+  const int NS = n_splits(S);
+  float* ws_acc = static_cast<float*>(workspace);
+  float* ws_ml = ws_acc + (size_t)B * K * NS * G * D;
+  int* counters = reinterpret_cast<int*>(ws_ml + (size_t)B * K * NS * G * 2);
+  if (workspace_bytes(B, S, K, G, D) > 0) {
+    const cudaError_t err = cudaMemsetAsync(
+        counters, 0, sizeof(int) * (size_t)B * K * row_blocks(G, D), st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  // grouped accesses (up to 16 bytes) need D and every stride a multiple
+  // of a 16-byte group and every row aligned to 16 bytes
+  const int vw = 16 / (int)sizeof(T);
+  const bool vec = D % vw == 0 && (sb | ss | sh) % vw == 0 &&
+      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out |
+       (uintptr_t)workspace) % 16 == 0;
+  const int R = block_rows(G, D);
+  const Launch<T> as =
+      D <= 32 ? rows_as<T, 1, false>(R)
+      : D <= 64 ? (vec ? rows_as<T, 2, true>(R) : rows_as<T, 2, false>(R))
+      : D <= 128 ? (vec ? rows_as<T, 4, true>(R) : rows_as<T, 4, false>(R))
+      : (vec ? rows_as<T, 8, true>(R) : rows_as<T, 8, false>(R));
+  return as(q, k, v, valid, out, ws_acc, ws_ml, counters, B, S, K, G, D, sb,
+            ss, sh, st);
 }
 
 }  // namespace
@@ -409,29 +458,19 @@ extern "C" int decode_attention_f32(const float* q, const float* k,
                                     float* out, void* workspace, int B, int S,
                                     int K, int G, int D, int sb, int ss,
                                     int sh, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (S == 0)   // no key: softmax over nothing sums to 0
-    return (int)cudaMemsetAsync(out, 0, sizeof(float) * (size_t)B * K * G * D,
-                                st);
-  const int NS = n_splits(S);
-  float* ws_acc = static_cast<float*>(workspace);
-  float* ws_ml = ws_acc + (size_t)B * K * NS * G * D;
-  int* counters = reinterpret_cast<int*>(ws_ml + (size_t)B * K * NS * G * 2);
-  if (workspace_bytes(B, S, K, G, D) > 0) {
-    const cudaError_t err = cudaMemsetAsync(
-        counters, 0, sizeof(int) * (size_t)B * K * row_blocks(G, D), st);
-    if (err != cudaSuccess) return (int)err;
-  }
-  // 8- and 16-byte accesses need every row aligned to them
-  const bool vec = D % 4 == 0 && (sb | ss | sh) % 4 == 0 &&
-      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out |
-       (uintptr_t)workspace) % 16 == 0;
-  const int R = block_rows(G, D);
-  const Launch as =
-      D <= 32 ? rows_as<1, false>(R)
-      : D <= 64 ? (vec ? rows_as<2, true>(R) : rows_as<2, false>(R))
-      : D <= 128 ? (vec ? rows_as<4, true>(R) : rows_as<4, false>(R))
-      : (vec ? rows_as<8, true>(R) : rows_as<8, false>(R));
-  return as(q, k, v, valid, out, ws_acc, ws_ml, counters, B, S, K, G, D, sb,
-            ss, sh, st);
+  return run(q, k, v, valid, out, workspace, B, S, K, G, D, sb, ss, sh,
+             (cudaStream_t)stream);
+}
+
+// The same with q, k, v and out in bf16 (the workspace stays fp32:
+// partials are rounded once, in the merge's output).
+extern "C" int decode_attention_bf16(const elem::bf16* q,
+                                     const elem::bf16* k,
+                                     const elem::bf16* v,
+                                     const int8_t* valid, elem::bf16* out,
+                                     void* workspace, int B, int S, int K,
+                                     int G, int D, int sb, int ss, int sh,
+                                     void* stream) {
+  return run(q, k, v, valid, out, workspace, B, S, K, G, D, sb, ss, sh,
+             (cudaStream_t)stream);
 }

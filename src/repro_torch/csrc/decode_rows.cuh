@@ -1,9 +1,11 @@
 // What the two decode kernels (paged_decode_attention.cu and
 // decode_attention.cu) share: a lane's columns of a key, value, query or
-// output row, read and written in 16-, 8- or 4-byte accesses, and the
-// online-softmax merge of two (m, l, accumulator) states.
+// output row of fp32 or bf16, read and written in accesses of up to 16
+// bytes, and the online-softmax merge of two (m, l, accumulator) states.
 #pragma once
 #include <cuda_runtime.h>
+
+#include "elem.cuh"
 
 namespace {
 
@@ -27,68 +29,38 @@ __host__ __device__ inline int row_blocks(int G, int D) {
 // floats of shared memory for one (warp, row) state: m, l, accumulator
 __host__ __device__ constexpr int state_floats(int NC) { return 2 + 32 * NC; }
 
-// A lane's NC columns of a row, in groups of W neighbours (16- or 8-byte
-// accesses where VEC), groups 32 W columns apart: group i starts at column
-// 32 W i + W lane. Columns past D read 0 and are not stored; nothing is
-// read where !ok. CG reads through L2 only (data other blocks wrote during
-// the launch).
-template <int NC, bool VEC>
+// A lane's NC columns of a row of T (fp32 or bf16), in groups of W
+// neighbours, groups 32 W columns apart: group i starts at column
+// 32 W i + W lane. Where VEC a group is read and written whole (up to 16
+// bytes: 4 floats or 8 bf16 values; at most NC), else one element at a
+// time. A fp32 workspace row of a bf16 kernel takes its rows' groups.
+// Columns past D read 0 and are not stored; nothing is read where !ok. CG
+// reads through L2 only (data other blocks wrote during the launch).
+template <int NC, bool VEC, typename T>
 __host__ __device__ constexpr int group_width() {
-  return VEC ? (NC < 4 ? NC : 4) : 1;
+  constexpr int most = 16 / (int)sizeof(T);
+  return VEC ? (NC < most ? NC : most) : 1;
 }
 
-template <int NC, bool VEC, bool CG = false>
+template <int NC, int W, bool CG = false, typename T>
 __device__ __forceinline__ void load_row(float (&x)[NC],
-                                         const float* __restrict__ row,
+                                         const T* __restrict__ row,
                                          int lane, int D, bool ok) {
-  constexpr int W = group_width<NC, VEC>();
 #pragma unroll
   for (int i = 0; i < NC / W; ++i) {
     const int c = 32 * W * i + W * lane;
-    const bool in = ok && c < D;
-    if constexpr (W == 4) {
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (in) {
-        const float4* p = reinterpret_cast<const float4*>(row + c);
-        v = CG ? __ldcg(p) : __ldg(p);
-      }
-      x[4 * i] = v.x;
-      x[4 * i + 1] = v.y;
-      x[4 * i + 2] = v.z;
-      x[4 * i + 3] = v.w;
-    } else if constexpr (W == 2) {
-      float2 v = make_float2(0.f, 0.f);
-      if (in) {
-        const float2* p = reinterpret_cast<const float2*>(row + c);
-        v = CG ? __ldcg(p) : __ldg(p);
-      }
-      x[2 * i] = v.x;
-      x[2 * i + 1] = v.y;
-    } else {
-      x[i] = in ? (CG ? __ldcg(row + c) : __ldg(row + c)) : 0.f;
-    }
+    elem::load<W, CG>(x + W * i, row + c, ok && c < D);
   }
 }
 
-template <int NC, bool VEC>
-__device__ __forceinline__ void store_row(float* __restrict__ row,
+template <int NC, int W, typename T>
+__device__ __forceinline__ void store_row(T* __restrict__ row,
                                           const float (&x)[NC], float scale,
                                           int lane, int D) {
-  constexpr int W = group_width<NC, VEC>();
 #pragma unroll
   for (int i = 0; i < NC / W; ++i) {
     const int c = 32 * W * i + W * lane;
-    if (c >= D) continue;
-    if constexpr (W == 4) {
-      *reinterpret_cast<float4*>(row + c) =
-          make_float4(x[4 * i] * scale, x[4 * i + 1] * scale,
-                      x[4 * i + 2] * scale, x[4 * i + 3] * scale);
-    } else if constexpr (W == 2) {
-      *reinterpret_cast<float2*>(row + c) =
-          make_float2(x[2 * i] * scale, x[2 * i + 1] * scale);
-    } else {
-      row[c] = x[i] * scale;
-    }
+    if (c < D) elem::store<W>(row + c, x + W * i, scale);
   }
 }
 

@@ -1,5 +1,5 @@
 // Flash attention (prefill) for Hopper (sm_90a), fp32 through 3xTF32 on
-// the tensor cores.
+// the tensor cores, or bf16 through one TF32 product.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py:70
 // (flash_attention_bhsd, body _fa_kernel): causal or windowed
@@ -58,6 +58,17 @@
 //   would only add terms that a later exp(-1e30 - m) = 0 rescale wipes out
 //   exactly, as the TPU body's would.
 //
+// bf16 (the entries *_bf16; the TPU kernel takes either dtype): q, k, v
+// and out are bf16, everything between stays fp32. A bf16 value is exact
+// in TF32 (7 stored mantissa bits against 10), and so is P rounded to
+// bf16, as the TPU body's p.astype(v.dtype) rounds it before P V (l sums
+// the unrounded P): so each product is one TF32 mma.sync, exact, on the
+// same fragments, with no lo planes. The raw K and V tiles are copied as
+// bf16 (16-byte cp.async of 8 values) and widened into the fp32 planes
+// where the fp32 kernel splits them; Q is widened as it is loaded. The
+// output is rounded to bf16 once. At bf16 the bytes halve and the
+// products cost a third.
+//
 // Layouts: q (B, S, H, D) and k, v (B, S, K, D) read through element
 // strides (sb, ss, sh; unit stride on D), head h reading kv head h / (H/K);
 // out (B, S, H, D) contiguous. Rows are read 16 bytes at a time when D,
@@ -68,6 +79,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "elem.cuh"
 #include "mma_tf32x3.cuh"
 #include "smem_copy.cuh"
 
@@ -75,6 +87,7 @@ namespace {
 
 using tilecopy::cp_async16;
 using tilecopy::cp_async4;
+using tilecopy::ldsm_x2;
 using tilecopy::ldsm_x4;
 
 constexpr float kNegInf = -1e30f;
@@ -103,32 +116,72 @@ __host__ __device__ inline int vt_rows(int D) {
   return (padded(D) + 8 * kNG - 1) / (8 * kNG) * (8 * kNG);
 }
 
-// Dynamic shared memory of one block, in floats: the fp32 query tile, the
-// hi and lo planes of one K tile and of one V^T tile, and the raw K and V
-// tiles being copied.
-__host__ __device__ inline size_t smem_floats(int D, int BK) {
-  return (size_t)(kBQ + 4 * BK) * row_stride(D) +
-         (size_t)2 * vt_rows(D) * vt_stride(BK);
+// TF32 planes a K or V^T tile is held in: hi and lo in fp32, the value
+// alone in bf16 (exact in TF32)
+template <typename T>
+__host__ __device__ constexpr int planes() {
+  return elem::is_bf16<T>() ? 1 : 2;
+}
+// raw K and V rows being copied, in elements: Q's and K's stride in fp32,
+// padded(D) in bf16 (16-byte rows of whole 8-value chunks)
+template <typename T>
+__host__ __device__ inline int raw_stride(int D) {
+  return elem::is_bf16<T>() ? padded(D) : row_stride(D);
 }
 
-// Copy four floats of row `row` at column c of a (S, D) slab at row stride
-// ss to dst, zero past S and past D. VEC: one 16-byte copy (D % 4 == 0, so
-// the chunk lies wholly inside or past D, and every row start is 16-byte
-// aligned); else four of 4 bytes.
-template <bool VEC>
-__device__ __forceinline__ void copy4(float* dst, const float* src, int row,
-                                      int c, int S, int D, int ss) {
-  const float* p = src + (size_t)row * ss + c;
+// Dynamic shared memory of one block, in bytes: the fp32 query tile, the
+// planes of one K tile and of one V^T tile, and the raw K and V tiles
+// being copied.
+template <typename T>
+__host__ __device__ inline size_t smem_bytes(int D, int BK) {
+  return sizeof(float) * ((size_t)(kBQ + planes<T>() * BK) * row_stride(D) +
+                          (size_t)planes<T>() * vt_rows(D) * vt_stride(BK)) +
+         sizeof(T) * (size_t)2 * BK * raw_stride<T>(D);
+}
+
+// Copy a 16-byte chunk (four floats or eight bf16 values) of row `row` at
+// column c of a (S, D) slab at row stride ss to dst, zero past S and past
+// D. VEC: one 16-byte copy (D a multiple of the chunk, so it lies wholly
+// inside or past D, and every row start is 16-byte aligned); else fp32 by
+// four copies of 4 bytes, bf16 by plain loads and stores of 2 bytes.
+template <bool VEC, typename T>
+__device__ __forceinline__ void copy_chunk(T* dst, const T* src, int row,
+                                           int c, int S, int D, int ss) {
+  constexpr int CW = 16 / (int)sizeof(T);
+  const T* p = src + (size_t)row * ss + c;
   if constexpr (VEC) {
     const bool in = row < S && c < D;
     cp_async16(dst, in ? p : src, in);
+  } else if constexpr (elem::is_bf16<T>()) {
+#pragma unroll
+    for (int i = 0; i < CW; ++i)
+      dst[i] = row < S && c + i < D ? p[i] : elem::from_float<T>(0.f);
   } else {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < CW; ++i) {
       const bool in = row < S && c + i < D;
       cp_async4(dst + i, in ? p + i : src, in);
     }
   }
+}
+
+// Q's chunk of row `row` at column c, widened into fp32 dst (bf16 only; an
+// fp32 Q is copied as it is, by copy_chunk): zero past S and past D.
+template <bool VEC>
+__device__ __forceinline__ void widen_chunk(float* dst, const elem::bf16* src,
+                                            int row, int c, int S, int D,
+                                            int ss) {
+  const elem::bf16* p = src + (size_t)row * ss + c;
+  float x[8];
+  if constexpr (VEC) {
+    elem::load<8>(x, p, row < S && c < D);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      x[i] = row < S && c + i < D ? elem::to_float(p[i]) : 0.f;
+  }
+  *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
+  *reinterpret_cast<float4*>(dst + 4) = make_float4(x[4], x[5], x[6], x[7]);
 }
 
 __device__ __forceinline__ void split4(float4 x, uint4& hi, uint4& lo) {
@@ -141,13 +194,15 @@ __device__ __forceinline__ void split4(float4 x, uint4& hi, uint4& lo) {
 // The copy of one key tile into the raw buffers and its split into the
 // planes. Thread positions follow the widest D of the instance (DT), so
 // every index is a shift of the thread's id; chunks past padded(D) are
-// skipped. Both tiles are copied as 4-float chunks of rows (lanes along d);
-// V is split as 8-float runs with lanes along keys, so that a warp's
-// transposed stores hit 32 consecutive words.
-template <int DT, bool VEC>
+// skipped. Both tiles are copied as 16-byte chunks of rows (4 floats or 8
+// bf16 values; lanes along d); V is split as 8-value runs with lanes along
+// keys, so that a warp's transposed stores hit 32 consecutive words. At
+// bf16 the split only widens (one plane).
+template <int DT, bool VEC, typename T>
 struct KVTile {
   static constexpr int BK = key_tile(DT);
-  static constexpr int CPR = DT / 4;                // K chunks of a row
+  static constexpr int CW = 16 / (int)sizeof(T);    // values of a chunk
+  static constexpr int CPR = DT / CW;               // K chunks of a row
   static constexpr int NK = BK * CPR / kThreads;    // K chunks a thread
   static constexpr int NV = BK * DT / 8 / kThreads; // V runs a thread
   static_assert(kThreads % CPR == 0 && kThreads % BK == 0 &&
@@ -157,85 +212,108 @@ struct KVTile {
   // chunk i of this thread: row kr + i * kThreads / CPR, column kc
   static __device__ __forceinline__ int kr() { return threadIdx.x / CPR; }
   static __device__ __forceinline__ int kc() {
-    return 4 * (threadIdx.x % CPR);
+    return CW * (threadIdx.x % CPR);
   }
   // V run i: row vr, columns vc + 8 i * kThreads / BK .. + 7
   static __device__ __forceinline__ int vr() { return threadIdx.x % BK; }
   static __device__ __forceinline__ int vc() { return 8 * (threadIdx.x / BK); }
 
   // start copying rows [k0, k0 + BK) of K and V into ks and vs
-  static __device__ __forceinline__ void copy(float* ks, float* vs,
-                                              const float* kb,
-                                              const float* vb, int k0, int S,
+  static __device__ __forceinline__ void copy(T* ks, T* vs, const T* kb,
+                                              const T* vb, int k0, int S,
                                               int D, int ss) {
-    const int RS = row_stride(D);
+    const int RR = raw_stride<T>(D);
     if (kc() < padded(D)) {
 #pragma unroll
       for (int i = 0; i < NK; ++i) {
         const int r = kr() + i * (kThreads / CPR);
-        copy4<VEC>(ks + r * RS + kc(), kb, k0 + r, kc(), S, D, ss);
-        copy4<VEC>(vs + r * RS + kc(), vb, k0 + r, kc(), S, D, ss);
+        copy_chunk<VEC>(ks + r * RR + kc(), kb, k0 + r, kc(), S, D, ss);
+        copy_chunk<VEC>(vs + r * RR + kc(), vb, k0 + r, kc(), S, D, ss);
       }
     }
     asm volatile("cp.async.commit_group;");
   }
 
-  // split ks, vs (BK x RS each) into khi/klo (BK x RS each, adjacent) and
-  // vthi/vtlo (vt_rows x BK + 8 each, adjacent)
-  static __device__ __forceinline__ void split(const float* ks,
-                                               const float* vs, float* kp,
-                                               float* vp, int D) {
-    const int Dp = padded(D), RS = row_stride(D);
+  // split ks, vs (BK x raw_stride each) into khi/klo (BK x RS each,
+  // adjacent) and vthi/vtlo (vt_rows x BK + 8 each, adjacent); at bf16
+  // widen them into khi and vthi alone
+  static __device__ __forceinline__ void split(const T* ks, const T* vs,
+                                               float* kp, float* vp, int D) {
+    const int Dp = padded(D), RS = row_stride(D), RR = raw_stride<T>(D);
     const int kplane = BK * RS, vplane = vt_rows(D) * vt_stride(BK);
     if (kc() < Dp) {
 #pragma unroll
       for (int i = 0; i < NK; ++i) {
-        const int at = (kr() + i * (kThreads / CPR)) * RS + kc();
-        uint4 hi, lo;
-        split4(*reinterpret_cast<const float4*>(ks + at), hi, lo);
-        *reinterpret_cast<uint4*>(kp + at) = hi;
-        *reinterpret_cast<uint4*>(kp + at + kplane) = lo;
+        const int r = kr() + i * (kThreads / CPR);
+        const int at = r * RS + kc();
+        if constexpr (elem::is_bf16<T>()) {
+          float x[8];
+          elem::widen8(x,
+                       *reinterpret_cast<const uint4*>(ks + r * RR + kc()));
+          *reinterpret_cast<float4*>(kp + at) =
+              make_float4(x[0], x[1], x[2], x[3]);
+          *reinterpret_cast<float4*>(kp + at + 4) =
+              make_float4(x[4], x[5], x[6], x[7]);
+        } else {
+          uint4 hi, lo;
+          split4(*reinterpret_cast<const float4*>(ks + at), hi, lo);
+          *reinterpret_cast<uint4*>(kp + at) = hi;
+          *reinterpret_cast<uint4*>(kp + at + kplane) = lo;
+        }
       }
     }
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       const int c = vc() + 8 * i * (kThreads / BK);
       if (c >= Dp) continue;
-      const float4 a = *reinterpret_cast<const float4*>(vs + vr() * RS + c);
-      const float4 b =
-          *reinterpret_cast<const float4*>(vs + vr() * RS + c + 4);
-      const float x[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+      float x[8];
+      if constexpr (elem::is_bf16<T>()) {
+        elem::widen8(x, *reinterpret_cast<const uint4*>(vs + vr() * RR +
+                                                        c));
+      } else {
+        const float4 a = *reinterpret_cast<const float4*>(vs + vr() * RR + c);
+        const float4 b =
+            *reinterpret_cast<const float4*>(vs + vr() * RR + c + 4);
+        x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
+        x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
+      }
       float* dst = vp + c * vt_stride(BK) + vr();
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        uint32_t hi, lo;
-        tf32x3::split(x[j], hi, lo);
-        dst[j * vt_stride(BK)] = __uint_as_float(hi);
-        dst[j * vt_stride(BK) + vplane] = __uint_as_float(lo);
+        if constexpr (elem::is_bf16<T>()) {
+          dst[j * vt_stride(BK)] = x[j];
+        } else {
+          uint32_t hi, lo;
+          tf32x3::split(x[j], hi, lo);
+          dst[j * vt_stride(BK)] = __uint_as_float(hi);
+          dst[j * vt_stride(BK) + vplane] = __uint_as_float(lo);
+        }
       }
     }
   }
 };
 
-template <int DT, bool VEC>
+template <typename T, int DT, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ out, int S,
+flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, T* __restrict__ out, int S,
              int H, int K, int D, int causal, int window, int q_sb, int q_ss,
              int q_sh, int k_sb, int k_ss, int k_sh) {
   constexpr int kBK = key_tile(DT);
   constexpr int kKT = kBK / 8;    // m16n8 score tiles per key tile
   constexpr int kDT = DT / 8;     // k steps of Q K^T, n tiles of P V
   constexpr int kRV = vt_stride(kBK);
+  constexpr bool kExact = elem::is_bf16<T>();   // one TF32 product
   static_assert(kDT % kNG == 0, "P V groups must tile DT");
   extern __shared__ __align__(16) float smem[];
   const int Dp = padded(D), RS = row_stride(D);
   float* qs = smem;                  // kBQ x RS, fp32
   float* kp = qs + kBQ * RS;         // hi then lo, kBK x RS each
-  float* vp = kp + 2 * kBK * RS;     // hi then lo, vt_rows x kRV each
+  float* vp = kp + planes<T>() * kBK * RS;   // hi then lo, vt_rows x kRV
   const int vplane = vt_rows(D) * kRV;
-  float* ks = vp + 2 * vplane;       // raw K tile being copied, kBK x RS
-  float* vs = ks + kBK * RS;         // raw V tile being copied
+  // raw K and V tiles being copied, kBK x raw_stride each
+  T* ks = reinterpret_cast<T*>(vp + planes<T>() * vplane);
+  T* vs = ks + kBK * raw_stride<T>(D);
 
   const int qt = gridDim.x - 1 - blockIdx.x;   // longest tiles first
   const int h = blockIdx.y, b = blockIdx.z;
@@ -244,9 +322,9 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
 
-  const float* qb = q + (size_t)b * q_sb + (size_t)h * q_sh;
-  const float* kb = k + (size_t)b * k_sb + (size_t)kh * k_sh;
-  const float* vb = v + (size_t)b * k_sb + (size_t)kh * k_sh;
+  const T* qb = q + (size_t)b * q_sb + (size_t)h * q_sh;
+  const T* kb = k + (size_t)b * k_sb + (size_t)kh * k_sh;
+  const T* vb = v + (size_t)b * k_sb + (size_t)kh * k_sh;
 
   // key tiles this block can see: none past its last row's own key under
   // a causal mask, none wholly before its first row's window
@@ -255,12 +333,17 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int t_end = (k_end + kBK - 1) / kBK;
   const int t_begin = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
 
-  using Tile = KVTile<DT, VEC>;
+  using Tile = KVTile<DT, VEC, T>;
   if (Tile::kc() < Dp) {
 #pragma unroll 4
-    for (int r = Tile::kr(); r < kBQ; r += kThreads / Tile::CPR)
-      copy4<VEC>(qs + r * RS + Tile::kc(), qb, q0 + r, Tile::kc(), S, D,
-                 q_ss);
+    for (int r = Tile::kr(); r < kBQ; r += kThreads / Tile::CPR) {
+      if constexpr (kExact)
+        widen_chunk<VEC>(qs + r * RS + Tile::kc(), qb, q0 + r, Tile::kc(),
+                         S, D, q_ss);
+      else
+        copy_chunk<VEC>(qs + r * RS + Tile::kc(), qb, q0 + r, Tile::kc(),
+                        S, D, q_ss);
+    }
   }
   Tile::copy(ks, vs, kb, vb, t_begin * kBK, S, D, k_ss);   // commits both
 
@@ -308,8 +391,18 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < kDT; ++kk) {
       if (8 * kk >= Dp) break;
-      uint32_t a[4], ah[4], al[4], bh[kKT][2], bl[kKT][2];
+      uint32_t a[4];
       ldsm_x4(a, qa + 8 * kk);
+      if constexpr (kExact) {   // Q and K exact in TF32: one product
+#pragma unroll
+        for (int j = 0; j < kKT; ++j) {
+          uint32_t x[2];
+          ldsm_x2(x, kf + 8 * j * RS + 8 * kk);
+          tf32x3::mma(sp[kk & 1][j], a, x);
+        }
+        continue;
+      }
+      uint32_t ah[4], al[4], bh[kKT][2], bl[kKT][2];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
         tf32x3::split(__uint_as_float(a[i]), ah[i], al[i]);
@@ -382,6 +475,22 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // key 8 j + 2 t and k = t + 4 as key 8 j + 2 t + 1
 #pragma unroll
     for (int j = 0; j < kKT; ++j) {
+      if constexpr (kExact) {   // P rounded to bf16 and V: exact in TF32
+        const uint32_t a[4] = {
+            __float_as_uint(elem::round_bf16(s[j][0])),
+            __float_as_uint(elem::round_bf16(s[j][2])),
+            __float_as_uint(elem::round_bf16(s[j][1])),
+            __float_as_uint(elem::round_bf16(s[j][3]))};
+#pragma unroll
+        for (int n = 0; n < kDT; ++n) {
+          if (8 * n >= Dp) break;
+          const uint2 hi =
+              *reinterpret_cast<const uint2*>(vf + 8 * n * kRV + 8 * j);
+          const uint32_t bv[2] = {hi.x, hi.y};
+          tf32x3::mma(o[n / kNG][n % kNG], a, bv);
+        }
+        continue;
+      }
       uint32_t ah[4], al[4];
       tf32x3::split(s[j][0], ah[0], al[0]);
       tf32x3::split(s[j][2], ah[1], al[1]);
@@ -411,44 +520,71 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row = w0 + g + 8 * r;
     if (row >= S) continue;
     const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);
-    float* orow = out + (((size_t)b * S + row) * H + h) * D;
+    T* orow = out + (((size_t)b * S + row) * H + h) * D;
 #pragma unroll
     for (int n = 0; n < kDT; ++n) {
       const int c = 8 * n + 2 * t;
-      if (c < D) orow[c] = o[n / kNG][n % kNG][2 * r] * inv;
-      if (c + 1 < D) orow[c + 1] = o[n / kNG][n % kNG][2 * r + 1] * inv;
+      if (c < D)
+        orow[c] = elem::from_float<T>(o[n / kNG][n % kNG][2 * r] * inv);
+      if (c + 1 < D)
+        orow[c + 1] =
+            elem::from_float<T>(o[n / kNG][n % kNG][2 * r + 1] * inv);
     }
   }
 }
 
-template <int DT, bool VEC>
-int launch_as(const float* q, const float* k, const float* v, float* out,
-              int B, int S, int H, int K, int D, int causal, int window,
-              int q_sb, int q_ss, int q_sh, int k_sb, int k_ss, int k_sh,
+template <typename T, int DT, bool VEC>
+int launch_as(const T* q, const T* k, const T* v, T* out, int B, int S,
+              int H, int K, int D, int causal, int window, int q_sb,
+              int q_ss, int q_sh, int k_sb, int k_ss, int k_sh,
               cudaStream_t stream) {
-  const size_t smem = smem_floats(D, key_tile(DT)) * sizeof(float);
+  const size_t smem = smem_bytes<T>(D, key_tile(DT));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<DT, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_kernel<T, DT, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_kernel<DT, VEC><<<grid, kThreads, smem, stream>>>(
+  flash_kernel<T, DT, VEC><<<grid, kThreads, smem, stream>>>(
       q, k, v, out, S, H, K, D, causal, window, q_sb, q_ss, q_sh, k_sb, k_ss,
       k_sh);
   return (int)cudaGetLastError();
 }
 
-template <int DT>
-int launch(const float* q, const float* k, const float* v, float* out, int B,
-           int S, int H, int K, int D, int causal, int window, int q_sb,
-           int q_ss, int q_sh, int k_sb, int k_ss, int k_sh, bool vec,
+template <typename T, int DT>
+int launch(const T* q, const T* k, const T* v, T* out, int B, int S, int H,
+           int K, int D, int causal, int window, int q_sb, int q_ss,
+           int q_sh, int k_sb, int k_ss, int k_sh, bool vec,
            cudaStream_t stream) {
-  return vec ? launch_as<DT, true>(q, k, v, out, B, S, H, K, D, causal,
-                                   window, q_sb, q_ss, q_sh, k_sb, k_ss,
-                                   k_sh, stream)
-             : launch_as<DT, false>(q, k, v, out, B, S, H, K, D, causal,
-                                    window, q_sb, q_ss, q_sh, k_sb, k_ss,
-                                    k_sh, stream);
+  return vec ? launch_as<T, DT, true>(q, k, v, out, B, S, H, K, D, causal,
+                                      window, q_sb, q_ss, q_sh, k_sb, k_ss,
+                                      k_sh, stream)
+             : launch_as<T, DT, false>(q, k, v, out, B, S, H, K, D, causal,
+                                       window, q_sb, q_ss, q_sh, k_sb, k_ss,
+                                       k_sh, stream);
+}
+
+// One launch of the kernel's T instance (flash_attention_f32's arguments).
+template <typename T>
+int run(const T* q, const T* k, const T* v, T* out, int B, int S, int H,
+        int K, int D, int causal, int window, int q_sb, int q_ss, int q_sh,
+        int k_sb, int k_ss, int k_sh, cudaStream_t st) {
+  // 16-byte copies need D and every stride a multiple of a 16-byte chunk
+  // and every row start 16-byte aligned
+  const int cw = 16 / (int)sizeof(T);
+  const bool vec = D % cw == 0 &&
+      (q_sb | q_ss | q_sh | k_sb | k_ss | k_sh) % cw == 0 &&
+      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
+  if (D <= 32)
+    return launch<T, 32>(q, k, v, out, B, S, H, K, D, causal, window, q_sb,
+                         q_ss, q_sh, k_sb, k_ss, k_sh, vec, st);
+  if (D <= 64)
+    return launch<T, 64>(q, k, v, out, B, S, H, K, D, causal, window, q_sb,
+                         q_ss, q_sh, k_sb, k_ss, k_sh, vec, st);
+  if (D <= 128)
+    return launch<T, 128>(q, k, v, out, B, S, H, K, D, causal, window, q_sb,
+                          q_ss, q_sh, k_sb, k_ss, k_sh, vec, st);
+  return launch<T, 256>(q, k, v, out, B, S, H, K, D, causal, window, q_sb,
+                        q_ss, q_sh, k_sb, k_ss, k_sh, vec, st);
 }
 
 }  // namespace
@@ -463,20 +599,18 @@ extern "C" int flash_attention_f32(const float* q, const float* k,
                                    int window, int q_sb, int q_ss, int q_sh,
                                    int k_sb, int k_ss, int k_sh,
                                    void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  // 16-byte loads need every row start 16-byte aligned
-  const bool vec = D % 4 == 0 &&
-      (q_sb | q_ss | q_sh | k_sb | k_ss | k_sh) % 4 == 0 &&
-      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
-  if (D <= 32)
-    return launch<32>(q, k, v, out, B, S, H, K, D, causal, window, q_sb,
-                      q_ss, q_sh, k_sb, k_ss, k_sh, vec, st);
-  if (D <= 64)
-    return launch<64>(q, k, v, out, B, S, H, K, D, causal, window, q_sb,
-                      q_ss, q_sh, k_sb, k_ss, k_sh, vec, st);
-  if (D <= 128)
-    return launch<128>(q, k, v, out, B, S, H, K, D, causal, window, q_sb,
-                       q_ss, q_sh, k_sb, k_ss, k_sh, vec, st);
-  return launch<256>(q, k, v, out, B, S, H, K, D, causal, window, q_sb, q_ss,
-                     q_sh, k_sb, k_ss, k_sh, vec, st);
+  return run(q, k, v, out, B, S, H, K, D, causal, window, q_sb, q_ss, q_sh,
+             k_sb, k_ss, k_sh, (cudaStream_t)stream);
+}
+
+// The same with q, k, v and out in bf16.
+extern "C" int flash_attention_bf16(const elem::bf16* q,
+                                    const elem::bf16* k,
+                                    const elem::bf16* v, elem::bf16* out,
+                                    int B, int S, int H, int K, int D,
+                                    int causal, int window, int q_sb,
+                                    int q_ss, int q_sh, int k_sb, int k_ss,
+                                    int k_sh, void* stream) {
+  return run(q, k, v, out, B, S, H, K, D, causal, window, q_sb, q_ss, q_sh,
+             k_sb, k_ss, k_sh, (cudaStream_t)stream);
 }

@@ -1,4 +1,4 @@
-// Paged GQA decode attention for Hopper (sm_90a), fp32.
+// Paged GQA decode attention for Hopper (sm_90a), fp32 or bf16.
 //
 // Replaces the TPU kernel src/repro/kernels/paged_decode_attention/kernel.py
 // :106 (paged_decode_attention_gqa, body _paged_kernel): one decode query
@@ -55,6 +55,14 @@
 // - Rows of a block: G rounded up to 1, 2, 4 or 8 (at most 4 at
 //   D > 128, for registers); past 8 rows the grid's y axis takes more row
 //   blocks. Padding rows are zero queries that are never stored.
+// - The element type of q, the pages and out is a template parameter,
+//   fp32 or bf16 (entries *_f32 and *_bf16), as the TPU kernel takes
+//   either. A bf16 row is read in the same lane groups, a group in one
+//   access of up to 16 bytes (8 values at D = 256, 4 at D = 128), and
+//   widened exactly to fp32 in registers; scores, (m, l), the accumulator
+//   and the workspace stay fp32; P is rounded to bf16 before P V and l sums
+//   it unrounded, as the TPU body's p.astype(v.dtype); the output is
+//   rounded once. At bf16 the bytes, and so the bound, halve.
 //
 // Layouts: q, out (B, K, G, D) contiguous; k_pages, v_pages the
 // (P, ps, K, D) pool of one layer; page_table (B, MP) int32; seq_lens (B,)
@@ -117,19 +125,19 @@ static_assert(sizeof(float) * kWarps * 8 * state_floats(4) <= 48 * 1024 &&
                   sizeof(float) * kWarps * 4 * state_floats(8) <= 48 * 1024,
               "too many warps for the states' shared memory");
 
-template <int NC, bool VEC, int R>
+template <typename T, int NC, bool VEC, int R>
 __global__ void __launch_bounds__(kThreads, DECODE_MIN_BLOCKS)
-paged_decode_kernel(const float* __restrict__ q,
-                    const float* __restrict__ k_pages,
-                    const float* __restrict__ v_pages,
+paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
+                    const T* __restrict__ v_pages,
                     const int* __restrict__ page_table,
-                    const int* __restrict__ seq_lens, float* __restrict__ out,
+                    const int* __restrict__ seq_lens, T* __restrict__ out,
                     float* __restrict__ ws_acc, float* __restrict__ ws_ml,
                     int* __restrict__ counters, int K, int G, int D, int ps,
                     int MP, int pages_start, int pages_end, int window,
                     int NS) {
   constexpr int U = stage_keys(NC, R);
   constexpr int SW = state_floats(NC);
+  constexpr int W = group_width<NC, VEC, T>();
   extern __shared__ float smem[];   // kWarps x R (warp, row) states
   __shared__ bool last;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -149,19 +157,20 @@ paged_decode_kernel(const float* __restrict__ q,
                       ? __ldg(page_table + (size_t)b * MP + pg) : 0;
   const int len = __ldg(seq_lens + b);
   float qr[R][NC];
-  const float* qb = q + (head * G + row0) * D;
+  const T* qb = q + (head * G + row0) * D;
 #pragma unroll
   for (int r = 0; r < R; ++r)
-    load_row<NC, VEC>(qr[r], qb + (size_t)r * D, lane, D, r < rows);
+    load_row<NC, W>(qr[r], qb + (size_t)r * D, lane, D, r < rows);
 
   // the slot's visible keys [k_lo, k_hi), and the splits that hold them
   int k_lo = pages_start * ps;
   if (window > 0) k_lo = max(k_lo, len - window);
   const int k_hi = min(len, pages_end * ps);
-  float* ob = out + (head * G + row0) * D;
+  T* ob = out + (head * G + row0) * D;
   if (k_hi <= k_lo) {     // no visible key: the grid's first split writes
     if (blockIdx.x == 0)  // the rows' zeros
-      for (int i = threadIdx.x; i < rows * D; i += kThreads) ob[i] = 0.f;
+      for (int i = threadIdx.x; i < rows * D; i += kThreads)
+        ob[i] = elem::from_float<T>(0.f);
     return;
   }
   const int s_begin = k_lo / SK, s_end = (k_hi + SK - 1) / SK;
@@ -191,8 +200,8 @@ paged_decode_kernel(const float* __restrict__ q,
       const bool ok = k0 + u < e;
       const int p = __shfl_sync(kFull, pid, pl & 31);
       const size_t row = (((size_t)p * ps + t) * K + h) * D;
-      load_row<NC, VEC>(kx[st][u], k_pages + row, lane, D, ok);
-      load_row<NC, VEC>(vx[st][u], v_pages + row, lane, D, ok);
+      load_row<NC, W>(kx[st][u], k_pages + row, lane, D, ok);
+      load_row<NC, W>(vx[st][u], v_pages + row, lane, D, ok);
       if (++t == ps) {
         t = 0;
         ++pl;
@@ -236,6 +245,11 @@ paged_decode_kernel(const float* __restrict__ q,
       }
       l[r] = alpha * l[r] + sum;
       m[r] = m_new;
+      // at bf16, P V takes P rounded to bf16 and l the unrounded sum, as
+      // the TPU kernel's p.astype(v.dtype)
+      if constexpr (elem::is_bf16<T>())
+#pragma unroll
+        for (int u = 0; u < U; ++u) sc[r][u] = elem::round_bf16(sc[r][u]);
 #pragma unroll
       for (int j = 0; j < NC; ++j) {
         float x = acc[r][j] * alpha;
@@ -285,9 +299,9 @@ paged_decode_kernel(const float* __restrict__ q,
     }
     // one split: normalise and write; else this split's partial
     if (single) {
-      store_row<NC, VEC>(ob + (size_t)r * D, A, inverse(L), lane, D);
+      store_row<NC, W>(ob + (size_t)r * D, A, inverse(L), lane, D);
     } else {
-      store_row<NC, VEC>(ws_acc + (part + r) * D, A, 1.f, lane, D);
+      store_row<NC, W>(ws_acc + (part + r) * D, A, 1.f, lane, D);
       if (lane == 0) {
         ws_ml[2 * (part + r)] = M;
         ws_ml[2 * (part + r) + 1] = L;
@@ -327,7 +341,7 @@ paged_decode_kernel(const float* __restrict__ q,
         const size_t at = first + (size_t)(i0 + i) * G + r;
         mi[i] = in ? __ldcg(ws_ml + 2 * at) : kNegInf;
         li[i] = in ? __ldcg(ws_ml + 2 * at + 1) : 0.f;
-        load_row<NC, VEC, true>(x[i], ws_acc + at * D, lane, D, in);
+        load_row<NC, W, true>(x[i], ws_acc + at * D, lane, D, in);
       }
       float m_new = M;
 #pragma unroll
@@ -345,7 +359,7 @@ paged_decode_kernel(const float* __restrict__ q,
       }
       M = m_new;
     }
-    store_row<NC, VEC>(ob + (size_t)r * D, A, inverse(L), lane, D);
+    store_row<NC, W>(ob + (size_t)r * D, A, inverse(L), lane, D);
   }
 }
 
@@ -358,33 +372,66 @@ size_t workspace_bytes(int B, int K, int G, int D, int NS) {
          sizeof(int) * (size_t)B * K * row_blocks(G, D);
 }
 
-template <int NC, bool VEC, int R>
-int launch_as(const float* q, const float* k_pages, const float* v_pages,
-              const int* page_table, const int* seq_lens, float* out,
+template <typename T, int NC, bool VEC, int R>
+int launch_as(const T* q, const T* k_pages, const T* v_pages,
+              const int* page_table, const int* seq_lens, T* out,
               float* ws_acc, float* ws_ml, int* counters, int B, int K, int G,
               int D, int ps, int MP, int pages_start, int pages_end,
               int window, int NS, cudaStream_t stream) {
   const size_t smem = sizeof(float) * kWarps * R * state_floats(NC);
   const dim3 grid(NS, K * row_blocks(G, D), B);
-  paged_decode_kernel<NC, VEC, R><<<grid, kThreads, smem, stream>>>(
+  paged_decode_kernel<T, NC, VEC, R><<<grid, kThreads, smem, stream>>>(
       q, k_pages, v_pages, page_table, seq_lens, out, ws_acc, ws_ml, counters,
       K, G, D, ps, MP, pages_start, pages_end, window, NS);
   return (int)cudaGetLastError();
 }
 
-using Launch = int (*)(const float*, const float*, const float*, const int*,
-                       const int*, float*, float*, float*, int*, int, int,
-                       int, int, int, int, int, int, int, int, cudaStream_t);
+template <typename T>
+using Launch = int (*)(const T*, const T*, const T*, const int*, const int*,
+                       T*, float*, float*, int*, int, int, int, int, int, int,
+                       int, int, int, int, cudaStream_t);
 
-template <int NC, bool VEC>
-Launch rows_as(int R) {
+template <typename T, int NC, bool VEC>
+Launch<T> rows_as(int R) {
   if constexpr (NC > 4)   // at most 4 rows at D > 128
-    return R == 1 ? launch_as<NC, VEC, 1>
-         : R == 2 ? launch_as<NC, VEC, 2> : launch_as<NC, VEC, 4>;
+    return R == 1 ? launch_as<T, NC, VEC, 1>
+         : R == 2 ? launch_as<T, NC, VEC, 2> : launch_as<T, NC, VEC, 4>;
   else
-    return R == 1 ? launch_as<NC, VEC, 1>
-         : R == 2 ? launch_as<NC, VEC, 2>
-         : R == 4 ? launch_as<NC, VEC, 4> : launch_as<NC, VEC, 8>;
+    return R == 1 ? launch_as<T, NC, VEC, 1>
+         : R == 2 ? launch_as<T, NC, VEC, 2>
+         : R == 4 ? launch_as<T, NC, VEC, 4> : launch_as<T, NC, VEC, 8>;
+}
+
+// One launch of the kernel's T instance (paged_decode_attention_f32's
+// arguments).
+template <typename T>
+int run(const T* q, const T* k_pages, const T* v_pages,
+        const int* page_table, const int* seq_lens, T* out, void* workspace,
+        int B, int K, int G, int D, int ps, int MP, int pages_start,
+        int pages_end, int window, cudaStream_t stream) {
+  const int NS = n_splits(ps, pages_start, pages_end);
+  float* ws_acc = static_cast<float*>(workspace);
+  float* ws_ml = ws_acc + (size_t)B * K * NS * G * D;
+  int* counters = reinterpret_cast<int*>(ws_ml + (size_t)B * K * NS * G * 2);
+  if (workspace_bytes(B, K, G, D, NS) > 0) {
+    const cudaError_t err = cudaMemsetAsync(
+        counters, 0, sizeof(int) * (size_t)B * K * row_blocks(G, D), stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  // grouped accesses (up to 16 bytes) need D a multiple of a 16-byte
+  // group and every row aligned to 16 bytes
+  const bool vec = D % (16 / (int)sizeof(T)) == 0 &&
+      ((uintptr_t)q | (uintptr_t)k_pages | (uintptr_t)v_pages |
+       (uintptr_t)out | (uintptr_t)workspace) % 16 == 0;
+  const int R = block_rows(G, D);
+  const Launch<T> as =
+      D <= 32 ? rows_as<T, 1, false>(R)
+      : D <= 64 ? (vec ? rows_as<T, 2, true>(R) : rows_as<T, 2, false>(R))
+      : D <= 128 ? (vec ? rows_as<T, 4, true>(R) : rows_as<T, 4, false>(R))
+      : (vec ? rows_as<T, 8, true>(R) : rows_as<T, 8, false>(R));
+  return as(q, k_pages, v_pages, page_table, seq_lens, out, ws_acc, ws_ml,
+            counters, B, K, G, D, ps, MP, pages_start, pages_end, window, NS,
+            stream);
 }
 
 }  // namespace
@@ -408,27 +455,19 @@ extern "C" int paged_decode_attention_f32(
     const int* page_table, const int* seq_lens, float* out, void* workspace,
     int B, int K, int G, int D, int ps, int MP, int pages_start,
     int pages_end, int window, void* stream) {
-  const int NS = n_splits(ps, pages_start, pages_end);
-  float* ws_acc = static_cast<float*>(workspace);
-  float* ws_ml = ws_acc + (size_t)B * K * NS * G * D;
-  int* counters = reinterpret_cast<int*>(ws_ml + (size_t)B * K * NS * G * 2);
-  if (workspace_bytes(B, K, G, D, NS) > 0) {
-    const cudaError_t err = cudaMemsetAsync(
-        counters, 0, sizeof(int) * (size_t)B * K * row_blocks(G, D),
-        (cudaStream_t)stream);
-    if (err != cudaSuccess) return (int)err;
-  }
-  // 8- and 16-byte accesses need every row aligned to them
-  const bool vec = D % 4 == 0 &&
-      ((uintptr_t)q | (uintptr_t)k_pages | (uintptr_t)v_pages |
-       (uintptr_t)out | (uintptr_t)workspace) % 16 == 0;
-  const int R = block_rows(G, D);
-  const Launch as =
-      D <= 32 ? rows_as<1, false>(R)
-      : D <= 64 ? (vec ? rows_as<2, true>(R) : rows_as<2, false>(R))
-      : D <= 128 ? (vec ? rows_as<4, true>(R) : rows_as<4, false>(R))
-      : (vec ? rows_as<8, true>(R) : rows_as<8, false>(R));
-  return as(q, k_pages, v_pages, page_table, seq_lens, out, ws_acc, ws_ml,
-            counters, B, K, G, D, ps, MP, pages_start, pages_end, window, NS,
-            (cudaStream_t)stream);
+  return run(q, k_pages, v_pages, page_table, seq_lens, out, workspace, B, K,
+             G, D, ps, MP, pages_start, pages_end, window,
+             (cudaStream_t)stream);
+}
+
+// The same with q, k_pages, v_pages and out in bf16 (the workspace stays
+// fp32: partials are rounded once, in the merge's output).
+extern "C" int paged_decode_attention_bf16(
+    const elem::bf16* q, const elem::bf16* k_pages,
+    const elem::bf16* v_pages, const int* page_table, const int* seq_lens,
+    elem::bf16* out, void* workspace, int B, int K, int G, int D, int ps,
+    int MP, int pages_start, int pages_end, int window, void* stream) {
+  return run(q, k_pages, v_pages, page_table, seq_lens, out, workspace, B, K,
+             G, D, ps, MP, pages_start, pages_end, window,
+             (cudaStream_t)stream);
 }

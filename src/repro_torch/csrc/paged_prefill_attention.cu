@@ -1,5 +1,5 @@
 // Paged GQA chunked-prefill attention for Hopper (sm_90a), fp32 through
-// 3xTF32 on the tensor cores.
+// 3xTF32 on the tensor cores, or bf16 through one TF32 product.
 //
 // Replaces the TPU kernel src/repro/kernels/paged_prefill_attention/kernel.py
 // :109 (paged_prefill_attention_gqa, body _paged_prefill_kernel): a chunk
@@ -70,6 +70,16 @@
 //   merges 26% and the setup 12%; without any products the kernel still
 //   takes 70% of its time, so round trips to memory, not the tensor
 //   cores, bound it.
+// - bf16 (the entries *_bf16; the TPU kernel takes either dtype): q, the
+//   pages and out are bf16, everything between stays fp32, the workspace
+//   too. A bf16 value is exact in TF32 (7 stored mantissa bits against
+//   10), and so is P rounded to bf16, as the TPU body's p.astype(v.dtype)
+//   rounds it before P V (l sums the unrounded P): each product is one
+//   TF32 mma.sync on the same fragments, exact. Q is widened into one
+//   plane; the K and V tiles are copied as bf16 (16-byte cp.async of 8
+//   values, rows padded(D) + 8 values apart, so that the fragments' 2-byte
+//   loads fall in distinct banks) and widened as their fragments are read.
+//   The output is rounded to bf16 once. At bf16 the bytes halve.
 // - D is zero-padded to a multiple of 16 (zero columns add 0 to Q K^T;
 //   the padded output columns are never stored). Rows past C * G in the
 //   last row block are padding that repeats the last row's position.
@@ -84,6 +94,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "elem.cuh"
 #include "mma_tf32x3.cuh"
 #include "smem_copy.cuh"
 
@@ -160,11 +171,33 @@ __host__ __device__ inline int n_splits(int ps, int pages_start,
   return (pages_end + SP - 1) / SP - pages_start / SP;
 }
 
-// Dynamic shared memory of one block, in floats: Q's hi and lo planes,
-// and kStages stages of raw K and V tiles.
-__host__ __device__ inline size_t smem_floats(int D, int DT, int RW) {
-  return (size_t)(2 * 16 * RW + 2 * kStages * key_tile(DT, RW)) *
-         row_stride(D);
+// TF32 planes Q is held in: hi and lo in fp32, the value alone in bf16
+// (exact in TF32)
+template <typename T>
+__host__ __device__ constexpr int planes() {
+  return elem::is_bf16<T>() ? 1 : 2;
+}
+// raw K and V rows, in elements: Q's stride in fp32; padded(D) + 8 in bf16
+// (16-byte rows; rows 4 words apart mod 32 banks)
+template <typename T>
+__host__ __device__ inline int raw_stride(int D) {
+  return elem::is_bf16<T>() ? padded(D) + 8 : row_stride(D);
+}
+// floats a lane keeps for the merge of a block's warps (m, l and its
+// output tiles inside padded(D)), in the stage buffers after the walk
+__host__ __device__ inline int merge_floats(int D) { return padded(D) / 2 + 4; }
+
+// Dynamic shared memory of one block, in bytes: Q's planes, and kStages
+// stages of raw K and V tiles, which the merge of the warps then reuses.
+template <typename T>
+__host__ __device__ inline size_t smem_bytes(int D, int DT, int RW) {
+  const int KW = kWarps / RW;
+  const size_t stages = sizeof(T) * (size_t)2 * kStages * key_tile(DT, RW) *
+                        raw_stride<T>(D);
+  const size_t merge = sizeof(float) * (size_t)RW * (KW - 1) *
+                       merge_floats(D) * 32;
+  return sizeof(float) * (size_t)planes<T>() * 16 * RW * row_stride(D) +
+         (stages > merge ? stages : merge);
 }
 
 // The pages [p_begin, p_end) that rows [row0, row0 + rows) of a slot can
@@ -185,17 +218,25 @@ __device__ __forceinline__ void visible_pages(int qstart, int total, int row0,
     p_begin = max(p_begin, (q_lo - window + 1) / ps);
 }
 
-// Copy four floats at column c of a key row (`row` = its first float) to
-// dst; zero past D, and all four where the key is not `in` the split.
-template <bool VEC>
-__device__ __forceinline__ void copy4(float* dst, const float* row, bool in,
-                                      int c, int D, const float* any) {
+// Copy a 16-byte chunk (four floats or eight bf16 values) at column c of
+// a key row (`row` = its first element) to dst; zero past D, and the whole
+// chunk where the key is not `in` the split. VEC: one 16-byte copy; else
+// fp32 by four copies of 4 bytes, bf16 by plain loads and stores of 2
+// bytes.
+template <bool VEC, typename T>
+__device__ __forceinline__ void copy_chunk(T* dst, const T* row, bool in,
+                                           int c, int D, const T* any) {
+  constexpr int CW = 16 / (int)sizeof(T);
   if constexpr (VEC) {
     const bool ok = in && c < D;
     cp_async16(dst, ok ? row + c : any, ok);
+  } else if constexpr (elem::is_bf16<T>()) {
+#pragma unroll
+    for (int i = 0; i < CW; ++i)
+      dst[i] = in && c + i < D ? row[c + i] : elem::from_float<T>(0.f);
   } else {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < CW; ++i) {
       const bool ok = in && c + i < D;
       cp_async4(dst + i, ok ? row + c + i : any, ok);
     }
@@ -213,8 +254,8 @@ __device__ __forceinline__ void copy4(float* dst, const float* row, bool in,
 // split; `head`: the (slot, kv head) index. Each warp takes up to 4 rows,
 // and all the loads of SC splits of them are issued before any is used:
 // one round trip to L2 for up to SC splits.
-template <int DT, int ROWS>
-__device__ void merge_splits_if_last(float* __restrict__ out,
+template <typename T, int DT, int ROWS>
+__device__ void merge_splits_if_last(T* __restrict__ out,
                                      const float* __restrict__ ws_acc,
                                      const float* __restrict__ ws_ml,
                                      int* count, size_t first, int n,
@@ -283,22 +324,22 @@ __device__ void merge_splits_if_last(float* __restrict__ out,
     for (int rr = 0; rr < RC; ++rr) {
       if (rb + kWarps * rr >= rows) continue;
       const float inv = 1.f / (L[rr] == 0.f ? 1.f : L[rr]);
-      float* orow = out + (head * CG + row0 + rb + kWarps * rr) * D;
+      T* orow = out + (head * CG + row0 + rb + kWarps * rr) * D;
 #pragma unroll
       for (int j = 0; j < NC; ++j)
-        if (lane + 32 * j < D) orow[lane + 32 * j] = a[rr][j] * inv;
+        if (lane + 32 * j < D)
+          orow[lane + 32 * j] = elem::from_float<T>(a[rr][j] * inv);
     }
   }
 }
 
-template <int DT, bool VEC, int RW>
+template <typename T, int DT, bool VEC, int RW>
 __global__ void __launch_bounds__(kThreads, PREFILL_MIN_BLOCKS)
-paged_prefill_kernel(const float* __restrict__ q,
-                     const float* __restrict__ k_pages,
-                     const float* __restrict__ v_pages,
+paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
+                     const T* __restrict__ v_pages,
                      const int* __restrict__ page_table,
                      const int* __restrict__ start,
-                     const int* __restrict__ total, float* __restrict__ out,
+                     const int* __restrict__ total, T* __restrict__ out,
                      float* __restrict__ ws_acc, float* __restrict__ ws_ml,
                      int* __restrict__ counters, int K, int CG, int G, int D,
                      int ps, int MP, int pages_start, int pages_end,
@@ -309,17 +350,21 @@ paged_prefill_kernel(const float* __restrict__ q,
   constexpr int NT = TK / 8 / KW;        // m16n8 score tiles per warp
   constexpr int kDT = DT / 8;            // k steps of Q K^T, n tiles of P V
   constexpr int NACC = NT == 1 ? 4 : 2;  // score accumulator sets
-  constexpr int CPR = DT / 4;            // 4-float chunks of a row
-  constexpr int NK = TK * CPR / kThreads;  // chunks a thread copies
-  static_assert(NT >= 1 && NK * kThreads == TK * CPR && kThreads % CPR == 0,
+  constexpr int CPR = DT / 4;            // Q's 4-value chunks of a row
+  constexpr int CW = 16 / (int)sizeof(T);  // values of a copied chunk
+  constexpr int CPC = DT / CW;           // copied chunks of a key row
+  constexpr int NK = TK * CPC / kThreads;  // chunks a thread copies
+  constexpr bool kExact = elem::is_bf16<T>();   // one TF32 product
+  static_assert(NT >= 1 && NK * kThreads == TK * CPC && kThreads % CPC == 0,
                 "tiles must split evenly over warps and threads");
   extern __shared__ __align__(16) float smem[];
   __shared__ int spage[kSplitKeys];      // the split's physical page ids
 
-  const int Dp = padded(D), RS = row_stride(D);
+  const int Dp = padded(D), RS = row_stride(D), RR = raw_stride<T>(D);
   float* qh = smem;                      // ROWS x RS, TF32 hi of Q
-  float* ql = qh + ROWS * RS;            // and lo
-  float* kbuf = ql + ROWS * RS;          // stages of (K, V), TK x RS each
+  float* ql = qh + ROWS * RS;            // and lo (fp32 only)
+  // stages of (K, V), TK x RR each
+  T* kbuf = reinterpret_cast<T*>(qh + planes<T>() * ROWS * RS);
 
   const int SP = split_pages(ps);
   const int s0 = pages_start / SP;
@@ -330,9 +375,10 @@ paged_prefill_kernel(const float* __restrict__ q,
   const int b = blockIdx.z;
   const int rows = min(ROWS, CG - row0);
   const int kr = threadIdx.x / CPR, kc = 4 * (threadIdx.x % CPR);
-  // Q's rows, zero past C * G and past D, read 4 chunks (16 floats) a
-  // thread at a time and split into planes
-  const float* qb = q + ((size_t)b * K + h) * CG * D + (size_t)row0 * D;
+  const int cr = threadIdx.x / CPC, cc = CW * (threadIdx.x % CPC);
+  // Q's rows, zero past C * G and past D, read 4 chunks (16 values) a
+  // thread at a time and split into planes (at bf16 widened into one)
+  const T* qb = q + ((size_t)b * K + h) * CG * D + (size_t)row0 * D;
   constexpr int QN = ROWS / (kThreads / CPR);   // Q chunks of a thread
   static_assert(QN * (kThreads / CPR) == ROWS, "Q chunks tile the rows");
   auto load_q = [&](int i0, float (&x)[4][4]) {
@@ -342,7 +388,7 @@ paged_prefill_kernel(const float* __restrict__ q,
       for (int e = 0; e < 4; ++e) {
         const int r = kr + (i0 + i) * (kThreads / CPR);
         x[i][e] = i0 + i < QN && kc < Dp && r < rows && kc + e < D
-                      ? __ldg(qb + (size_t)r * D + kc + e) : 0.f;
+                      ? elem::ldg(qb + (size_t)r * D + kc + e) : 0.f;
       }
   };
   auto split_q = [&](int i0, const float (&x)[4][4]) {
@@ -350,6 +396,11 @@ paged_prefill_kernel(const float* __restrict__ q,
     for (int i = 0; i < 4; ++i) {
       const int r = kr + (i0 + i) * (kThreads / CPR);
       if (i0 + i >= QN || kc >= Dp) continue;
+      if constexpr (kExact) {
+        *reinterpret_cast<float4*>(qh + r * RS + kc) =
+            make_float4(x[i][0], x[i][1], x[i][2], x[i][3]);
+        continue;
+      }
       uint4 hi, lo;
       tf32x3::split(x[i][0], hi.x, lo.x);
       tf32x3::split(x[i][1], hi.y, lo.y);
@@ -371,7 +422,8 @@ paged_prefill_kernel(const float* __restrict__ q,
   if (p_end <= p_begin) {   // no visible key: the grid's first split
     if (blockIdx.x == 0)     // writes the rows' zeros
       for (int i = threadIdx.x; i < rows * D; i += kThreads)
-        out[(((size_t)b * K + h) * CG + row0) * D + i] = 0.f;
+        out[(((size_t)b * K + h) * CG + row0) * D + i] =
+            elem::from_float<T>(0.f);
     return;
   }
   const int s_begin = p_begin / SP, s_end = (p_end + SP - 1) / SP;
@@ -389,22 +441,22 @@ paged_prefill_kernel(const float* __restrict__ q,
   // start copying tile j into its stage (nothing past the split's last
   // tile: the group stays empty)
   auto copy_tile = [&](int j) {
-    float* ks = kbuf + (j - j_begin) % kStages * 2 * TK * RS;
-    float* vs = ks + TK * RS;
-    if (kc < Dp && j < j_end) {
+    T* ks = kbuf + (j - j_begin) % kStages * 2 * TK * RR;
+    T* vs = ks + TK * RR;
+    if (cc < Dp && j < j_end) {
 #pragma unroll
       for (int i = 0; i < NK; ++i) {
-        const int r = kr + i * (kThreads / CPR);
+        const int r = cr + i * (kThreads / CPC);
         const int key = ksplit + j * TK + r;
         const bool in = key >= k_lo && key < k_hi;
         const int rel = key - ksplit;
         const int pl = in ? rel / ps : 0;
         const size_t row =
             (((size_t)spage[pl] * ps + (rel - pl * ps)) * K + h) * D;
-        copy4<VEC>(ks + r * RS + kc, k_pages + (in ? row : 0), in, kc, D,
-                   k_pages);
-        copy4<VEC>(vs + r * RS + kc, v_pages + (in ? row : 0), in, kc, D,
-                   v_pages);
+        copy_chunk<VEC>(ks + r * RR + cc, k_pages + (in ? row : 0), in, cc,
+                        D, k_pages);
+        copy_chunk<VEC>(vs + r * RR + cc, v_pages + (in ? row : 0), in, cc,
+                        D, v_pages);
       }
     }
     asm volatile("cp.async.commit_group;");
@@ -453,8 +505,8 @@ paged_prefill_kernel(const float* __restrict__ q,
     asm volatile("cp.async.wait_group %0;" ::"n"(kStages - 1) : "memory");
     __syncthreads();   // tile j landed (and Q's planes are in)
     PHASE_TILE_WAITED();
-    const float* ks = kbuf + (j - j_begin) % kStages * 2 * TK * RS;
-    const float* vs = ks + TK * RS;
+    const T* ks = kbuf + (j - j_begin) % kStages * 2 * TK * RR;
+    const T* vs = ks + TK * RR;
     // this warp's keys [kw0, kw0 + 8 NT)
     const int kw0 = ksplit + j * TK + 8 * NT * kg;
     const int kw1 = kw0 + 8 * NT - 1;
@@ -472,19 +524,40 @@ paged_prefill_kernel(const float* __restrict__ q,
 #pragma unroll
           for (int i = 0; i < 4; ++i) sa[a][jn][i] = 0.f;
       // K's B fragments for two k steps of one n tile: cols 0-3, 4-7,
-      // 8-11, 12-15 of keys g
-      const float* kf = ks + (8 * NT * kg + mr) * RS + 4 * mi;
+      // 8-11, 12-15 of keys g (lane 4 g + t: column t of each)
+      const float* kf = reinterpret_cast<const float*>(ks) +
+                        (8 * NT * kg + mr) * RS + 4 * mi;
+      const T* kg16 = ks + (8 * NT * kg + g) * RR + t;
 #pragma unroll
       for (int kk = 0; kk < kDT; kk += 2) {
         if (8 * kk >= Dp) break;
         uint32_t x[NT][4];
 #pragma unroll
-        for (int jn = 0; jn < NT; ++jn)
-          ldsm_x4(x[jn], kf + 8 * jn * RS + 8 * kk);
+        for (int jn = 0; jn < NT; ++jn) {
+          if constexpr (kExact) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              x[jn][i] = __float_as_uint(elem::to_float(
+                  kg16[8 * jn * RR + 8 * kk + 4 * i]));
+          } else {
+            ldsm_x4(x[jn], kf + 8 * jn * RS + 8 * kk);
+          }
+        }
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
-          uint32_t ah[4], al[4], bh[NT][2], bl[NT][2];
+          uint32_t ah[4];
           ldsm_x4(ah, qa + 8 * (kk + hf));
+          if constexpr (kExact) {   // Q and K exact in TF32: one product
+            if constexpr (!(kSkip & 1)) {
+#pragma unroll
+              for (int jn = 0; jn < NT; ++jn) {
+                const uint32_t b2[2] = {x[jn][2 * hf], x[jn][2 * hf + 1]};
+                tf32x3::mma(sa[(kk + hf) % NACC][jn], ah, b2);
+              }
+            }
+            continue;
+          }
+          uint32_t al[4], bh[NT][2], bl[NT][2];
           ldsm_x4(al, qa + ROWS * RS + 8 * (kk + hf));
 #pragma unroll
           for (int jn = 0; jn < NT; ++jn) {
@@ -566,12 +639,31 @@ paged_prefill_kernel(const float* __restrict__ q,
       // as key 8 jn + 2 t and k = t + 4 as key 8 jn + 2 t + 1
 #pragma unroll
       for (int jn = 0; jn < NT; ++jn) {
+        if constexpr (kExact) {   // P rounded to bf16 and V: exact in TF32
+          const uint32_t a[4] = {
+              __float_as_uint(elem::round_bf16(sc[jn][0])),
+              __float_as_uint(elem::round_bf16(sc[jn][2])),
+              __float_as_uint(elem::round_bf16(sc[jn][1])),
+              __float_as_uint(elem::round_bf16(sc[jn][3]))};
+          const T* vf = vs + (8 * NT * kg + 8 * jn + 2 * t) * RR + g;
+#pragma unroll
+          for (int n = 0; n < kDT; ++n) {
+            if (8 * n >= Dp) break;
+            const uint32_t bv[2] = {
+                __float_as_uint(elem::to_float(vf[8 * n])),
+                __float_as_uint(elem::to_float(vf[RR + 8 * n]))};
+            if constexpr (!(kSkip & 2))
+              tf32x3::mma(o[n / kNG][n % kNG], a, bv);
+          }
+          continue;
+        }
         uint32_t ah[4], al[4];
         tf32x3::split(sc[jn][0], ah[0], al[0]);
         tf32x3::split(sc[jn][2], ah[1], al[1]);
         tf32x3::split(sc[jn][1], ah[2], al[2]);
         tf32x3::split(sc[jn][3], ah[3], al[3]);
-        const float* vf = vs + (8 * NT * kg + 8 * jn + 2 * t) * RS + g;
+        const float* vf = reinterpret_cast<const float*>(vs) +
+                          (8 * NT * kg + 8 * jn + 2 * t) * RS + g;
 #pragma unroll
         for (int ng = 0; ng < kDT / kNG; ++ng) {
           if (8 * kNG * ng >= Dp) break;
@@ -595,9 +687,10 @@ paged_prefill_kernel(const float* __restrict__ q,
   // buffers: lane-major, so each lane reads back only what it wrote (m, l,
   // then the output tiles inside padded(D))
   if constexpr (KW > 1) {
-    const int W = Dp / 2 + 4;   // floats a lane keeps
+    float* mbuf = reinterpret_cast<float*>(kbuf);
+    const int W = merge_floats(D);   // floats a lane keeps
     if (kg > 0) {
-      float* mb = kbuf + (rg * (KW - 1) + kg - 1) * W * 32 + lane;
+      float* mb = mbuf + (rg * (KW - 1) + kg - 1) * W * 32 + lane;
       mb[0] = m[0];
       mb[32] = m[1];
       mb[64] = l[0];
@@ -612,7 +705,7 @@ paged_prefill_kernel(const float* __restrict__ q,
     __syncthreads();
     if (kg == 0) {
       for (int w = 1; w < KW; ++w) {
-        const float* mb = kbuf + (rg * (KW - 1) + w - 1) * W * 32 + lane;
+        const float* mb = mbuf + (rg * (KW - 1) + w - 1) * W * 32 + lane;
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const float mi = mb[r * 32];
@@ -641,14 +734,26 @@ paged_prefill_kernel(const float* __restrict__ q,
     for (int r = 0; r < 2; ++r) {
       const int row = wr0 + g + 8 * r;
       if (row >= CG) continue;
-      const float inv = single ? 1.f / (l[r] == 0.f ? 1.f : l[r]) : 1.f;
-      float* orow = single ? out + (((size_t)b * K + h) * CG + row) * D
-                           : ws_acc + (part + row) * D;
+      if (single) {
+        const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);
+        T* orow = out + (((size_t)b * K + h) * CG + row) * D;
 #pragma unroll
-      for (int n = 0; n < kDT; ++n) {
-        const int c = 8 * n + 2 * t;
-        if (c < D) orow[c] = o[n / kNG][n % kNG][2 * r] * inv;
-        if (c + 1 < D) orow[c + 1] = o[n / kNG][n % kNG][2 * r + 1] * inv;
+        for (int n = 0; n < kDT; ++n) {
+          const int c = 8 * n + 2 * t;
+          if (c < D)
+            orow[c] = elem::from_float<T>(o[n / kNG][n % kNG][2 * r] * inv);
+          if (c + 1 < D)
+            orow[c + 1] =
+                elem::from_float<T>(o[n / kNG][n % kNG][2 * r + 1] * inv);
+        }
+      } else {
+        float* orow = ws_acc + (part + row) * D;
+#pragma unroll
+        for (int n = 0; n < kDT; ++n) {
+          const int c = 8 * n + 2 * t;
+          if (c < D) orow[c] = o[n / kNG][n % kNG][2 * r];
+          if (c + 1 < D) orow[c + 1] = o[n / kNG][n % kNG][2 * r + 1];
+        }
       }
       if (!single && t == 0) {
         ws_ml[2 * (part + row)] = m[r];
@@ -658,18 +763,18 @@ paged_prefill_kernel(const float* __restrict__ q,
   }
   PHASE_MARK(4);
   if (!single)
-    merge_splits_if_last<DT, ROWS>(
+    merge_splits_if_last<T, DT, ROWS>(
         out, ws_acc, ws_ml, counters + (size_t)b * gridDim.y + blockIdx.y,
         ((size_t)b * K + h) * NS + s_begin - s0, s_end - s_begin,
         (size_t)b * K + h, row0, rows, CG, D);
   PHASE_RECORD(j_end - j_begin, single);
 }
 
-template <int DT, bool VEC, int RW>
-int walk_as(const float* q, const float* k_pages, const float* v_pages,
+template <typename T, int DT, bool VEC, int RW>
+int walk_as(const T* q, const T* k_pages, const T* v_pages,
             const int* page_table, const int* start, const int* total,
-            float* out, float* ws_acc, float* ws_ml, int* counters, int B,
-            int K, int CG, int G, int D, int ps, int MP, int pages_start,
+            T* out, float* ws_acc, float* ws_ml, int* counters, int B, int K,
+            int CG, int G, int D, int ps, int MP, int pages_start,
             int pages_end, int window, int NS, cudaStream_t stream) {
   // the attribute is set once per instance, device and size, not on every
   // launch (it holds for the current device only)
@@ -678,30 +783,29 @@ int walk_as(const float* q, const float* k_pages, const float* v_pages,
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  const size_t smem = smem_floats(D, DT, RW) * sizeof(float);
+  const size_t smem = smem_bytes<T>(D, DT, RW);
   if (smem > configured[dev]) {
-    err = cudaFuncSetAttribute(paged_prefill_kernel<DT, VEC, RW>,
+    err = cudaFuncSetAttribute(paged_prefill_kernel<T, DT, VEC, RW>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
     configured[dev] = smem;
   }
   const dim3 grid(NS, K * row_blocks(CG), B);
-  paged_prefill_kernel<DT, VEC, RW><<<grid, kThreads, smem, stream>>>(
+  paged_prefill_kernel<T, DT, VEC, RW><<<grid, kThreads, smem, stream>>>(
       q, k_pages, v_pages, page_table, start, total, out, ws_acc, ws_ml,
       counters, K, CG, G, D, ps, MP, pages_start, pages_end, window, NS);
   return (int)cudaGetLastError();
 }
 
-template <int DT, bool VEC>
-int walk_rows(int RW, const float* q, const float* k_pages,
-              const float* v_pages, const int* page_table, const int* start,
-              const int* total, float* out, float* ws_acc, float* ws_ml,
-              int* counters, int B, int K, int CG, int G, int D, int ps,
-              int MP, int pages_start, int pages_end, int window, int NS,
-              cudaStream_t st) {
-  auto as = RW == 1 ? walk_as<DT, VEC, 1>
-          : RW == 2 ? walk_as<DT, VEC, 2> : walk_as<DT, VEC, 4>;
+template <typename T, int DT, bool VEC>
+int walk_rows(int RW, const T* q, const T* k_pages, const T* v_pages,
+              const int* page_table, const int* start, const int* total,
+              T* out, float* ws_acc, float* ws_ml, int* counters, int B,
+              int K, int CG, int G, int D, int ps, int MP, int pages_start,
+              int pages_end, int window, int NS, cudaStream_t st) {
+  auto as = RW == 1 ? walk_as<T, DT, VEC, 1>
+          : RW == 2 ? walk_as<T, DT, VEC, 2> : walk_as<T, DT, VEC, 4>;
   return as(q, k_pages, v_pages, page_table, start, total, out, ws_acc, ws_ml,
             counters, B, K, CG, G, D, ps, MP, pages_start, pages_end, window,
             NS, st);
@@ -716,17 +820,52 @@ size_t workspace_bytes(int B, int K, int CG, int D, int NS) {
          sizeof(int) * (size_t)B * K * row_blocks(CG);
 }
 
+// One launch of the kernel's T instance (paged_prefill_attention_f32's
+// arguments).
+template <typename T>
+int run(const T* q, const T* k_pages, const T* v_pages,
+        const int* page_table, const int* start, const int* total, T* out,
+        void* workspace, int B, int K, int C, int G, int D, int ps, int MP,
+        int pages_start, int pages_end, int window, cudaStream_t stream) {
+  const int CG = C * G, RW = row_warps(CG);
+  const int NS = n_splits(ps, pages_start, pages_end);
+  float* ws_acc = static_cast<float*>(workspace);
+  float* ws_ml = ws_acc + (size_t)B * K * NS * CG * D;
+  int* counters = reinterpret_cast<int*>(ws_ml + (size_t)B * K * NS * CG * 2);
+  if (workspace_bytes(B, K, CG, D, NS) > 0) {
+    const cudaError_t err = cudaMemsetAsync(
+        counters, 0, sizeof(int) * (size_t)B * K * row_blocks(CG), stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  // 16-byte copies need D a multiple of a 16-byte chunk and every key row
+  // 16-byte aligned
+  const bool vec = D % (16 / (int)sizeof(T)) == 0 &&
+      ((uintptr_t)k_pages | (uintptr_t)v_pages) % 16 == 0;
+  auto walk =
+      D <= 32 ? (vec ? walk_rows<T, 32, true> : walk_rows<T, 32, false>)
+      : D <= 64 ? (vec ? walk_rows<T, 64, true> : walk_rows<T, 64, false>)
+      : D <= 128 ? (vec ? walk_rows<T, 128, true> : walk_rows<T, 128, false>)
+      : (vec ? walk_rows<T, 256, true> : walk_rows<T, 256, false>);
+  return walk(RW, q, k_pages, v_pages, page_table, start, total, out, ws_acc,
+              ws_ml, counters, B, K, CG, G, D, ps, MP, pages_start, pages_end,
+              window, NS, stream);
+}
+
 }  // namespace
 
 // Shared memory of one block (bytes), dynamic and static, for C query rows
-// of G heads at head_dim D.
-extern "C" long long paged_prefill_smem_bytes(int C, int G, int D) {
-  return smem_floats(D, dim_tile(D), row_warps(C * G)) * sizeof(float) +
+// of G heads at head_dim D, of elements of `elem_bytes` bytes (4: fp32, 2:
+// bf16).
+extern "C" long long paged_prefill_smem_bytes(int C, int G, int D,
+                                              int elem_bytes) {
+  const int DT = dim_tile(D), RW = row_warps(C * G);
+  return (elem_bytes == 2 ? smem_bytes<elem::bf16>(D, DT, RW)
+                          : smem_bytes<float>(D, DT, RW)) +
          sizeof(int) * kSplitKeys;
 }
 
 // The workspace of a launch (bytes), for paged_prefill_attention_f32's
-// arguments of the same names.
+// arguments of the same names (fp32 partials at either element type).
 extern "C" long long paged_prefill_workspace_bytes(int B, int K, int C,
                                                    int G, int D, int ps,
                                                    int pages_start,
@@ -746,25 +885,19 @@ extern "C" int paged_prefill_attention_f32(
     const int* page_table, const int* start, const int* total, float* out,
     void* workspace, int B, int K, int C, int G, int D, int ps, int MP,
     int pages_start, int pages_end, int window, void* stream) {
-  const int CG = C * G, RW = row_warps(CG);
-  const int NS = n_splits(ps, pages_start, pages_end);
-  float* ws_acc = static_cast<float*>(workspace);
-  float* ws_ml = ws_acc + (size_t)B * K * NS * CG * D;
-  int* counters = reinterpret_cast<int*>(ws_ml + (size_t)B * K * NS * CG * 2);
-  if (workspace_bytes(B, K, CG, D, NS) > 0) {
-    const cudaError_t err = cudaMemsetAsync(
-        counters, 0, sizeof(int) * (size_t)B * K * row_blocks(CG),
-        (cudaStream_t)stream);
-    if (err != cudaSuccess) return (int)err;
-  }
-  // 16-byte copies need every key row 16-byte aligned
-  const bool vec = D % 4 == 0 &&
-      ((uintptr_t)k_pages | (uintptr_t)v_pages) % 16 == 0;
-  auto walk = D <= 32 ? (vec ? walk_rows<32, true> : walk_rows<32, false>)
-            : D <= 64 ? (vec ? walk_rows<64, true> : walk_rows<64, false>)
-            : D <= 128 ? (vec ? walk_rows<128, true> : walk_rows<128, false>)
-            : (vec ? walk_rows<256, true> : walk_rows<256, false>);
-  return walk(RW, q, k_pages, v_pages, page_table, start, total, out, ws_acc,
-              ws_ml, counters, B, K, CG, G, D, ps, MP, pages_start, pages_end,
-              window, NS, (cudaStream_t)stream);
+  return run(q, k_pages, v_pages, page_table, start, total, out, workspace,
+             B, K, C, G, D, ps, MP, pages_start, pages_end, window,
+             (cudaStream_t)stream);
+}
+
+// The same with q, k_pages, v_pages and out in bf16.
+extern "C" int paged_prefill_attention_bf16(
+    const elem::bf16* q, const elem::bf16* k_pages,
+    const elem::bf16* v_pages, const int* page_table, const int* start,
+    const int* total, elem::bf16* out, void* workspace, int B, int K, int C,
+    int G, int D, int ps, int MP, int pages_start, int pages_end, int window,
+    void* stream) {
+  return run(q, k_pages, v_pages, page_table, start, total, out, workspace,
+             B, K, C, G, D, ps, MP, pages_start, pages_end, window,
+             (cudaStream_t)stream);
 }

@@ -9,7 +9,7 @@ namespace tilecopy {
 
 // Asynchronous copies of 16 or 4 bytes into shared memory; where `in` is
 // false the destination is zero-filled and nothing is read.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool in) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
@@ -32,6 +32,14 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const float* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
                "[%4];"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// The first two of those matrices (addresses from lanes 0-15).
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const float* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(a));
 }
 

@@ -14,21 +14,53 @@ from . import build
 MAX_SMEM_BYTES = 232448
 
 
+# the element types of the attention kernels, by their C entries' suffix
+# (``<kernel>_f32``, ``<kernel>_bf16``): the TPU kernels take either
+ENTRY_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def float_dtype(name: str, dtypes: dict, allowed=tuple(ENTRY_SUFFIX)):
+    """The one element type of a launch's float inputs (``dtypes``: {arg:
+    dtype}): every one fp32, or every one bf16 (of ``allowed``). A mix,
+    fp16 or any other dtype raises: the reference's kernels are tested at
+    fp32 and bf16 only."""
+    kinds = set(dtypes.values())
+    if len(kinds) != 1:
+        raise ValueError(f"{name}: float inputs of mixed dtypes "
+                         f"{ {a: str(d) for a, d in dtypes.items()} }; the "
+                         "kernel takes one dtype for all")
+    (dt,) = kinds
+    if dt not in allowed:
+        raise ValueError(f"{name}: float inputs are {dt}; the kernel takes "
+                         + " or ".join(str(d) for d in allowed))
+    return dt
+
+
+def count_launch(wrapper, dtype) -> None:
+    """One more launch of ``wrapper``'s kernel: in ``wrapper.launches``
+    and, by element type, in ``wrapper.launches_by_dtype``."""
+    wrapper.launches += 1
+    key = str(dtype).removeprefix("torch.")
+    wrapper.launches_by_dtype[key] = wrapper.launches_by_dtype.get(key, 0) + 1
+
+
 def check_inputs(name: str, floats: dict, ints: dict, *, strided=(),
-                 int_dtype=torch.int32) -> torch.device:
+                 int_dtype=torch.int32,
+                 dtypes=tuple(ENTRY_SUFFIX)) -> torch.dtype:
     """Raise unless every tensor is a CUDA tensor on one device, ``floats``
-    fp32 and ``ints`` of ``int_dtype``, each contiguous, or for the names in
-    ``strided`` at least unit-strided on its last dimension with every
-    element offset within a C int. Returns the device."""
+    of one dtype of ``dtypes`` (``float_dtype``) and ``ints`` of
+    ``int_dtype``, each contiguous, or for the names in ``strided`` at
+    least unit-strided on its last dimension with every element offset
+    within a C int. Returns the floats' dtype."""
+    dt = float_dtype(name, {a: t.dtype for a, t in floats.items()}, dtypes)
     dev = next(iter(floats.values())).device
     for arg, t in {**floats, **ints}.items():
-        want = torch.float32 if arg in floats else int_dtype
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{name}: {arg} is on {t.device}; every input "
                              f"must lie on the CUDA device {dev}")
-        if t.dtype != want:
+        if arg in ints and t.dtype != int_dtype:
             raise ValueError(f"{name}: {arg} is {t.dtype}; the kernel takes "
-                             f"{want}")
+                             f"{int_dtype}")
         if arg in strided:
             span = sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
             if t.stride(-1) != 1 or span >= 2 ** 31:
@@ -36,7 +68,7 @@ def check_inputs(name: str, floats: dict, ints: dict, *, strided=(),
                                  "last dimension and offsets below 2**31")
         elif not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
-    return dev
+    return dt
 
 
 # C entries already bound, with their argument types: binding costs more

@@ -12,13 +12,18 @@ kernel's own contract; all three are one kernel launch:
 The tensor's device decides the path: CPU tensors take the plain version
 (``ref.py``); CUDA tensors launch the hand-written kernel
 ``csrc/decode_attention.cu`` or raise. There is no fallback between the
-two. ``decode_attention_kv.launches`` counts kernel launches of all three.
+two. The kernel takes fp32 or bf16 (q, k, v and the output of one dtype;
+the entry ``decode_attention_f32`` or ``_bf16`` by q's dtype),
+accumulating in fp32 either way; anything else raises.
+``decode_attention_kv.launches`` counts kernel launches of all three, and
+``.launches_by_dtype`` splits them by dtype.
 """
 from __future__ import annotations
 
 import torch
 
-from ..common import check_inputs, launch, query
+from ..common import (ENTRY_SUFFIX, check_inputs, count_launch, launch,
+                      query)
 from .ref import decode_attention_ref
 
 MAX_HEAD_DIM = 256   # 8 columns a lane
@@ -45,8 +50,8 @@ def decode_attention_kv(q, k, v, valid):
         vg = v.movedim(2, 1).reshape(B * K, S, D)
         vmask = valid.repeat_interleave(K, dim=0).to(torch.int8)
         return decode_attention_ref(qg, kg, vg, vmask).reshape(B, H, D)
-    check_inputs(NAME, {"q": q, "k": k, "v": v},
-                 {"valid": valid}, strided=("k", "v"), int_dtype=torch.int8)
+    dtype = check_inputs(NAME, {"q": q, "k": k, "v": v}, {"valid": valid},
+                         strided=("k", "v"), int_dtype=torch.int8)
     if v.stride() != k.stride():
         raise ValueError("decode_attention: k and v must share strides")
     if not 1 <= D <= MAX_HEAD_DIM:
@@ -59,13 +64,14 @@ def decode_attention_kv(q, k, v, valid):
         # stream
         n = query(NAME, "decode_attention_workspace_bytes", B, S, K, G, D)
         ws = torch.empty(n, dtype=torch.uint8, device=q.device) if n else out
-        launch(NAME, "decode_attention_f32", q, k, v, valid, out, ws, B, S,
-               K, G, D, *k.stride()[:3])
-        decode_attention_kv.launches += 1
+        launch(NAME, f"{NAME}_{ENTRY_SUFFIX[dtype]}", q, k, v, valid, out,
+               ws, B, S, K, G, D, *k.stride()[:3])
+        count_launch(decode_attention_kv, dtype)
     return out
 
 
 decode_attention_kv.launches = 0
+decode_attention_kv.launches_by_dtype = {}
 
 
 def decode_attention(q, k_exp, v_exp, valid):

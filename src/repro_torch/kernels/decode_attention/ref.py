@@ -3,6 +3,9 @@
 Mirrors ``repro/kernels/decode_attention/ref.py``. The CPU path of
 ``ops.decode_attention_kv`` and the yardstick the CUDA kernel is held
 against on the card.
+At bf16 it rounds where the oracle does: the scores to bf16 before an
+fp32 softmax, the weights to bf16 before the product with V, the output
+in V's dtype.
 """
 from __future__ import annotations
 

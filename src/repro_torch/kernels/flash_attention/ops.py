@@ -3,13 +3,18 @@
 The tensor's device decides the path: CPU tensors take the plain version
 (``ref.py``); CUDA tensors launch the hand-written kernel
 ``csrc/flash_attention.cu`` or raise. There is no fallback between the
-two. ``flash_attention.launches`` counts kernel launches of both entries.
+two. The kernel takes fp32 (3xTF32 products) or bf16 (one TF32 product,
+exact on bf16 values): q, k, v and the output of one dtype, the entry
+``flash_attention_f32`` or ``_bf16`` by q's dtype, accumulating in fp32
+either way; anything else raises. ``flash_attention.launches`` counts
+kernel launches of both wrappers, and ``.launches_by_dtype`` splits them
+by dtype.
 """
 from __future__ import annotations
 
 import torch
 
-from ..common import check_inputs, launch
+from ..common import ENTRY_SUFFIX, check_inputs, count_launch, launch
 from .ref import attention_ref
 
 MAX_HEAD_DIM = 256   # a block's shared memory then stays under 200 KB
@@ -36,22 +41,23 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         out = attention_ref(bhsd(q), bhsd(kx), bhsd(vx), causal=causal,
                             window=window)
         return out.reshape(B, H, S, D).movedim(1, 2)
-    check_inputs("flash_attention", {"q": q, "k": k, "v": v}, {},
-                 strided=("q", "k", "v"))
+    dtype = check_inputs("flash_attention", {"q": q, "k": k, "v": v}, {},
+                         strided=("q", "k", "v"))
     if v.stride() != k.stride():
         raise ValueError("flash_attention: k and v must share strides")
     if not 1 <= D <= MAX_HEAD_DIM:
         raise ValueError(f"head_dim {D} outside [1, {MAX_HEAD_DIM}]")
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     if out.numel():
-        launch("flash_attention", "flash_attention_f32", q, k, v, out,
-               B, S, H, K, D, int(causal), window, *q.stride()[:3],
-               *k.stride()[:3])
-        flash_attention.launches += 1
+        launch("flash_attention", f"flash_attention_{ENTRY_SUFFIX[dtype]}",
+               q, k, v, out, B, S, H, K, D, int(causal), window,
+               *q.stride()[:3], *k.stride()[:3])
+        count_launch(flash_attention, dtype)
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_dtype = {}
 
 
 def flash_attention_bhsd(q, k, v, *, causal: bool = True, window: int = 0):

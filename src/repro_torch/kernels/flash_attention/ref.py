@@ -3,6 +3,9 @@
 Mirrors ``repro/kernels/flash_attention/ref.py``: the full (S, S) score
 matrix, masked and softmaxed. The CPU path of ``ops.flash_attention`` and
 the yardstick the CUDA kernel is held against on the card.
+At bf16 it rounds where the oracle does: the scores to bf16 before an
+fp32 softmax, the weights to bf16 before the product with V, the output
+in V's dtype.
 """
 from __future__ import annotations
 

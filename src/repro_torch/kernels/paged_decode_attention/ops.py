@@ -3,14 +3,18 @@
 The tensor's device decides the path: CPU tensors take the plain version
 (``ref.py``); CUDA tensors launch the hand-written kernel
 ``csrc/paged_decode_attention.cu`` or raise. There is no fallback between
-the two. ``paged_decode_attention_gqa.launches`` counts wrapper calls
-that launched the kernel.
+the two. The kernel takes fp32 or bf16 (q, the pages and the output of one
+dtype; the entry ``paged_decode_attention_f32`` or ``_bf16`` by q's
+dtype), accumulating in fp32 either way; anything else raises.
+``paged_decode_attention_gqa.launches`` counts wrapper calls that
+launched the kernel, and ``.launches_by_dtype`` splits them by dtype.
 """
 from __future__ import annotations
 
 import torch
 
-from ..common import check_inputs, launch, query
+from ..common import (ENTRY_SUFFIX, check_inputs, count_launch, launch,
+                      query)
 from .ref import paged_decode_attention_ref
 
 MAX_HEAD_DIM = 256
@@ -45,8 +49,9 @@ def paged_decode_attention_gqa(q, k_pages, v_pages, page_table, seq_lens, *,
         return paged_decode_attention_ref(q, k_pages, v_pages, page_table,
                                           seq_lens, pages_bound, pages_start,
                                           window)
-    check_inputs(NAME, {"q": q, "k_pages": k_pages, "v_pages": v_pages},
-                 {"page_table": page_table, "seq_lens": seq_lens})
+    dtype = check_inputs(NAME, {"q": q, "k_pages": k_pages,
+                                "v_pages": v_pages},
+                         {"page_table": page_table, "seq_lens": seq_lens})
     if D > MAX_HEAD_DIM:
         raise ValueError(f"head_dim {D} > {MAX_HEAD_DIM}: not supported")
     out = torch.empty_like(q)
@@ -58,11 +63,12 @@ def paged_decode_attention_gqa(q, k_pages, v_pages, page_table, seq_lens, *,
         n = query(NAME, "paged_decode_workspace_bytes", B, K, G, D, ps,
                   pages_start, end)
         ws = torch.empty(n, dtype=torch.uint8, device=q.device) if n else out
-        launch(NAME, "paged_decode_attention_f32", q, k_pages, v_pages,
+        launch(NAME, f"{NAME}_{ENTRY_SUFFIX[dtype]}", q, k_pages, v_pages,
                page_table, seq_lens, out, ws, B, K, G, D, ps, MP,
                pages_start, end, window)
-        paged_decode_attention_gqa.launches += 1
+        count_launch(paged_decode_attention_gqa, dtype)
     return out
 
 
 paged_decode_attention_gqa.launches = 0
+paged_decode_attention_gqa.launches_by_dtype = {}

@@ -4,6 +4,9 @@ Mirrors ``repro/kernels/paged_decode_attention/ref.py``: gathers each
 request's pages through its page-table row into a dense key space and runs
 masked attention. The CPU path of ``ops.paged_decode_attention_gqa`` and
 the yardstick the CUDA kernel is held against on the card.
+At bf16 it rounds where the oracle does: the scores to bf16 before an
+fp32 softmax, the weights to bf16 before the product with V, the output
+in V's dtype.
 """
 from __future__ import annotations
 

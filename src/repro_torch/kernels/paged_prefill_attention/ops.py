@@ -3,14 +3,18 @@
 The tensor's device decides the path: CPU tensors take the plain version
 (``ref.py``); CUDA tensors launch the hand-written kernel
 ``csrc/paged_prefill_attention.cu`` or raise. There is no fallback between
-the two. ``paged_prefill_attention_gqa.launches`` counts wrapper calls
-that launched the kernel.
+the two. The kernel takes fp32 or bf16 (q, the pages and the output of one
+dtype; the entry ``paged_prefill_attention_f32`` or ``_bf16`` by q's
+dtype), accumulating in fp32 either way; anything else raises.
+``paged_prefill_attention_gqa.launches`` counts wrapper calls that
+launched the kernel, and ``.launches_by_dtype`` splits them by dtype.
 """
 from __future__ import annotations
 
 import torch
 
-from ..common import MAX_SMEM_BYTES, check_inputs, launch, query
+from ..common import (ENTRY_SUFFIX, MAX_SMEM_BYTES, check_inputs,
+                      count_launch, launch, query)
 from .ref import paged_prefill_attention_ref
 
 MAX_HEAD_DIM = 256
@@ -44,14 +48,16 @@ def paged_prefill_attention_gqa(q, k_pages, v_pages, page_table, start,
         return paged_prefill_attention_ref(q, k_pages, v_pages, page_table,
                                            start, total, pages_bound,
                                            pages_start, window)
-    check_inputs(NAME,
-                 {"q": q, "k_pages": k_pages, "v_pages": v_pages},
-                 {"page_table": page_table, "start": start, "total": total})
+    dtype = check_inputs(NAME,
+                         {"q": q, "k_pages": k_pages, "v_pages": v_pages},
+                         {"page_table": page_table, "start": start,
+                          "total": total})
     if D > MAX_HEAD_DIM:
         raise ValueError(f"head_dim {D} > {MAX_HEAD_DIM}: not supported")
     # the kernel's geometry lives in its source, which says what a launch
     # needs
-    if query(NAME, "paged_prefill_smem_bytes", C, G, D) > MAX_SMEM_BYTES:
+    if query(NAME, "paged_prefill_smem_bytes", C, G, D,
+             q.element_size()) > MAX_SMEM_BYTES:
         raise ValueError(f"{C * G} rows at head_dim {D} need more shared "
                          "memory than a block has")
     out = torch.empty_like(q)
@@ -62,11 +68,12 @@ def paged_prefill_attention_gqa(q, k_pages, v_pages, page_table, start,
         n = query(NAME, "paged_prefill_workspace_bytes", B, K, C, G, D, ps,
                   pages_start, end)
         ws = torch.empty(n, dtype=torch.uint8, device=q.device) if n else out
-        launch(NAME, "paged_prefill_attention_f32", q, k_pages, v_pages,
+        launch(NAME, f"{NAME}_{ENTRY_SUFFIX[dtype]}", q, k_pages, v_pages,
                page_table, start, total, out, ws, B, K, C, G, D, ps, MP,
                pages_start, end, window)
-        paged_prefill_attention_gqa.launches += 1
+        count_launch(paged_prefill_attention_gqa, dtype)
     return out
 
 
 paged_prefill_attention_gqa.launches = 0
+paged_prefill_attention_gqa.launches_by_dtype = {}

@@ -6,6 +6,9 @@ causally masked attention for the chunk's query rows. Like the kernel it
 assumes the chunk's K/V are already resident in the pool. The CPU path of
 ``ops.paged_prefill_attention_gqa`` and the yardstick the CUDA kernel is
 held against on the card.
+At bf16 it rounds where the oracle does: the scores to bf16 before an
+fp32 softmax, the weights to bf16 before the product with V, the output
+in V's dtype.
 """
 from __future__ import annotations
 

@@ -4,9 +4,10 @@ The tensor's device decides the path: CPU tensors take the plain versions
 (``ref.py``); CUDA tensors launch the hand-written kernel
 ``csrc/ssd_scan.cu`` or raise. There is no fallback between the two.
 Both entries are one launch, and ``ssd_chunk_scan.launches`` counts the
-launches of both. The kernel multiplies in 3xTF32 on the tensor cores and
-sums every output in an order fixed by absolute position, so a chunk's
-outputs do not depend on how many chunks share the launch.
+launches of both. It takes fp32 only (a bf16 input raises). The kernel
+multiplies in 3xTF32 on the tensor cores and sums every output in an
+order fixed by absolute position, so a chunk's outputs do not depend on
+how many chunks share the launch.
 """
 from __future__ import annotations
 
@@ -43,7 +44,8 @@ def _launch(x, dt, da, B, C, y, st, shape, x_s, d_s, b_s, y_s, s_s):
 def _check(x, dt, da, B, C):
     check_inputs("ssd_chunk_scan", {"x": x, "dt": dt, "dA": da, "B": B,
                                     "C": C}, {},
-                 strided=("x", "dt", "dA", "B", "C"))
+                 strided=("x", "dt", "dA", "B", "C"),
+                 dtypes=(torch.float32,))
     if dt.stride() != da.stride() or B.stride() != C.stride():
         raise ValueError("ssd_chunk_scan: dt and dA, and B and C, must "
                          "share strides")

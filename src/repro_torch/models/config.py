@@ -28,10 +28,13 @@ class ArchConfig:
     ``use_pallas`` is kept for the 1:1 conversion and selects nothing here:
     in the port a tensor's device decides between a kernel and its plain
     version (CUDA tensors launch the kernel, CPU tensors take the plain
-    PyTorch version). ``launch.inputs.dryrun_config`` sets
-    ``use_pallas=False`` and ``dtype="bfloat16"``, and the port traces that
-    config only on fake CPU tensors, which run the plain versions, as the
-    reference's jnp path does.
+    PyTorch version). ``dtype`` is the params', activations' and caches'
+    dtype: the attention kernels K1, K2, K4 and K5 take "float32" or
+    "bfloat16" on the card (the SSD chunk kernel K3 "float32" only).
+    ``launch.inputs.dryrun_config`` sets ``use_pallas=False`` and
+    ``dtype="bfloat16"``; the dry run traces that config on fake CPU
+    tensors, which run the plain versions, as the reference's jnp path
+    does, and its decode and prefill steps also run on the card.
     """
 
     name: str

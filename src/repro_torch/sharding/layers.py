@@ -133,8 +133,12 @@ def attend(kernel, q, k, v, q_pos, *, causal: bool, window: int, chunk: int):
     both head counts divide it, else (under sequence parallelism) the
     query positions on "model"; the output comes back with the whole
     sequence. On the card a shard of whole sequences runs ``kernel`` (the
-    flash wrapper); a query shard raises there, since the kernel takes
-    equal query and key lengths. On the CPU, and where ``kernel`` is None
+    flash wrapper). The kernel takes equal query and key lengths, so a
+    query shard runs it over the whole sequence with the rank's rows in
+    place and zeros elsewhere, and keeps its rows: a row reads only its own
+    query and the keys, so they are exact whatever the other rows hold
+    (the work repeats once a rank along "model"). On the CPU, and where
+    ``kernel`` is None
     (training, cross-attention), the plain masked softmax runs by query
     chunks of ``chunk`` (the whole shard when 0), as the reference's jnp
     path chunks it."""
@@ -148,12 +152,6 @@ def attend(kernel, q, k, v, q_pos, *, causal: bool, window: int, chunk: int):
     seq = "model" if (heads is None and m > 1 and S > 1 and S % m == 0
                       and shard_ctx.sequence_parallel()) else None
     on_card = kernel is not None and q.device.type == "cuda"
-    if on_card and seq:
-        raise NotImplementedError(
-            f"attention of a query shard on the card: {H} heads do not "
-            f"divide the 'model' axis ({m}), so sequence parallelism "
-            f"shards the queries, and the flash kernel takes equal query "
-            f"and key lengths only")
     ba = batch_axes(mesh, B)
     ql = local_shard(q, mesh, (ba, seq, heads, None))
     kv_heads = heads if K % m == 0 else None
@@ -162,11 +160,15 @@ def attend(kernel, q, k, v, q_pos, *, causal: bool, window: int, chunk: int):
     if heads and kv_heads is None:   # this rank's query heads' KV heads
         lo, hi = kv_for_heads(H, K, m, mesh.get_local_rank("model"))
         kl, vl = kl[:, :, lo:hi], vl[:, :, lo:hi]
-    if on_card:
+    n = ql.shape[1]
+    r = mesh.get_local_rank("model") if seq else 0
+    if on_card and seq:
+        whole = ql.new_zeros((ql.shape[0], S) + tuple(ql.shape[2:]))
+        whole[:, r * n:(r + 1) * n] = ql
+        out = kernel(whole, kl, vl)[:, r * n:(r + 1) * n].contiguous()
+    elif on_card:
         out = kernel(ql, kl, vl).contiguous()
     else:
-        n = ql.shape[1]
-        r = mesh.get_local_rank("model") if seq else 0
         out = _chunked_attention(ql, kl, vl, q_pos[r * n:(r + 1) * n],
                                  causal=causal, window=window,
                                  chunk=chunk or n)

@@ -259,10 +259,14 @@ def test_kernel_parser_reads_the_signature(bad_entries):
     q = bad_entries["bad_unreached_bytes"]
     assert (q.ret, q.is_launch, q.params) == \
         ("long long", False, (kernel_check.Param("int", "B"),))
-    # the port's nine entries: five launches, four queries
+    # the port's thirteen entries: nine launches (the four attention
+    # kernels at fp32 and bf16, the SSD scan at fp32), four queries
     port = kernel_check.read_entries(SRC / "csrc")
-    assert len(port) == 9
-    assert sum(e.is_launch for e in port.values()) == 5
+    assert len(port) == 13
+    assert sum(e.is_launch for e in port.values()) == 9
+    bf = port["paged_decode_attention_bf16"]
+    assert [(p.ctype, p.pointee) for p in bf.params[:3]] == \
+        [("const elem::bf16*", "elem::bf16")] * 3
 
 
 def test_kernel_good_wrapper_is_clean(bad_ops, bad_entries):
@@ -301,6 +305,35 @@ def test_kernel_abi_checks_queries(bad_ops, bad_entries):
     found = _audit(rec.calls, bad_entries)
     assert [f.rule for f in found] == ["kernel-abi"]
     assert "B (int) gets float" in found[0].message
+
+
+def test_kernel_abi_holds_each_dtype_to_its_entry():
+    """The paged decode probes, fp32 and bf16, are clean against their own
+    entries; each launch audited against its twin of the other dtype (a
+    bf16 tensor where the source says ``const float*``, and the reverse)
+    gives a kernel-abi finding for each float operand, naming its dtype."""
+    family = "paged_decode_attention"
+    entries = kernel_check.read_entries(SRC / "csrc")
+    with kernel_check.capture(
+            modules=kernel_check.family_modules([family])) as rec:
+        for mode in kernel_check.probe_modes(families=[family])[family]:
+            rec.mode = mode.name
+            mode.run()
+    launches = [c for c in rec.calls if c.kind == "launch"]
+    assert {c.entry for c in launches} == {f"{family}_f32",
+                                           f"{family}_bf16"}
+    assert kernel_check.audit(rec.calls, entries) == []
+    twin = {f"{family}_f32": f"{family}_bf16",
+            f"{family}_bf16": f"{family}_f32"}
+    for c in launches:
+        found = kernel_check.audit(
+            [dataclasses.replace(c, entry=twin[c.entry])], entries,
+            {"kernel-abi"})
+        want = "bfloat16" if c.entry.endswith("bf16") else "float32"
+        # q, k_pages, v_pages and out, each of the other dtype
+        assert [f.rule for f in found] == ["kernel-abi"] * 4, found
+        assert all(f"gets a torch.{want} tensor" in f.message
+                   for f in found), found
 
 
 def test_kernel_stale_spec_trips_and_goes_quiet(bad_entries):
@@ -370,15 +403,21 @@ def test_probes_cover_every_family_and_entry():
             by_family.setdefault(c.family, []).append(c.mode)
     assert by_family == {
         "paged_decode_attention": ["full_walk", "live_bound",
-                                   "window_late_start"],
+                                   "window_late_start",
+                                   "bf16_window_late_start"],
         "paged_prefill_attention": ["full_walk", "live_bound",
-                                    "window_late_start"],
+                                    "window_late_start",
+                                    "bf16_window_late_start"],
         "decode_attention": ["gqa", "gqa_irregular", "kv_strided",
-                             "head_expanded", "cross"],
+                             "head_expanded", "cross", "bf16_kv_strided"],
         "flash_attention": ["causal", "window", "non_causal", "irregular",
-                            "gqa_strided"],
+                            "gqa_strided", "bf16_gqa_strided"],
         "ssd_scan": ["kernel_layout", "model_layout"],
     }
+    # each bf16 mode launches its kernel's bf16 entry, the others the fp32
+    for c in rec.calls:
+        if c.kind == "launch":
+            assert c.entry.endswith("_bf16") == c.mode.startswith("bf16"), c
     entries = kernel_check.read_entries(SRC / "csrc")
     assert kernel_check.audit(rec.calls, entries) == []
     # the capture restores the wrappers' names and counters
@@ -497,7 +536,8 @@ def test_engine_walks_keep_the_page_walk_promise(monkeypatch):
 def test_cuda_probes_pass_the_audit_and_match_plain_versions():
     """Every probe mode on CUDA tensors through the real launch: no
     finding, and each output within 1e-4 of its plain version (relative to
-    the output's scale for the SSD scan)."""
+    the output's scale for the SSD scan); a bf16 mode's within 2e-2 in
+    allclose form (rtol = atol), the reference's bf16 tolerance."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     entries = kernel_check.read_entries(SRC / "csrc")
@@ -512,10 +552,15 @@ def test_cuda_probes_pass_the_audit_and_match_plain_versions():
                 pairs = zip(got, want) if isinstance(got, tuple) \
                     else [(got, want)]
                 for a, b in pairs:
+                    if a.dtype == torch.bfloat16:
+                        torch.testing.assert_close(
+                            a.float(), b.float(), rtol=2e-2, atol=2e-2,
+                            msg=f"{family}[{mode.name}]")
+                        continue
                     tol = 1e-4 * max(1.0, b.abs().max().item()) \
                         if mode.scaled else 1e-4
                     err = (a - b).abs().max().item()
                     assert err <= tol, (family, mode.name, err)
-    assert sum(c.kind == "launch" for c in rec.calls) == 18
+    assert sum(c.kind == "launch" for c in rec.calls) == 22
     found = kernel_check.audit(rec.calls, entries)
     assert not found, [f.format() for f in found]

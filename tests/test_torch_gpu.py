@@ -21,6 +21,10 @@ from repro_torch.kernels.paged_prefill_attention import ops as pre_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
 GPU_TOL = 1e-4    # fp32 kernel vs plain version: another summation order
+# bf16 kernel vs plain version at bf16 (allclose, rtol = atol): the
+# reference's own bf16 tolerance for its kernels against their oracles;
+# the plain version rounds scores to bf16, the kernel keeps them in fp32
+BF16_TOL = 2e-2
 # SSD scan: sums over N + l terms reach tens, so the same 1e-4 is taken
 # relative to the output's largest magnitude (at least 1)
 SSD_TOL = 1e-4
@@ -634,6 +638,85 @@ def test_cuda_decode_attention_matches_plain_version(mode, cuda):
     torch.cuda.synchronize()
 
 
+def _bf16_cases():
+    """(kernel, mode) of every launch mode of K1, K2, K4 and K5."""
+    return ([("paged_decode", m) for m in sorted(DECODE_MODES)]
+            + [("paged_prefill", m) for m in sorted(PREFILL_MODES)]
+            + [("flash", m) for m in sorted(FLASH_MODES)]
+            + [("dense_decode", m) for m in sorted(DECODE_DENSE_MODES)])
+
+
+def _typed_launch(kernel, mode, device, dtypes):
+    """(wrapper, its call, the plain version's call) of one launch mode,
+    the i-th float input cast to ``dtypes[i]`` (the last entry for the
+    rest)."""
+    def typed(ts):
+        out, i = [], 0
+        for t in ts:
+            if t.is_floating_point():
+                t = t.to(dtypes[min(i, len(dtypes) - 1)])
+                i += 1
+            out.append(t)
+        return out
+    if kernel in ("paged_decode", "paged_prefill"):
+        case, op, ref = {
+            "paged_decode": (decode_case, dec_ops.paged_decode_attention_gqa,
+                             dec_ops.paged_decode_attention_ref),
+            "paged_prefill": (prefill_case,
+                              pre_ops.paged_prefill_attention_gqa,
+                              pre_ops.paged_prefill_attention_ref)}[kernel]
+        args, kw = case(mode)
+        dev = typed(to_torch(args, device))
+        return op, lambda: op(*dev, **kw), lambda: ref(*dev, **kw)
+    if kernel == "flash":
+        args, kw = flash_case(mode)
+        q, k, v = typed(to_torch(args, device))
+        B, S, H, D = q.shape
+        op = flash_ops.flash_attention
+        bhsd = lambda t: t.repeat_interleave(H // t.shape[2], 2) \
+            .movedim(2, 1).reshape(B * H, S, D)
+        return op, lambda: op(q, k, v, **kw), lambda: flash_ops.attention_ref(
+            bhsd(q), bhsd(k), bhsd(v), **kw).reshape(B, H, S, D).movedim(1, 2)
+    q, k, v, valid = typed(to_torch(decode_dense_case(mode), device))
+    op = dense_dec_ops.decode_attention_kv
+    return op, lambda: op(q, k, v, valid), \
+        lambda: _dense_plain(q, k, v, valid)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel,mode", _bf16_cases())
+def test_cuda_bf16_kernels_match_plain_versions(kernel, mode, cuda):
+    """Each launch mode of K1, K2, K4 and K5 at bf16 on the card: one
+    launch of the kernel's bf16 instance (counted under "bfloat16"), a
+    bf16 output within BF16_TOL of the plain version at bf16 on the same
+    inputs."""
+    op, run, plain = _typed_launch(kernel, mode, cuda, [torch.bfloat16])
+    n0, b0 = op.launches, op.launches_by_dtype.get("bfloat16", 0)
+    got = run()
+    torch.cuda.synchronize()
+    assert (op.launches, op.launches_by_dtype["bfloat16"]) == (n0 + 1,
+                                                               b0 + 1)
+    want = plain()
+    assert got.dtype == want.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), rtol=BF16_TOL,
+                               atol=BF16_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["paged_decode", "paged_prefill", "flash",
+                                    "dense_decode"])
+@pytest.mark.parametrize("dtypes", [[torch.float16],
+                                    [torch.float32, torch.bfloat16]])
+def test_cuda_kernels_refuse_other_dtypes(kernel, dtypes, cuda):
+    """fp16 inputs, or fp32 and bf16 inputs in one launch, raise before any
+    launch; nothing falls back to the plain version."""
+    op, run, _ = _typed_launch(kernel, "gqa", cuda, dtypes)
+    n0 = op.launches
+    with pytest.raises(ValueError, match="mixed|the kernel takes"):
+        run()
+    assert op.launches == n0
+
+
 def _dense_plain(q, k, v, valid):
     """The dense decode plain version in the production layout: (B, H, D)
     from q (B, H, D), k and v (B, S, K, D), valid (B, S)."""
@@ -1041,27 +1124,46 @@ def test_cuda_kernels_at_encdec_and_vlm_shapes(mode, cuda):
 # ------------------------------------------------------ the dry run's steps
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["prefill", "decode"])
-def test_cuda_bf16_step_raises(kind, cuda):
-    """A bf16 config (the dry run's dtype) reaches the kernels through
-    ``launch.steps``' prefill and decode steps on the card; the kernels
-    take fp32 only, so the wrapper raises and nothing switches to the
-    plain version."""
+def test_cuda_bf16_steps_match_plain_version(kind, cuda):
+    """A bf16 config (the dry run's dtype) through ``launch.steps``'
+    prefill and decode steps on the card: each launches its bf16 kernel
+    (K4 a layer in prefill, K5 a layer in decode) and its bf16 logits lie
+    within 2 BF16_TOL of the same step's on the CPU, which runs the plain
+    versions at bf16 (two layers of bf16 roundings in another order)."""
     from repro_torch.launch import steps
     from repro_torch.models.config import ArchConfig
     from repro_torch.models.model import build_model
     cfg = ArchConfig("bf16", "dense", 2, 64, 4, 2, 128, 256, head_dim=16,
                      vocab_pad_multiple=64, dtype="bfloat16")
     bundle = build_model(cfg)
-    model = bundle.init(torch.Generator().manual_seed(0), "cpu").to(cuda)
-    tokens = torch.randint(3, 256, (2, 8), device=cuda)
-    with pytest.raises(ValueError, match="float32"):
-        if kind == "prefill":
-            steps.build_prefill_step(bundle, 8)(model, {"tokens": tokens})
-        else:
-            cache = bundle.init_cache(2, 8, device=cuda)
+    cpu = bundle.init(torch.Generator().manual_seed(0), "cpu")
+    model = build_model(cfg).init(torch.Generator().manual_seed(0),
+                                  "cpu").to(cuda)
+    tokens = torch.randint(3, 256, (2, 8),
+                           generator=torch.Generator().manual_seed(1))
+    op = {"prefill": flash_ops.flash_attention,
+          "decode": dense_dec_ops.decode_attention_kv}[kind]
+    n0 = op.launches_by_dtype.get("bfloat16", 0)
+    if kind == "prefill":
+        step = steps.build_prefill_step(bundle, 8)
+        got = step(model, {"tokens": tokens.to(cuda)})[0]
+        want = step(cpu, {"tokens": tokens})[0]
+    else:
+        step = steps.build_decode_step(bundle, False)
+        outs = []
+        for m, dev in ((model, cuda), (cpu, "cpu")):
+            cache = bundle.init_cache(2, 8, device=dev)
+            g = torch.Generator().manual_seed(2)
+            for key in ("k", "v"):
+                cache[key].copy_(torch.randn(cache[key].shape, generator=g))
             cache["pos"] = 3
-            steps.build_decode_step(bundle, False)(model, cache,
-                                                   tokens[:, :1])
+            outs.append(step(m, cache, tokens[:, :1].to(dev))[0])
+        got, want = outs
+    torch.cuda.synchronize()
+    assert op.launches_by_dtype["bfloat16"] - n0 == cfg.n_layers
+    assert got.dtype == want.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float().cpu(), want.float(),
+                               rtol=2 * BF16_TOL, atol=2 * BF16_TOL)
 
 
 # The attention core on a launcher's mesh, on the card: one process is
@@ -1092,35 +1194,41 @@ q, k, v = (torch.randn(B, S, n, D, generator=g).cuda() * (D ** -0.25)
            for n in (H, K, K))
 rep = lambda t: DTensor.from_local(t, mesh, (Replicate(), Replicate()),
                                    run_check=False)
+dtype = getattr(torch, sys.argv[2])
+q, k, v = (t.to(dtype) for t in (q, k, v))
 kernel = lambda q, k, v: flash_attention(q, k, v, causal=True, window=0)
 pos = torch.arange(S, device="cuda")
 n0 = flash_attention.launches
-try:
-    with activation_sharding(mesh, "data", seq_shard=(case != "heads")):
-        out = _attend(kernel, rep(q), rep(k), rep(v), pos, causal=True,
-                      window=0, chunk=16)
-except NotImplementedError as e:
-    print(json.dumps({"raised": str(e),
-                      "launches": flash_attention.launches - n0}))
-    raise SystemExit(0)
-local = out.to_local()
-want = _chunked_attention(q[:1, :, :2].cpu(), k[:1, :, :1].cpu(),
-                          v[:1, :, :1].cpu(), pos.cpu(), causal=True,
-                          window=0, chunk=S)
-print(json.dumps({"shape": list(local.shape),
+with activation_sharding(mesh, "data", seq_shard=(case != "heads")):
+    out = _attend(kernel, rep(q), rep(k), rep(v), pos, causal=True,
+                  window=0, chunk=16)
+# rank 0's shard: its batch row and, with the heads, query heads 0-1 over
+# KV head 0; with a query shard, all 6 heads at positions 0-15 (gathered
+# back to the whole sequence; the fake group moves no data, so only rank
+# 0's own rows are its)
+if case == "heads":
+    mine, rows = (q[:1, :, :2], k[:1, :, :1], v[:1, :, :1], pos), S
+else:
+    mine, rows = (q[:1], k[:1], v[:1], pos), S // 4
+local = out.to_local()[:, :rows]
+want = _chunked_attention(*(t.cpu() for t in mine), causal=True, window=0,
+                          chunk=S)
+print(json.dumps({"shape": list(out.to_local().shape),
                   "launches": flash_attention.launches - n0,
-                  "err": (local.cpu() - want).abs().max().item()}))
+                  "dtype": str(local.dtype),
+                  "err": (local.float().cpu()
+                          - want[:, :rows].float()).abs().max().item()}))
 """
 
 
-def _mesh_attend(case):
+def _mesh_attend(case, dtype="float32"):
     import json
     import os
     import subprocess
     import sys
     env = dict(os.environ, PYTHONPATH=os.path.join(
         os.path.dirname(__file__), "..", "src"))
-    proc = subprocess.run([sys.executable, "-c", MESH_ATTEND, case],
+    proc = subprocess.run([sys.executable, "-c", MESH_ATTEND, case, dtype],
                           env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -1128,22 +1236,29 @@ def _mesh_attend(case):
 
 
 @pytest.mark.gpu
-def test_cuda_mesh_attend_runs_the_flash_kernel_on_head_shards(cuda):
+@pytest.mark.parametrize("dtype,tol", [("float32", GPU_TOL),
+                                       ("bfloat16", BF16_TOL)])
+def test_cuda_mesh_attend_runs_the_flash_kernel_on_head_shards(dtype, tol,
+                                                               cuda):
     """On a CUDA mesh a rank's shard of whole sequences (its batch rows,
     its query heads and, as a strided slice, the one KV head they read)
     goes through the flash kernel, once, and equals the plain version."""
-    got = _mesh_attend("heads")
-    assert got["shape"] == [1, 64, 2, 32]
+    got = _mesh_attend("heads", dtype)
+    assert got["shape"] == [1, 64, 2, 32] and got["dtype"] == f"torch.{dtype}"
     assert got["launches"] == 1
-    assert got["err"] <= GPU_TOL, got
+    assert got["err"] <= tol, got
 
 
 @pytest.mark.gpu
-def test_cuda_mesh_attend_query_shard_raises(cuda):
-    """A query shard (sequence parallelism: the heads do not divide
-    "model") has no kernel path on the card, since the flash kernel takes
-    equal query and key lengths: it raises, launching nothing, and never
-    runs the plain version on the card."""
-    got = _mesh_attend("query_shard")
-    assert "query shard" in got["raised"], got
-    assert got["launches"] == 0
+@pytest.mark.parametrize("dtype,tol", [("float32", GPU_TOL),
+                                       ("bfloat16", BF16_TOL)])
+def test_cuda_mesh_attend_query_shard_matches_plain_version(dtype, tol,
+                                                            cuda):
+    """A query shard (sequence parallelism: 6 heads do not divide "model"'s
+    4) runs the flash kernel once over the whole sequence, its rows in
+    place and zeros elsewhere, and keeps its rows: they equal the plain
+    version's rows 0-15 of the rank's batch row."""
+    got = _mesh_attend("query_shard", dtype)
+    assert got["shape"] == [1, 64, 6, 32] and got["dtype"] == f"torch.{dtype}"
+    assert got["launches"] == 1
+    assert got["err"] <= tol, got

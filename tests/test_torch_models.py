@@ -276,7 +276,8 @@ def test_build_model_names_the_slice_for_other_families(family):
 # ------------------------------------------------------------- isolation
 def test_port_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = "
-            "None\nimport importlib, pkgutil, repro_torch\n"
+            "None; sys.modules['ml_dtypes'] = None\n"
+            "import importlib, pkgutil, repro_torch\n"
             "for m in pkgutil.walk_packages(repro_torch.__path__, "
             "'repro_torch.'):\n    importlib.import_module(m.name)\n"
             "print('imported')")
@@ -284,7 +285,7 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120)
     assert out.returncode == 0 and "imported" in out.stdout, out.stderr
-    bad = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)")
+    bad = re.compile(r"^\s*(import|from)\s+(jax|repro|ml_dtypes)(\.|\s|$)")
     files = list((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     for f in files:

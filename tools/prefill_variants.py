@@ -216,7 +216,8 @@ def host_breakdown(torch, ops, case_args, kw):
             "p", {"q": q, "k_pages": kp, "v_pages": vp},
             {"page_table": pt, "start": start, "total": total}),
         queries=lambda: (
-            common.query(ops.NAME, "paged_prefill_smem_bytes", C, G, D),
+            common.query(ops.NAME, "paged_prefill_smem_bytes", C, G, D,
+                         q.element_size()),
             common.query(ops.NAME, "paged_prefill_workspace_bytes", B, K, C,
                          G, D, ps, 0, end)),
         allocations=lambda: (torch.empty_like(q), torch.empty(
