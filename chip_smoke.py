@@ -19,10 +19,16 @@ and prints no result line):
    late first page under a window); the
    kernel's time (CUDA events around back-to-back launches), the plain
    version's, one library call's where PyTorch has one (SDPA), and the
-   least time the card could take for the same work. The main and gemma3
-   cases of K1, K2, K4 and K5 run again at bf16 (their bf16 instances),
-   held to BF16_TOL against the plain version at bf16, timed beside it
-   and SDPA at bf16 (K4, K5), bounded by bf16 bytes and the bf16 peak.
+   least time the card could take for the same work. The main, gemma3
+   and Jamba cases of K1, K2, K4 and K5 and the whisper-large-v3 and
+   internvl2-26b cases of K4 and K5 run again at bf16 (their bf16
+   instances), held to BF16_TOL against the plain version at bf16, timed
+   beside it and SDPA at bf16 (K4, K5), bounded by bf16 bytes and the bf16
+   peak; K3's mamba2-130m (dense and pool) and Jamba (dense and pool)
+   cases run again with x, B and C at bf16 (its bf16 instance, fp32
+   outputs held to the fp32 instance's SSD_TOL, "pool_bf16" also bit for
+   bit alone/packed and across l buckets), bounded by 2-byte x, B, C and
+   the fp32 peak.
 4. The routed pool at full width: a router at DeBERTa-v3-large's widths
    scores 16 prompts, a ThresholdPolicy splits them between two
    qwen1.5-32b tiers ("half": the reference's scaled_sibling(., 2) at 2
@@ -176,7 +182,29 @@ and prints no result line):
    prefill steps at the dry run's own bf16 (``dryrun_config``) on the
    card, peaks beside the bf16 fake run's, the decode logits against the
    CPU's bf16 within the same kind of dtype gap. (a) is phase 3's bf16
-   cases.
+   cases. The bf16 models are the fp32 ones' twins (``bridge.twin``: each
+   weight in its parameter's dtype at the bf16 config).
+11. The other families at bf16, each after the fp32 phase it repeats and
+   on the memory that phase freed, every launch its kernel's bf16
+   instance: (a) (after phase 10, while phase 9's dry runs finish) phase
+   4c's mamba2-130m tiers as bf16 twins (A_log, D, dt_bias stay fp32),
+   router and prompts through the pool (K3 exactly layers x prefill
+   dispatches, no page or state row leaked) and the dense hybrid path (K3
+   layers a prefill, nothing in decode), routing as 4c did, tokens/s
+   beside 4c's, then the card against the CPU at depth 1 as phase 10's (b);
+   (d) phase 9(b)'s mamba2-130m prefill step (B 2, S 4,096) at
+   ``dryrun_config``'s bf16 (K3 a layer; peak beside the bf16 fake run's;
+   its first row's logits within twice the dtype's gap of the CPU's); (b)
+   (after phase 4g's phase-5 check) phase 4g's jamba-v0.1-52b tiers at
+   bf16 from 4g's seeds (``bridge.init_twin``), router and prompts through
+   the pool and the dense path with 4g's exact launch counts, routing as
+   4g did, MoE drops and the peak logged, then the "half" tier against the
+   CPU as phase 5 checks it within twice the dtype's gap; (c) (after each
+   phase-4h model's phase-5 check) whisper-large-v3 and internvl2-26b as
+   their bf16 twins on bf16 stub inputs through build_generate_fn (4h's
+   exact launch counts; prefill ms, tokens/s and peak beside 4h's), then
+   the card against the CPU at phase 5's depths within twice the dtype's
+   gap.
 
 It imports neither JAX nor the JAX package. Weights are random, from
 seeded torch.Generators; nothing is downloaded. The last two lines are a
@@ -199,7 +227,11 @@ runs K4, K5 and K3 in sample_responses, serving the path's kernels;
 phase 9(c)'s fused step). Each attention kernel's row also has "bf16",
 its main case at bf16 (max_abs_err, ms, plain_ms, bound_ms, bound_by,
 library_ms), and "qwen1.5-32b-bf16", its launches by dtype on phase
-10's pool (K1, K2) and dense path (K4, K5).
+10's pool (K1, K2) and dense path (K4, K5); K3's row has "bf16" too (its
+dense mamba2 case with x, B and C at bf16). "mamba2-130m-bf16",
+"jamba-v0.1-52b-bf16", "whisper-large-v3-bf16" and "internvl2-26b-bf16"
+are each kernel's launches by dtype on phase 11's serves of that family
+(pool and dense path summed).
 """
 from __future__ import annotations
 
@@ -454,7 +486,7 @@ def decode_cases(torch, dev):
             name, op, ops.paged_decode_attention_ref, args, kw, nbytes, flops,
             check=check, report=_paged_standing("paged_decode_attention")
             if timed else None, ps=ps, timed=timed))
-        if main:     # the same launch at bf16
+        if main or name == "jamba":     # the same launch at bf16
             bargs = _bf16_args(torch, args)
             out.append(_paged_case(
                 f"{name}_bf16", op, ops.paged_decode_attention_ref, bargs,
@@ -559,7 +591,7 @@ def prefill_cases(torch, dev):
             flops, check=check,
             report=_paged_standing("paged_prefill_attention") if timed
             else None, ps=ps, timed=timed))
-        if main:     # the same launch at bf16
+        if main or name == "jamba":     # the same launch at bf16
             bargs = _bf16_args(torch, args)
             out.append(_paged_case(
                 f"{name}_bf16", op, ops.paged_prefill_attention_ref, bargs,
@@ -737,7 +769,8 @@ def flash_cases(torch, dev):
                          plain, nbytes, flops, library, timed=library
                          is not None, report=_flash_standing
                          if library is not None else None))
-        if name in ("main", "gemma3"):   # the same launch at bf16
+        if name in ("main", "gemma3", "jamba", "whisper_encoder",
+                    "whisper_decoder", "internvl2"):   # the same at bf16
             qb, kb, vb = _bf16_args(torch, (q, k, v))
             mask = torch.tensor(seen, device=dev) if window else None
             out.append(_case(
@@ -962,8 +995,9 @@ def dense_decode_cases(torch, dev):
                          nbytes, flops, library, check=check,
                          timed=library is not None,
                          report=_dense_standing if library else None))
-        if name in ("main", "gemma3"):   # the same launch at bf16 (layer 1
-            # of the bf16 slab, read in place)
+        if name in ("main", "gemma3", "jamba", "whisper_cross",
+                    "whisper_self", "internvl2"):   # the same launch at
+            # bf16 (layer 1 of the bf16 slab, read in place)
             qb, cb = _bf16_args(torch, (q, cache))
             kb, vb = cb[0, 1], cb[1, 1]
             out.append(_case(
@@ -999,7 +1033,13 @@ def ssd_cases(torch, dev):
     "jamba_dense" and "jamba_pool" (timed) are jamba-v0.1-52b's Mamba
     layers: 128 heads of 64, state 16, the dense path's 128-position
     chunks (8 prompts x 4) and the pool's 16-position chunks with dt = 0
-    padding.
+    padding. "main", "pool", "jamba_dense" and "jamba_pool" run again with
+    x, B and C at bf16 (dt and dA fp32, as the models pass them; the bf16
+    instance, its fp32 outputs held to SSD_TOL as the fp32 instance's:
+    its arithmetic is fp32 on exact inputs), "pool_bf16" with the exact
+    contracts at bf16; bounded by 2-byte x, B and C, 4-byte dt, dA and
+    outputs, and its operations at the fp32 peak (all but the scores are
+    fp32 products).
     The plain version holds the whole (l, l) decay matrix; no single
     PyTorch call computes the function."""
     from repro_torch.kernels.ssd_scan import ops
@@ -1065,17 +1105,43 @@ def ssd_cases(torch, dev):
         if name == "pool":
             check = lambda out: _ssd_exact(torch, ops, dev)
         # the products' flops on the tensor cores: the scores once per bc,
-        # y and the state per head
-        mma_flops = BC * pairs * 2 * N + BC * H * pairs * 2 * P \
+        # y and the state per head; in 3xTF32 three TF32 products each
+        score_flops = BC * pairs * 2 * N
+        mma_flops = score_flops + BC * H * pairs * 2 * P \
             + BC * H * l * 2 * N * P
-        c = _case(name, f"x {BC}x{H}x{l}x{P}, B/C {BC}x{l}x{N}, {layout}",
-                  kernel, plain, nbytes, flops, check=check,
+        desc = f"x {BC}x{H}x{l}x{P}, B/C {BC}x{l}x{N}, {layout}"
+        c = _case(name, desc, kernel, plain, nbytes, flops, check=check,
                   timed=name in ("pool", "model_layout", "jamba_dense",
                                  "jamba_pool"), scaled=True,
                   report=_ssd_standing)
-        c.update(mma_flops=mma_flops)
+        c.update(tc_flops=3 * mma_flops, tc_route="3xTF32")
         out.append(c)
+        if name in ("main", "pool", "jamba_dense", "jamba_pool"):
+            # the same launch with x, B and C at bf16: one TF32 product for
+            # the scores, two for y and the state
+            bargs = _ssd_typed(torch, args, torch.bfloat16)
+            if name == "pool":
+                check = lambda out: _ssd_exact(torch, ops, dev,
+                                               torch.bfloat16)
+            c = _case(f"{name}_bf16", desc + ", x/B/C bf16",
+                      lambda a=bargs: ops.ssd_chunk_scan(*a),
+                      lambda a=bargs: ops.ssd_chunk_ref(*a),
+                      2 * x.numel() + 4 * x.numel() + 4 * 2 * dt.numel()
+                      + 2 * 2 * B.numel() + 4 * BC * H * N * P, flops,
+                      check=check, timed=True, scaled=True,
+                      report=_ssd_standing, bf16=True)
+            c.update(tc_flops=score_flops + 2 * (mma_flops - score_flops),
+                     tc_route="TF32 (1 product for the scores, 2 for y and "
+                     "the state)", peak=PEAK_FP32_FLOP_PER_S)
+            out.append(c)
     return out
+
+
+def _ssd_typed(torch, args, dtype):
+    """K3's arguments (x, dt, dA, B, C) with x, B and C cast to ``dtype``;
+    dt and dA stay fp32, as the models pass them."""
+    return tuple(t.to(dtype) if i in (0, 3, 4) else t
+                 for i, t in enumerate(args))
 
 
 def _state_row_is_zero(out):
@@ -1126,17 +1192,18 @@ def _ssd_standing(torch, c, ms, plain_ms, library_ms):
     """The SSD kernel's standing at a timed shape: its device time from the
     profiler (at the pool's chunks the CUDA events around back-to-back
     calls time the host wrapper), its share of the bound, and the floor of
-    its 3xTF32 route (three TF32 products per fp32 product of the scores,
-    y and the state at the tensor cores' peak)."""
+    its tensor-core route (``tc_flops``: three TF32 products per fp32
+    product of the scores, y and the state, or at bf16 one for the scores
+    and two for y and the state, at the tensor cores' TF32 peak)."""
     from repro_torch.kernels.ssd_scan import ops
     bound_ms, by = _bound(c["nbytes"], c["flops"])
     device_ms = _kernel_device_ms(torch, c["kernel"], "ssd_kernel",
                                   ops.ssd_chunk_scan)
-    tc_ms = 1e3 * 3 * c["mma_flops"] / PEAK_TF32_FLOP_PER_S
+    tc_ms = 1e3 * c["tc_flops"] / PEAK_TF32_FLOP_PER_S
     log(f"[kernels] ssd_chunk_scan[{c['name']}] events {ms:.4f} ms; "
-        f"{_share(bound_ms, by, device_ms)}; 3xTF32 tensor-core floor "
-        f"{tc_ms:.4f} ms (3 x "
-        f"{c['mma_flops']} flop at {PEAK_TF32_FLOP_PER_S / 1e12:g} TFLOP/s)")
+        f"{_share(bound_ms, by, device_ms)}; {c['tc_route']} tensor-core "
+        f"floor {tc_ms:.4f} ms ({c['tc_flops']} TF32 flop at "
+        f"{PEAK_TF32_FLOP_PER_S / 1e12:g} TFLOP/s)")
 
 
 def _ssd_padded(torch, dev, n, l, BC=8, H=24, P=64, N=128):
@@ -1157,15 +1224,17 @@ def _ssd_padded(torch, dev, n, l, BC=8, H=24, P=64, N=128):
     return x, dt, torch.cumsum(dt * A, dim=2), B, C
 
 
-def _ssd_exact(torch, ops, dev):
+def _ssd_exact(torch, ops, dev, dtype=None):
     """The SSD kernel's exact contracts, bit for bit, through the entry the
     model calls, at the pool's widths: each chunk of a packed launch (BC =
     8) gives the bits it gives alone, at l = 1, 2, 4, 8, 16 and 256; a chunk
     of n real positions padded with dt = 0 to each l bucket from the next
     power of two up to 16 gives the same bits in its n rows of y and in its
-    state (n = 1, 2, 3, 5, 7). Raises on the first difference."""
+    state (n = 1, 2, 3, 5, 7). ``dtype``: x, B and C's (fp32 by default).
+    Raises on the first difference."""
+    typed = lambda args: _ssd_typed(torch, args, dtype or torch.float32)
     for l in (1, 2, 4, 8, 16, 256):
-        args = _ssd_padded(torch, dev, l, l)
+        args = typed(_ssd_padded(torch, dev, l, l))
         packed = ops.ssd_chunk(*args)
         for k in range(args[0].shape[0]):
             alone = ops.ssd_chunk(*(t[k:k + 1] for t in args))
@@ -1176,7 +1245,7 @@ def _ssd_exact(torch, ops, dev):
     for n in (1, 2, 3, 5, 7):
         first = None
         for l in (b for b in (1, 2, 4, 8, 16) if b >= n):
-            y, st = ops.ssd_chunk(*_ssd_padded(torch, dev, n, l))
+            y, st = ops.ssd_chunk(*typed(_ssd_padded(torch, dev, n, l)))
             if first is None:
                 first = (l, y[:, :, :n], st)
             elif not (torch.equal(y[:, :, :n], first[1])
@@ -1185,7 +1254,8 @@ def _ssd_exact(torch, ops, dev):
                                      f"differ from l = {first[0]}")
     torch.cuda.synchronize()
     return ("bit-identical alone and packed (l = 1, 2, 4, 8, 16, 256) and "
-            "across l buckets (n = 1, 2, 3, 5, 7)")
+            "across l buckets (n = 1, 2, 3, 5, 7)"
+            + (f", x/B/C {dtype}" if dtype else ""))
 
 
 KERNELS = (  # name, source, replaces, cases
@@ -1237,7 +1307,8 @@ def kernel_phase(torch):
             err, scale = _max_err(got, want)
             finite = all(torch.isfinite(t).all().item() for t in
                          (got if isinstance(got, tuple) else (got,)))
-            if c["bf16"]:
+            outs = got if isinstance(got, tuple) else (got,)
+            if c["bf16"] and not c["scaled"]:
                 if got.dtype != torch.bfloat16:
                     raise AssertionError(f"{kname}[{c['name']}]: output "
                                          f"{got.dtype}, not bf16")
@@ -1246,7 +1317,13 @@ def kernel_phase(torch):
                 tol_note = (f"allclose(rtol=atol={BF16_TOL:g}) "
                             f"excess {excess:.3g} <= {BF16_TOL:g}")
             else:
-                worst = max(worst, err)
+                # the SSD scan's bf16 instance writes fp32 and is held to
+                # its fp32 instance's tolerance
+                if any(t.dtype != torch.float32 for t in outs):
+                    raise AssertionError(f"{kname}[{c['name']}]: outputs "
+                                         f"{[t.dtype for t in outs]}")
+                if not c["bf16"]:
+                    worst = max(worst, err)
                 tol = SSD_TOL * max(1.0, scale) if c["scaled"] \
                     else KERNEL_TOL
                 ok = err <= tol
@@ -1266,9 +1343,9 @@ def kernel_phase(torch):
                 continue
             ms = _time_ms(torch, c["kernel"])
             plain_ms = _time_ms(torch, c["plain"])
-            bound_ms, bound_by = _bound(c["nbytes"], c["flops"],
-                                        PEAK_BF16_FLOP_PER_S if c["bf16"]
-                                        else PEAK_FP32_FLOP_PER_S)
+            bound_ms, bound_by = _bound(c["nbytes"], c["flops"], c.get(
+                "peak", PEAK_BF16_FLOP_PER_S if c["bf16"]
+                else PEAK_FP32_FLOP_PER_S))
             if c["name"] == "main":
                 row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                            bound_by=bound_by)
@@ -2032,35 +2109,21 @@ def _counting(counters, per_tier, name, fn):
 def ssm_phase(torch, card: str, smi: str, router):
     """The SSM slice: two mamba2-130m tiers behind the pool phase's router
     encoder (its threshold set to these prompts' median score), first
-    through the continuous pool, then through the dense hybrid path. Every
-    kernel counter is watched on both tiers: the SSD chunk kernel must
-    launch layers x prefill dispatches times on the pool and layers times
-    per prefill on the dense path, and no other kernel may launch."""
+    through the continuous pool, then through the dense hybrid path
+    (``_ssm_serve``). Returns the full tier's model and config (phases 5
+    and 8), both tiers, the router, the prompts, the pool's routing and
+    each path's wall and tokens (phase 11(a))."""
     import numpy as np
     from repro_torch.configs.mamba2_130m import CONFIG as MAMBA
     from repro_torch.launch.serve import scaled_sibling
-    from repro_torch.kernels.decode_attention import ops as dec
-    from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.kernels.paged_decode_attention import ops as pdec
-    from repro_torch.kernels.paged_prefill_attention import ops as ppre
-    from repro_torch.kernels.ssd_scan import ops as ssd
-    from repro_torch.core.routing import ThresholdPolicy
     from repro_torch.models.model import build_model
-    from repro_torch.serving.engine import ContinuousEngine, Engine
-    from repro_torch.serving.hybrid import HybridEngine
-    from repro_torch.serving.pool import ContinuousPoolEngine
 
     dev = torch.device("cuda")
-    counters = {"ssd": ssd.ssd_chunk_scan, "paged_decode":
-                pdec.paged_decode_attention_gqa, "paged_prefill":
-                ppre.paged_prefill_attention_gqa, "flash":
-                fa.flash_attention, "decode": dec.decode_attention_kv}
     cfgs = {"half": scaled_sibling(MAMBA, 2), "full": MAMBA}
     t0 = time.monotonic()
-    models, bundles = {}, {}
+    models = {}
     for i, (name, cfg) in enumerate(cfgs.items()):
-        bundles[name] = build_model(cfg)
-        models[name] = bundles[name].init(
+        models[name] = build_model(cfg).init(
             torch.Generator(device=dev).manual_seed(200 + i), dev)
         log(f"[ssm] tier {name}: {cfg.n_layers} layers, d_model "
             f"{cfg.d_model}, {cfg.ssm_nheads} SSD heads of "
@@ -2077,7 +2140,40 @@ def ssm_phase(torch, card: str, smi: str, router):
     mask = (np.arange(512)[None] < lens[:, None]).astype(np.float32)
     tokens[mask == 0] = 0
     threshold = float(np.median(router.scores(tokens, mask).cpu().numpy()))
-    router = router.with_threshold(threshold)
+    run = dict(model=models["full"], cfg=MAMBA, models=models, cfgs=cfgs,
+               router=router.with_threshold(threshold), tokens=tokens,
+               mask=mask, lens=lens)
+    out = _ssm_serve(torch, card, smi, "ssm", run)
+    return dict(run, tier_idx=out["tier_idx"], pool=out["pool"],
+                dense=out["dense"],
+                launches=sum(n for k in ("pool_launches", "dense_launches")
+                             for n in out[k].values()))
+
+
+def _ssm_serve(torch, card: str, smi: str, tag: str, run: dict,
+               tier_idx=None):
+    """``run``'s two SSM tiers ({"models", "cfgs"}) behind its router
+    serve its prompts through the continuous pool, then through the dense
+    hybrid path. Every kernel counter is watched on both tiers: the SSD
+    chunk kernel must launch layers x prefill dispatches times on the pool
+    and layers times per prefill on the dense path, and no other kernel
+    may launch; no page may leak and every slot's state row must be free
+    after the pool's drain; the dense path must route as the pool did, and
+    the pool as ``tier_idx`` where given (an earlier run's). Returns the
+    pool's routing, {kernel: launches} on each path (counted from 0, also
+    by dtype), and each path's (tokens, wall)."""
+    import numpy as np
+    from repro_torch.core.routing import ThresholdPolicy
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import ContinuousEngine, Engine
+    from repro_torch.serving.hybrid import HybridEngine
+    from repro_torch.serving.pool import ContinuousPoolEngine
+
+    counters = _all_counters()
+    cfgs, models, router = run["cfgs"], run["models"], run["router"]
+    tokens, mask = run["tokens"], run["mask"]
+    vocab = cfgs["full"].vocab_size
+    bundles = {name: build_model(cfg) for name, cfg in cfgs.items()}
 
     # ---- the continuous pool
     tiers = [(name, ContinuousEngine(bundles[name], models[name],
@@ -2091,43 +2187,51 @@ def ssm_phase(torch, card: str, smi: str, router):
     per_tier = {name: dict.fromkeys(counters, 0) for name in cfgs}
     for name, eng in tiers:
         eng.step = _counting(counters, per_tier, name, eng.step)
-    for w in counters.values():
-        w.launches = 0
+    _reset_counts(counters)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     res = pool.serve(tokens, mask, seed=0)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    pool_launches = ssd.ssd_chunk_scan.launches
+    pool_launches = {k: w.launches for k, w in counters.items()}
+    pool_by_dtype = _by_dtype(counters)
     summary = pool.meter.summary()
     for name, eng in tiers:
         want = {**dict.fromkeys(counters, 0),
-                "ssd": cfgs[name].n_layers * eng.stats.prefill_dispatches}
-        log(f"[ssm] pool {name}: calls {summary[name]['calls']}, tokens "
+                "ssd_chunk_scan": cfgs[name].n_layers
+                * eng.stats.prefill_dispatches}
+        log(f"[{tag}] pool {name}: calls {summary[name]['calls']}, tokens "
             f"{summary[name]['gen_tokens']}, decode steps "
             f"{eng.stats.decode_steps}, prefill dispatches "
             f"{eng.stats.prefill_dispatches}, kernel launches "
             f"{per_tier[name]} (expected {want}), state "
             f"{eng.rstate.state_bytes / 1e6:.1f} MB, free pages "
             f"{eng.cache.free_pages} of {eng.cache.num_pages}")
-        if per_tier[name] != want or want["ssd"] <= 0:
-            raise AssertionError(f"ssm pool tier {name}: launches "
+        if per_tier[name] != want or want["ssd_chunk_scan"] <= 0:
+            raise AssertionError(f"{tag} pool tier {name}: launches "
                                  f"{per_tier[name]} != {want}")
         if eng.cache.free_pages != eng.cache.num_pages - 1:
-            raise AssertionError(f"ssm pool tier {name}: pages leaked")
+            raise AssertionError(f"{tag} pool tier {name}: pages leaked")
+        _slots_free(tag, name, eng)
+    threshold = router.threshold
     if not np.array_equal(res.tier_idx, (res.scores < threshold)):
-        raise AssertionError("ssm pool: tier_idx disagrees with score < "
+        raise AssertionError(f"{tag} pool: tier_idx disagrees with score < "
                              "threshold")
+    if tier_idx is not None and not np.array_equal(res.tier_idx, tier_idx):
+        raise AssertionError(f"{tag} pool: routes differently from phase "
+                             "4c")
     if sum(v["calls"] for v in summary.values()) != N_PROMPTS \
             or not 0 < res.tier_idx.sum() < N_PROMPTS:
-        raise AssertionError(f"ssm pool: calls {summary}")
-    if not (res.lengths >= 1).all() or res.responses.max() >= \
-            MAMBA.vocab_size or res.responses.min() < 0:
-        raise AssertionError("ssm pool: responses out of range")
+        raise AssertionError(f"{tag} pool: calls {summary}")
+    if not (res.lengths >= 1).all() or res.responses.max() >= vocab \
+            or res.responses.min() < 0:
+        raise AssertionError(f"{tag} pool: responses out of range")
     n_tok = int(res.lengths.sum())
-    log(f"[ssm] pool: {N_PROMPTS} requests retired "
+    log(f"[{tag}] pool: {N_PROMPTS} requests retired "
         f"({np.bincount(res.tier_idx, minlength=2).tolist()} half/full), "
         f"threshold {threshold:.6f}, {n_tok} tokens in {wall:.3f} s = "
-        f"{n_tok / wall:.1f} tokens/s on {card} ({smi})")
+        f"{n_tok / wall:.1f} tokens/s on {card} ({smi}); launches by dtype "
+        f"{pool_by_dtype}; peak memory {_peak(torch)}")
 
     # ---- the dense hybrid path on the same models and router
     engines = {name: Engine(bundles[name], models[name],
@@ -2139,35 +2243,50 @@ def ssm_phase(torch, card: str, smi: str, router):
     per_tier = {name: dict.fromkeys(counters, 0) for name in cfgs}
     for name, eng in engines.items():
         eng.serve = _counting(counters, per_tier, name, eng.serve)
-    for w in counters.values():
-        w.launches = 0
+    _reset_counts(counters)
     t0 = time.monotonic()
     dres = hy.serve(tokens, mask, seed=0)
     torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    dense_launches = ssd.ssd_chunk_scan.launches
+    dwall = time.monotonic() - t0
+    dense_launches = {k: w.launches for k, w in counters.items()}
+    dense_by_dtype = _by_dtype(counters)
     for name, eng in engines.items():
-        want = {**dict.fromkeys(counters, 0), "ssd": cfgs[name].n_layers}
-        log(f"[ssm] dense {name}: {eng.stats.requests} requests in "
+        want = {**dict.fromkeys(counters, 0),
+                "ssd_chunk_scan": cfgs[name].n_layers}
+        log(f"[{tag}] dense {name}: {eng.stats.requests} requests in "
             f"{eng.stats.batches} batches, kernel launches {per_tier[name]} "
             f"(expected {want}: one SSD launch per layer per prefill, none "
             "in decode)")
         if per_tier[name] != want:
-            raise AssertionError(f"ssm dense tier {name}: launches "
+            raise AssertionError(f"{tag} dense tier {name}: launches "
                                  f"{per_tier[name]} != {want}")
     if not np.array_equal(dres.routed_small, res.tier_idx == 0):
-        raise AssertionError("ssm: the dense hybrid path routes "
+        raise AssertionError(f"{tag}: the dense hybrid path routes "
                              "differently from the pool")
     if hy.meter.tiers.total_calls != N_PROMPTS or not (dres.lengths >= 1) \
-            .all() or dres.responses.max() >= MAMBA.vocab_size \
+            .all() or dres.responses.max() >= vocab \
             or dres.responses.min() < 0:
-        raise AssertionError("ssm dense: calls or responses out of range")
-    n_tok = int(dres.lengths.sum())
-    log(f"[ssm] dense: {N_PROMPTS} requests ({int(dres.routed_small.sum())} "
-        f"half, {int((~dres.routed_small).sum())} full), {n_tok} tokens in "
-        f"{wall:.3f} s = {n_tok / wall:.1f} tokens/s on {card} ({smi})")
-    return dict(model=models["full"], cfg=MAMBA,
-                launches=pool_launches + dense_launches)
+        raise AssertionError(f"{tag} dense: calls or responses out of range")
+    dn_tok = int(dres.lengths.sum())
+    log(f"[{tag}] dense: {N_PROMPTS} requests "
+        f"({int(dres.routed_small.sum())} half, "
+        f"{int((~dres.routed_small).sum())} full), {dn_tok} tokens in "
+        f"{dwall:.3f} s = {dn_tok / dwall:.1f} tokens/s on {card} ({smi}); "
+        f"launches by dtype {dense_by_dtype}")
+    return dict(tier_idx=res.tier_idx, pool_launches=pool_launches,
+                dense_launches=dense_launches, pool_by_dtype=pool_by_dtype,
+                dense_by_dtype=dense_by_dtype, pool=(n_tok, wall),
+                dense=(dn_tok, dwall))
+
+
+def _slots_free(tag, name, eng):
+    """Raise unless every slot of ``eng``, and with it its state row, is
+    free after the drain (slot s owns state row s + 1)."""
+    if eng.sched.running or sorted(eng.sched._free_slots) != \
+            list(range(eng.n_slots)) or eng.rstate.state["h"] \
+            .shape[0] != eng.n_slots + 1:
+        raise AssertionError(f"{tag} pool tier {name}: a slot (and its "
+                             "state row) is still held")
 
 
 # ----------------------------------------------------------------- phase 4d
@@ -2575,40 +2694,25 @@ def jamba_phase(torch, card: str, smi: str):
     DeBERTa-v3-large's widths over Jamba's vocabulary gating at the
     prompts' median score. Phase 4's traffic (16 prompts of 32-512 tokens,
     32 new tokens, 8 slots) through the continuous pool, then through the
-    dense hybrid path (a HybridEngine over two dense Engines), which must
-    route as the pool did. Each kernel's launches, counted from 0 on each
-    tier, must be exactly: on the pool K2 = prefill dispatches, K3 = 7 x
-    prefill dispatches, K1 = decode steps; on the dense path K4 = 1 and K3
-    = 7 a prefill, K5 = 1 a decode step; nothing else. No page may leak,
-    and every slot's state row must be free after the drain. The MoE
-    assignments dropped by capacity are counted on both paths (the drop
-    counter recomputes each MoE call's routing, in the timed runs). Logs
-    the peak memory. Returns the half tier's model and config (phase 5)
-    and each kernel's launches on both paths."""
+    dense hybrid path (``_jamba_serve``). Logs the peak memory. Returns
+    the half tier's model and config (phase 5), each kernel's launches on
+    both paths, and the router, prompts and routing (phase 11(b))."""
     import numpy as np
     from repro_torch.configs.jamba_v01_52b import CONFIG as JAMBA
+    from repro_torch.core.routing import HybridRouter
     from repro_torch.launch.serve import scaled_sibling
-    from repro_torch.core.routing import HybridRouter, ThresholdPolicy
-    from repro_torch.models import moe
     from repro_torch.models.encoder import RouterConfig, init_router_encoder
     from repro_torch.models.model import build_model
-    from repro_torch.serving.engine import ContinuousEngine, Engine
-    from repro_torch.serving.hybrid import HybridEngine
-    from repro_torch.serving.pool import ContinuousPoolEngine
 
     dev = torch.device("cuda")
     torch.cuda.reset_peak_memory_stats()
-    counters = _all_counters()
     cfgs = {"half": dataclasses.replace(scaled_sibling(JAMBA, 2),
                                         n_layers=JAMBA.attn_every),
             "full": dataclasses.replace(JAMBA, n_layers=JAMBA.attn_every)}
-    n_mamba = sum(not JAMBA.layer_kind(j)["attn"]
-                  for j in range(JAMBA.attn_every))
     t0 = time.monotonic()
-    bundles = {n: build_model(c) for n, c in cfgs.items()}
-    models = {n: bundles[n].init(torch.Generator(device=dev)
-                                 .manual_seed(400 + i), dev)
-              for i, n in enumerate(cfgs)}
+    models = {n: build_model(c).init(torch.Generator(device=dev)
+                                     .manual_seed(400 + i), dev)
+              for i, (n, c) in enumerate(cfgs.items())}
     rcfg = RouterConfig(vocab_size=JAMBA.vocab_size, **DEBERTA_V3_LARGE)
     probe = HybridRouter(init_router_encoder(
         rcfg, torch.Generator(device=dev).manual_seed(407), dev), rcfg, 0.0)
@@ -2619,20 +2723,66 @@ def jamba_phase(torch, card: str, smi: str):
     mask = (np.arange(512)[None] < lens[:, None]).astype(np.float32)
     tokens[mask == 0] = 0
     threshold = float(np.median(probe.scores(tokens, mask).cpu().numpy()))
-    router = probe.with_threshold(threshold)
     torch.cuda.synchronize()
     for name, cfg in cfgs.items():
-        log(f"[jamba] tier {name}: {cfg.n_layers} layers ({n_mamba} Mamba "
-            f"of {cfg.ssm_nheads} SSD heads of {cfg.ssm_headdim}, state "
-            f"{cfg.ssm_state}; 1 attention of {cfg.n_heads} heads of "
-            f"{cfg.resolved_head_dim} over {cfg.n_kv_heads}), d_model "
-            f"{cfg.d_model}, d_ff {cfg.d_ff}, {cfg.n_experts} experts top-"
-            f"{cfg.top_k} every {cfg.moe_every}nd layer, vocab "
-            f"{cfg.vocab_size}, {cfg.param_count() / 1e9:.2f} B params "
+        log(f"[jamba] tier {name}: {cfg.n_layers} layers "
+            f"({_n_mamba(cfg)} Mamba of {cfg.ssm_nheads} SSD heads of "
+            f"{cfg.ssm_headdim}, state {cfg.ssm_state}; 1 attention of "
+            f"{cfg.n_heads} heads of {cfg.resolved_head_dim} over "
+            f"{cfg.n_kv_heads}), d_model {cfg.d_model}, d_ff {cfg.d_ff}, "
+            f"{cfg.n_experts} experts top-{cfg.top_k} every "
+            f"{cfg.moe_every}nd layer, vocab {cfg.vocab_size}, "
+            f"{cfg.param_count() / 1e9:.2f} B params "
             f"({4 * cfg.param_count() / 1e9:.1f} GB fp32)")
     log(f"[jamba] random init and the router's threshold on the card: "
         f"{time.monotonic() - t0:.1f} s, {_peak(torch)} allocated")
+    run = dict(cfgs=cfgs, models=models, tokens=tokens, mask=mask,
+               router=probe.with_threshold(threshold))
+    out = _jamba_serve(torch, card, smi, "jamba", run)
+    log(f"[jamba] peak memory in phase 4g: {_peak(torch)}")
+    return dict(run, model=models["half"], cfg=cfgs["half"],
+                tier_idx=out["tier_idx"], pool=out["pool"],
+                dense=out["dense"],
+                launches={k: out["pool_launches"][k]
+                          + out["dense_launches"][k]
+                          for k in out["pool_launches"]})
 
+
+def _n_mamba(cfg):
+    """Mamba layers in a block of ``cfg``."""
+    return sum(not cfg.layer_kind(j)["attn"] for j in range(cfg.attn_every))
+
+
+def _jamba_serve(torch, card: str, smi: str, tag: str, run: dict,
+                 tier_idx=None):
+    """``run``'s two hybrid tiers ({"models", "cfgs"}) behind its router
+    serve its prompts through the continuous pool, then through the dense
+    hybrid path (a HybridEngine over two dense Engines), which must route
+    as the pool did (and the pool as ``tier_idx`` where given). Each
+    kernel's launches, counted from 0 on each tier, must be exactly: on
+    the pool K2 = prefill dispatches, K3 = 7 x prefill dispatches, K1 =
+    decode steps; on the dense path K4 = 1 and K3 = 7 a prefill, K5 = 1 a
+    decode step; nothing else. No page may leak, and every slot's state
+    row must be free after the drain. The MoE assignments dropped by
+    capacity are counted on both paths (the drop counter recomputes each
+    MoE call's routing, in the timed runs). Returns the pool's routing,
+    {kernel: launches} on each path (also by dtype) and each path's
+    (tokens, wall)."""
+    import numpy as np
+    from repro_torch.core.routing import ThresholdPolicy
+    from repro_torch.models import moe
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import ContinuousEngine, Engine
+    from repro_torch.serving.hybrid import HybridEngine
+    from repro_torch.serving.pool import ContinuousPoolEngine
+
+    dev = torch.device("cuda")
+    counters = _all_counters()
+    cfgs, models, router = run["cfgs"], run["models"], run["router"]
+    tokens, mask = run["tokens"], run["mask"]
+    vocab = cfgs["full"].vocab_size
+    n_mamba = _n_mamba(cfgs["full"])
+    bundles = {n: build_model(c) for n, c in cfgs.items()}
     drops = [torch.zeros((), dtype=torch.int64, device=dev)]
     original = _count_drops(moe, drops)
     try:
@@ -2648,8 +2798,7 @@ def jamba_phase(torch, card: str, smi: str):
         per_tier = {name: dict.fromkeys(counters, 0) for name in cfgs}
         for name, eng in tiers:
             eng.step = _counting(counters, per_tier, name, eng.step)
-        for w in counters.values():
-            w.launches = 0
+        _reset_counts(counters)
         drops[0].zero_()
         t0 = time.monotonic()
         res = pool.serve(tokens, mask, seed=0)
@@ -2657,6 +2806,7 @@ def jamba_phase(torch, card: str, smi: str):
         wall = time.monotonic() - t0
         pool_drops = int(drops[0])
         pool_launches = {k: w.launches for k, w in counters.items()}
+        pool_by_dtype = _by_dtype(counters)
         summary = pool.meter.summary()
         for name, eng in tiers:
             st = eng.stats
@@ -2664,7 +2814,7 @@ def jamba_phase(torch, card: str, smi: str):
                     "paged_prefill_attention": st.prefill_dispatches,
                     "ssd_chunk_scan": n_mamba * st.prefill_dispatches,
                     "paged_decode_attention": st.decode_steps}
-            log(f"[jamba] pool {name}: calls {summary[name]['calls']}, "
+            log(f"[{tag}] pool {name}: calls {summary[name]['calls']}, "
                 f"tokens {summary[name]['gen_tokens']}, decode steps "
                 f"{st.decode_steps}, prefill dispatches "
                 f"{st.prefill_dispatches}, kernel launches {per_tier[name]}"
@@ -2673,31 +2823,31 @@ def jamba_phase(torch, card: str, smi: str):
                 f"{eng.cache.free_pages} of {eng.cache.num_pages}")
             if per_tier[name] != want or min(st.prefill_dispatches,
                                              st.decode_steps) <= 0:
-                raise AssertionError(f"jamba pool tier {name}: launches "
+                raise AssertionError(f"{tag} pool tier {name}: launches "
                                      f"{per_tier[name]} != {want}")
             if eng.cache.free_pages != eng.cache.num_pages - 1:
-                raise AssertionError(f"jamba pool tier {name}: pages leaked")
-            # slot s owns state row s + 1: every slot free again is every
-            # row back with its slot
-            if eng.sched.running or sorted(eng.sched._free_slots) != \
-                    list(range(eng.n_slots)) or eng.rstate.state["h"] \
-                    .shape[0] != eng.n_slots + 1:
-                raise AssertionError(f"jamba pool tier {name}: a slot (and "
-                                     "its state row) is still held")
-        if not np.array_equal(res.tier_idx, (res.scores < threshold)):
-            raise AssertionError("jamba pool: tier_idx disagrees with score "
-                                 "< threshold")
+                raise AssertionError(f"{tag} pool tier {name}: pages "
+                                     "leaked")
+            _slots_free(tag, name, eng)
+        if not np.array_equal(res.tier_idx, (res.scores < router.threshold)):
+            raise AssertionError(f"{tag} pool: tier_idx disagrees with "
+                                 "score < threshold")
+        if tier_idx is not None and not np.array_equal(res.tier_idx,
+                                                       tier_idx):
+            raise AssertionError(f"{tag} pool: routes differently from "
+                                 "phase 4g")
         if sum(v["calls"] for v in summary.values()) != N_PROMPTS \
                 or not 0 < res.tier_idx.sum() < N_PROMPTS:
-            raise AssertionError(f"jamba pool: calls {summary}")
-        if not (res.lengths >= 1).all() or res.responses.max() >= \
-                JAMBA.vocab_size or res.responses.min() < 0:
-            raise AssertionError("jamba pool: responses out of range")
+            raise AssertionError(f"{tag} pool: calls {summary}")
+        if not (res.lengths >= 1).all() or res.responses.max() >= vocab \
+                or res.responses.min() < 0:
+            raise AssertionError(f"{tag} pool: responses out of range")
         n_tok = int(res.lengths.sum())
-        log(f"[jamba] pool: {N_PROMPTS} requests retired "
+        log(f"[{tag}] pool: {N_PROMPTS} requests retired "
             f"({np.bincount(res.tier_idx, minlength=2).tolist()} half/full),"
-            f" threshold {threshold:.6f}, {n_tok} tokens in {wall:.3f} s = "
-            f"{n_tok / wall:.1f} tokens/s on {card} ({smi}); peak memory "
+            f" threshold {router.threshold:.6f}, {n_tok} tokens in "
+            f"{wall:.3f} s = {n_tok / wall:.1f} tokens/s on {card} ({smi});"
+            f" launches by dtype {pool_by_dtype}; peak memory "
             f"{_peak(torch)}")
         del pool, tiers
         gc.collect()
@@ -2713,8 +2863,7 @@ def jamba_phase(torch, card: str, smi: str):
         for name, eng in engines.items():
             eng.serve = _counting(counters, per_tier, name, eng.serve)
             eng.stats = type(eng.stats)()
-        for w in counters.values():
-            w.launches = 0
+        _reset_counts(counters)
         drops[0].zero_()
         t0 = time.monotonic()
         dres = hy.serve(tokens, mask, seed=0)
@@ -2722,6 +2871,7 @@ def jamba_phase(torch, card: str, smi: str):
         dwall = time.monotonic() - t0
         dense_drops = int(drops[0])
         dense_launches = {k: w.launches for k, w in counters.items()}
+        dense_by_dtype = _by_dtype(counters)
     finally:
         moe.moe_forward = original
     for name, eng in engines.items():
@@ -2729,39 +2879,39 @@ def jamba_phase(torch, card: str, smi: str):
         want = {**dict.fromkeys(counters, 0), "flash_attention": n,
                 "ssd_chunk_scan": n_mamba * n,
                 "decode_attention": NEW_TOKENS * n}
-        log(f"[jamba] dense {name}: {eng.stats.requests} requests in {n} "
+        log(f"[{tag}] dense {name}: {eng.stats.requests} requests in {n} "
             f"batches, kernel launches {per_tier[name]} (expected {want}: "
             f"K4 once and K3 {n_mamba} times a prefill, K5 once a decode "
             "step)")
         if per_tier[name] != want or n <= 0:
-            raise AssertionError(f"jamba dense tier {name}: launches "
+            raise AssertionError(f"{tag} dense tier {name}: launches "
                                  f"{per_tier[name]} != {want}")
     if not np.array_equal(dres.routed_small, res.tier_idx == 0):
-        raise AssertionError("jamba: the dense hybrid path routes "
+        raise AssertionError(f"{tag}: the dense hybrid path routes "
                              "differently from the pool")
     if hy.meter.tiers.total_calls != N_PROMPTS or not (dres.lengths >= 1) \
-            .all() or dres.responses.max() >= JAMBA.vocab_size \
+            .all() or dres.responses.max() >= vocab \
             or dres.responses.min() < 0:
-        raise AssertionError("jamba dense: calls or responses out of range")
-    n_tok = int(dres.lengths.sum())
+        raise AssertionError(f"{tag} dense: calls or responses out of range")
+    dn_tok = int(dres.lengths.sum())
     same = sum(np.array_equal(a[:n], b[:n]) for a, b, n in
                zip(res.responses, dres.responses, res.lengths))
-    log(f"[jamba] dense: {N_PROMPTS} requests "
+    log(f"[{tag}] dense: {N_PROMPTS} requests "
         f"({int(dres.routed_small.sum())} half, "
-        f"{int((~dres.routed_small).sum())} full), {n_tok} tokens in "
-        f"{dwall:.3f} s = {n_tok / dwall:.1f} tokens/s on {card} ({smi})")
-    log(f"[jamba] MoE assignments dropped by capacity: pool {pool_drops}, "
+        f"{int((~dres.routed_small).sum())} full), {dn_tok} tokens in "
+        f"{dwall:.3f} s = {dn_tok / dwall:.1f} tokens/s on {card} ({smi}); "
+        f"launches by dtype {dense_by_dtype}")
+    log(f"[{tag}] MoE assignments dropped by capacity: pool {pool_drops}, "
         f"dense {dense_drops} (chunked prefill and decode cannot drop; a "
         f"512-token dense prefill can); the paths' greedy tokens agree on "
         f"{same} of {N_PROMPTS} requests")
     if pool_drops:
-        raise AssertionError(f"jamba pool: {pool_drops} assignments dropped"
+        raise AssertionError(f"{tag} pool: {pool_drops} assignments dropped"
                              " where the capacity cannot be reached")
-    log(f"[jamba] peak memory in phase 4g: {_peak(torch)}")
-    return dict(model=models["half"], cfg=cfgs["half"],
-                launches={k: pool_launches[k] + dense_launches[k]
-                          for k in counters},
-                wall=wall, dense_wall=dwall)
+    return dict(tier_idx=res.tier_idx, pool_launches=pool_launches,
+                dense_launches=dense_launches, pool_by_dtype=pool_by_dtype,
+                dense_by_dtype=dense_by_dtype, pool=(n_tok, wall),
+                dense=(dn_tok, dwall))
 
 
 # ----------------------------------------------------------------- phase 4h
@@ -2775,9 +2925,11 @@ def _generate_phase(torch, card, smi, tag, bundle, model, inputs,
     warm-up on two rows and one prefill timed alone, outside the counts,
     then the counted serve. Launches counted from 0 must be exactly
     ``per_prefill`` for the prefill plus ``per_step`` for each of the
-    NEW_TOKENS decode steps ({kernel: count}, every other kernel 0); the
-    cache must hold ``cache_len`` positions and end there. Logs prefill
-    ms, tokens/s and the peak memory. Returns the launches by kernel."""
+    NEW_TOKENS decode steps ({kernel: count}, every other kernel 0), and
+    at a bf16 config only the kernels' bf16 instances; the cache must hold
+    ``cache_len`` positions and end there. Logs prefill ms, tokens/s and
+    the peak memory. Returns {"launches": by kernel, "by_dtype": by kernel
+    and dtype, "prefill_ms", "tokens_s", "peak_gb"}."""
     import numpy as np
     from repro_torch.serving.generate import build_generate_fn
     counters = _all_counters()
@@ -2801,14 +2953,14 @@ def _generate_phase(torch, card, smi, tag, bundle, model, inputs,
         bundle.prefill(model, inputs, cache_len)
     torch.cuda.synchronize()
     prefill_ms = 1e3 * (time.monotonic() - t0)
-    for w in counters.values():
-        w.launches = 0
+    _reset_counts(counters)
     t0 = time.monotonic()
     toks, lens = gen(model, inputs, torch.Generator(device=dev)
                      .manual_seed(0))
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = {k: w.launches for k, w in counters.items()}
+    by_dtype = _by_dtype(counters)
     want = {k: per_prefill.get(k, 0) + NEW_TOKENS * per_step.get(k, 0)
             for k in counters}
     slab, pos = seen["slab"], seen["cache"]["pos"]
@@ -2821,19 +2973,38 @@ def _generate_phase(torch, card, smi, tag, bundle, model, inputs,
         f"tokens/s to EOS ({n_tok} tokens; {B * NEW_TOKENS / wall:.1f} "
         f"decode positions/s) on {card} ({smi}); cache {slab} positions, "
         f"pos {pos} after the serve; kernel launches {launches} (expected "
-        f"{want}); peak memory {_peak(torch)}")
+        f"{want}), by dtype {by_dtype}; peak memory {_peak(torch)}")
     if launches != want:
         raise AssertionError(f"{tag}: launches {launches} != {want}")
+    if bundle.cfg.dtype == "bfloat16":
+        _only_bf16(tag, by_dtype, [k for k, n in want.items() if n])
     if slab != cache_len or pos != cache_len:
         raise AssertionError(f"{tag}: the cache holds {slab} positions and "
                              f"ends at {pos}, not {cache_len}")
     if toks.shape != (B, NEW_TOKENS) or not (lens >= 1).all() or \
             toks.min() < 0 or toks.max() >= bundle.cfg.vocab_size:
         raise AssertionError(f"{tag}: tokens out of range")
-    return launches
+    return dict(launches=launches, by_dtype=by_dtype, prefill_ms=prefill_ms,
+                tokens_s=n_tok / wall,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
-def whisper_phase(torch, card: str, smi: str):
+def _model_at(torch, bundle, seed, fp32):
+    """The phase's model: drawn from ``seed`` on the card, or (phase 11)
+    the bf16 twin of ``fp32["model"]``, an earlier run's, which it takes
+    from ``fp32`` and frees; the peak memory is counted from there."""
+    from repro_torch import bridge
+    dev = torch.device("cuda")
+    if fp32 is None:
+        return bundle.init(torch.Generator(device=dev).manual_seed(seed), dev)
+    model = bridge.twin(fp32.pop("model"), bundle.cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return model
+
+
+def whisper_phase(torch, card: str, smi: str, fp32=None):
     """Phase 4h, the encoder-decoder: whisper-large-v3 as published (32
     encoder and 32 decoder layers at every width, enc_seq 1500, 2.02 B
     params), weights from a seed. 16 requests, each with its own stub
@@ -2842,35 +3013,41 @@ def whisper_phase(torch, card: str, smi: str):
     Launches counted from 0 must be exactly 64 flash launches per prefill
     (32 encoder, non-causal; 32 decoder, causal) and 64 dense decode
     launches per decode step (32 self, 32 cross over the 1500 encoder
-    keys). Returns the model and config (phase 5) and the launches."""
+    keys). ``fp32``: phase 4h's run, whose model phase 11(c) serves again
+    as its bf16 twin (``bridge.twin``) on the same seeds' inputs at bf16,
+    the bf16 instances alone launching. Returns the model and config
+    (phase 5), the launches and the serve's figures."""
     from repro_torch.configs.whisper_large_v3 import CONFIG as WHISPER
     from repro_torch.models.frontends import make_batch
     from repro_torch.models.model import build_model
     dev = torch.device("cuda")
     torch.cuda.reset_peak_memory_stats()
-    cfg = WHISPER
+    cfg = WHISPER if fp32 is None else \
+        dataclasses.replace(WHISPER, dtype="bfloat16")
+    tag = "whisper" if fp32 is None else "whisper bf16"
     bundle = build_model(cfg)
     t0 = time.monotonic()
-    model = bundle.init(torch.Generator(device=dev).manual_seed(600), dev)
+    model = _model_at(torch, bundle, 600, fp32)
     inputs = make_batch(torch.Generator(device=dev).manual_seed(601), cfg,
                         N_PROMPTS, 48, for_train=False, device=dev)
     torch.cuda.synchronize()
-    log(f"[whisper] {cfg.name}: {cfg.n_enc_layers} encoder + "
+    log(f"[{tag}] {cfg.name}: {cfg.n_enc_layers} encoder + "
         f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, "
         f"{cfg.n_heads} heads of {cfg.resolved_head_dim} over "
         f"{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
         f"enc_seq {cfg.enc_seq}: {cfg.param_count() / 1e9:.2f} B params "
-        f"({4 * cfg.param_count() / 1e9:.1f} GB fp32); random init and "
-        f"inputs {time.monotonic() - t0:.1f} s, {_peak(torch)} allocated")
+        f"({4 * cfg.param_count() / 1e9:.1f} GB fp32), {cfg.dtype}; "
+        f"weights and inputs {time.monotonic() - t0:.1f} s, {_peak(torch)} "
+        "allocated")
     L = cfg.n_layers
-    launches = _generate_phase(
-        torch, card, smi, "whisper", bundle, model, inputs,
+    run = _generate_phase(
+        torch, card, smi, tag, bundle, model, inputs,
         {"flash_attention": cfg.n_enc_layers + L},
         {"decode_attention": 2 * L}, 48 + NEW_TOKENS)
-    return dict(model=model, cfg=cfg, launches=launches)
+    return dict(run, model=model, cfg=cfg)
 
 
-def internvl2_phase(torch, card: str, smi: str):
+def internvl2_phase(torch, card: str, smi: str, fp32=None):
     """Phase 4h, the vision frontend: internvl2-26b at every published
     width (d_model 6144, 48 heads over 8 of 128, d_ff 16384, vocabulary
     92553), cut to INTERNVL2_LAYERS layers of its 48 (17.0 GB fp32; the
@@ -2880,57 +3057,91 @@ def internvl2_phase(torch, card: str, smi: str):
     ``build_generate_fn`` at 32 greedy tokens; the cache must hold 256 +
     256 + 32 positions. Launches counted from 0 must be exactly one flash
     launch a layer per prefill and one dense decode launch a layer per
-    decode step. Returns the model and config (phase 5) and the
-    launches."""
+    decode step. ``fp32``: as ``whisper_phase``'s. Returns the model and
+    config (phase 5), the launches and the serve's figures."""
     from repro_torch.configs.internvl2_26b import CONFIG as INTERNVL2
     from repro_torch.models.frontends import make_batch
     from repro_torch.models.model import build_model
     dev = torch.device("cuda")
     torch.cuda.reset_peak_memory_stats()
-    cfg = dataclasses.replace(INTERNVL2, n_layers=INTERNVL2_LAYERS)
+    cfg = dataclasses.replace(
+        INTERNVL2, n_layers=INTERNVL2_LAYERS,
+        dtype="float32" if fp32 is None else "bfloat16")
+    tag = "internvl2" if fp32 is None else "internvl2 bf16"
     bundle = build_model(cfg)
     t0 = time.monotonic()
-    model = bundle.init(torch.Generator(device=dev).manual_seed(700), dev)
+    model = _model_at(torch, bundle, 700, fp32)
     inputs = make_batch(torch.Generator(device=dev).manual_seed(701), cfg,
                         N_PROMPTS, 256, for_train=False, device=dev)
     torch.cuda.synchronize()
     n_front = cfg.num_frontend_tokens
-    log(f"[internvl2] {cfg.name} cut to {cfg.n_layers} of "
+    log(f"[{tag}] {cfg.name} cut to {cfg.n_layers} of "
         f"{INTERNVL2.n_layers} layers: d_model {cfg.d_model}, "
         f"{cfg.n_heads} heads of {cfg.resolved_head_dim} over "
         f"{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
         f"{n_front} frontend tokens: {cfg.param_count() / 1e9:.2f} B params "
         f"({4 * cfg.param_count() / 1e9:.1f} GB fp32; the published depth "
-        f"{4 * INTERNVL2.param_count() / 1e9:.1f} GB); random init and "
-        f"inputs {time.monotonic() - t0:.1f} s, {_peak(torch)} allocated")
-    launches = _generate_phase(
-        torch, card, smi, "internvl2", bundle, model, inputs,
+        f"{4 * INTERNVL2.param_count() / 1e9:.1f} GB), {cfg.dtype}; "
+        f"weights and inputs {time.monotonic() - t0:.1f} s, {_peak(torch)} "
+        "allocated")
+    run = _generate_phase(
+        torch, card, smi, tag, bundle, model, inputs,
         {"flash_attention": cfg.n_layers}, {"decode_attention": cfg.n_layers},
         n_front + 256 + NEW_TOKENS)
-    return dict(model=model, cfg=cfg, launches=launches)
+    return dict(run, model=model, cfg=cfg)
 
 
 # ------------------------------------------------------------------ phase 5
-def _compare(torch, tag, gpu_logits, cpu_logits):
-    """Max abs error of card against CPU logits; greedy tokens must agree
-    on every row whose CPU top-2 margin exceeds DEVICE_TOL."""
+def _compare(torch, tag, gpu_logits, cpu_logits, tol=DEVICE_TOL):
+    """Max abs error of card against CPU logits within ``tol``; greedy
+    tokens must agree on every row whose CPU top-2 margin exceeds it."""
     worst = 0.0
     for i, (a, b) in enumerate(zip(gpu_logits, cpu_logits)):
         err = (a - b).abs().max().item()
         worst = max(worst, err)
         top2 = b.topk(2, dim=-1).values
-        sure = (top2[:, 0] - top2[:, 1]) > DEVICE_TOL
+        sure = (top2[:, 0] - top2[:, 1]) > tol
         same = (a.argmax(-1) == b.argmax(-1))[sure]
         log(f"[device-vs-cpu] {tag} logits {i} "
             f"({'prefill' if i == 0 else 'decode'}): max abs err {err:.3g}; "
             f"greedy tokens agree on {int(same.sum())}/{int(sure.sum())} "
-            f"rows with a top-2 margin > {DEVICE_TOL}")
+            f"rows with a top-2 margin > {tol:.4g}")
         if not torch.isfinite(a).all() or not same.all():
             raise AssertionError(f"{tag}: card and CPU disagree on greedy "
                                  "tokens")
-    if not worst <= DEVICE_TOL:
-        raise AssertionError(f"{tag}: card vs CPU logits {worst} > "
-                             f"{DEVICE_TOL}")
+    if not worst <= tol:
+        raise AssertionError(f"{tag}: card vs CPU logits {worst} > {tol}")
+
+
+def _cpu_twins(torch, gpu, cfg, dtype_gap):
+    """``gpu``'s weights on the CPU, as {"cpu": a module for ``cfg``} and,
+    with ``dtype_gap`` (a bf16 ``cfg``), also {"cpu32": one for its fp32
+    config holding the same values, widened}. Returns (modules, their
+    configs)."""
+    cpu = type(gpu)(cfg, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    mods, cfgs = {"cpu": cpu}, {"cpu": cfg}
+    if dtype_gap:
+        cfgs["cpu32"] = dataclasses.replace(cfg, dtype="float32")
+        mods["cpu32"] = type(gpu)(cfgs["cpu32"], device="cpu")
+        mods["cpu32"].load_state_dict(cpu.state_dict())
+    return mods, cfgs
+
+
+def _compare_runs(torch, tag, out, V):
+    """Card against CPU logits (``out``: {"card", "cpu"[, "cpu32"]: [logits
+    (B, V') fp32]}): at DEVICE_TOL, or where the CPU's fp32 twin ran (a
+    bf16 model), within twice the dtype's gap (``_dtype_tol``: the CPU's
+    bf16 logits against its fp32 twin's on the same weights and tokens)."""
+    tol = DEVICE_TOL
+    if "cpu32" in out:
+        gap, tol = _dtype_tol(out["cpu"], out["cpu32"], V)
+        err32 = max((a[..., :V] - b[..., :V]).abs().max().item()
+                    for a, b in zip(out["card"], out["cpu32"]))
+        log(f"[device-vs-cpu] {tag} the dtype's gap (CPU bf16 against CPU "
+            f"fp32) {gap:.4g}, tolerance {tol:.4g}; card bf16 against CPU "
+            f"fp32 {err32:.4g}")
+    _compare(torch, tag, out["card"], out["cpu"], tol)
 
 
 def device_vs_cpu_phase(torch, full_model, full_cfg, depth=1,
@@ -2947,20 +3158,20 @@ def device_vs_cpu_phase(torch, full_model, full_cfg, depth=1,
     card_vs_cpu(torch, gpu, cfg, f"at depth {depth}", lens)
 
 
-def card_vs_cpu(torch, gpu, cfg, what, lens=(16, 11)):
+def card_vs_cpu(torch, gpu, cfg, what, lens=(16, 11), dtype_gap=False):
     """``gpu``, a model for ``cfg`` on the card, and a copy on the CPU, same
     inputs: two prompts of ``lens`` tokens through the paged path (16-token
     prefill chunks, two decode steps; a recurrent stack's state in
     recurrent-state rows 1 and 2; window layers walk from the engine's
     first page, ``window_start_page``) and through the dense path (a
     prefill over both prompts padded to the longer one, two decode steps),
-    all through the bundle's entry points, logits compared."""
+    all through the bundle's entry points, logits compared
+    (``_compare_runs``; ``dtype_gap``: a bf16 model, held within twice the
+    dtype's gap, its fp32 twin run on the CPU too)."""
     import numpy as np
     from repro_torch.models.model import build_model
     from repro_torch.serving.engine import window_start_page
-    bundle = build_model(cfg)
-    cpu = type(gpu)(cfg, device="cpu")
-    cpu.load_state_dict(gpu.state_dict())
+    cpus, cfgs = _cpu_twins(torch, gpu, cfg, dtype_gap)
 
     rng = np.random.default_rng(3)
     C, ps = 16, 16
@@ -2976,7 +3187,9 @@ def card_vs_cpu(torch, gpu, cfg, what, lens=(16, 11)):
     w = cfg.sliding_window if cfg.has_window_layers else 0
     paged, dense = {}, {}
     with torch.no_grad():
-        for dev, model in (("cuda", gpu), ("cpu", cpu)):
+        for key, model in (("card", gpu), *cpus.items()):
+            dev = "cuda" if key == "card" else "cpu"
+            bundle = build_model(cfgs.get(key, cfg))
             T = lambda a: torch.tensor(a, device=dev)
             cache = bundle.init_paged_cache(1 + sum(n_pg), ps, device=dev)
             if bundle.init_recurrent_state is not None:
@@ -2998,28 +3211,28 @@ def card_vs_cpu(torch, gpu, cfg, what, lens=(16, 11)):
             sl = lens.copy()
             for step in range(2):
                 # both devices feed the card's greedy tokens
-                tok = (paged["cuda"][step] if dev == "cpu" else logits[-1]) \
-                    .argmax(-1).cpu().numpy()
+                tok = (paged["card"][step] if key != "card"
+                       else logits[-1]).argmax(-1).cpu().numpy()
                 ws = window_start_page(int(sl.min()) + 1 - w, ps) if w else 0
                 logits.append(bundle.decode_step_paged(
                     model, cache, T(tok[:, None]), T(pt), T(sl),
                     T(np.ones(2, bool)), window_start=ws))
                 sl = sl + 1
-            paged[dev] = [t.float().cpu() for t in logits]
+            paged[key] = [t.float().cpu() for t in logits]
 
             last, cache = bundle.prefill(model, {"tokens": T(tokens)},
                                          max_seq=S + 2)
             logits = [last]
             for step in range(2):
-                tok = (dense["cuda"][step] if dev == "cpu" else logits[-1]) \
-                    .argmax(-1).cpu().numpy()
+                tok = (dense["card"][step] if key != "card"
+                       else logits[-1]).argmax(-1).cpu().numpy()
                 out, cache = bundle.decode_step(model, cache,
                                                 T(tok[:, None]))
                 logits.append(out)
-            dense[dev] = [t.float().cpu() for t in logits]
+            dense[key] = [t.float().cpu() for t in logits]
     tag = f"{cfg.name} {what}, prompts of {lens.tolist()} tokens,"
-    _compare(torch, f"{tag} paged", paged["cuda"], paged["cpu"])
-    _compare(torch, f"{tag} dense", dense["cuda"], dense["cpu"])
+    _compare_runs(torch, f"{tag} paged", paged, cfg.vocab_size)
+    _compare_runs(torch, f"{tag} dense", dense, cfg.vocab_size)
 
 
 def moe_vs_cpu_phase(torch):
@@ -3040,28 +3253,32 @@ def dense_vs_cpu(torch, gpu, cfg, what, inputs):
     """``gpu``, a model for ``cfg`` on the card, and a copy on the CPU, same
     ``inputs`` (CPU tensors: tokens plus the family's frontend inputs): a
     prefill and two decode steps through the bundle's entry points (both
-    devices feed the card's greedy tokens), logits compared."""
+    devices feed the card's greedy tokens), logits compared
+    (``_compare_runs``: a bf16 ``cfg`` within twice the dtype's gap, its
+    fp32 twin run on the CPU too, on the same inputs widened)."""
     from repro_torch.models.model import build_model
-    bundle = build_model(cfg)
-    cpu = type(gpu)(cfg, device="cpu")
-    cpu.load_state_dict(gpu.state_dict())
+    cpus, cfgs = _cpu_twins(torch, gpu, cfg, cfg.dtype == "bfloat16")
     extra = cfg.frontend_positions
     B, S = inputs["tokens"].shape
     out = {}
     with torch.no_grad():
-        for side, dev, model in (("card", "cuda", gpu), ("cpu", "cpu", cpu)):
-            last, cache = bundle.prefill(
-                model, {k: v.to(dev) for k, v in inputs.items()},
-                max_seq=extra + S + 2)
+        for key, model in (("card", gpu), *cpus.items()):
+            dev = "cuda" if key == "card" else "cpu"
+            c = cfgs.get(key, cfg)
+            bundle = build_model(c)
+            batch = {k: v.to(dev, getattr(torch, c.dtype))
+                     if v.is_floating_point() else v.to(dev)
+                     for k, v in inputs.items()}
+            last, cache = bundle.prefill(model, batch, max_seq=extra + S + 2)
             logits = [last]
             for step in range(2):
-                tok = (out["card"][step] if side == "cpu" else logits[-1]) \
-                    .argmax(-1).to(dev)
+                tok = (out["card"][step] if key != "card"
+                       else logits[-1]).argmax(-1).to(dev)
                 o, cache = bundle.decode_step(model, cache, tok[:, None])
                 logits.append(o)
-            out[side] = [t.float().cpu() for t in logits]
-    _compare(torch, f"{cfg.name} {what}, {B} prompts of {S} tokens "
-             f"({extra} frontend positions),", out["card"], out["cpu"])
+            out[key] = [t.float().cpu() for t in logits]
+    _compare_runs(torch, f"{cfg.name} {what}, {B} prompts of {S} tokens "
+                  f"({extra} frontend positions),", out, cfg.vocab_size)
 
 
 def whisper_vs_cpu(torch, full_model, full_cfg):
@@ -4341,23 +4558,31 @@ def _greedy_margins(eng):
 
 def bf16_vs_cpu(torch, card: str, smi: str, pool_run: dict, bf16: dict):
     """Phase 10(b), the card against the CPU on the BF16_CPU_PROMPTS
-    shortest of phase 4's prompts, each device's "full" tier at bf16
-    through a pool engine of phase 4's geometry. The tolerance comes from
-    the dtype (``_dtype_tol``: twice the largest gap between the CPU's
-    bf16 and fp32 first-token logits). The card's bf16 first-token logits
-    must lie within it of the CPU's bf16, and the card's greedy tokens
-    must equal the CPU's bf16 greedy tokens up to the first position where
-    the CPU's top-2 margin is under it."""
+    shortest of phase 4's prompts through the "full" tier at bf16
+    (``_engine_vs_cpu``)."""
+    import numpy as np
+    lens = pool_run["lens"]
+    idx = [int(i) for i in np.argsort(lens, kind="stable")
+           [:BF16_CPU_PROMPTS]]
+    _engine_vs_cpu(torch, card, smi, "bf16 vs cpu", bf16["models"]["full"],
+                   bf16["cfgs"]["full"], pool_run["tokens"], lens, idx)
+
+
+def _engine_vs_cpu(torch, card: str, smi: str, tag: str, gpu, cfg16,
+                   tokens, lens, idx):
+    """A bf16 model on the card against the CPU, each device's model
+    through a pool engine of phase 4's geometry, on the prompts ``idx`` of
+    ``tokens`` (their ``lens``). The tolerance comes from the dtype
+    (``_dtype_tol``: twice the largest gap between the CPU's bf16 and fp32
+    first-token logits). The card's bf16 first-token logits must lie
+    within it of the CPU's bf16, and the card's greedy tokens must equal
+    the CPU's bf16 greedy tokens up to the first position where the CPU's
+    top-2 margin is under it."""
     import numpy as np
     from repro_torch.models.model import build_model
     from repro_torch.serving.engine import ContinuousEngine
 
-    cfg16 = bf16["cfgs"]["full"]
-    gpu = bf16["models"]["full"]
-    lens = pool_run["lens"]
-    idx = [int(i) for i in np.argsort(lens, kind="stable")
-           [:BF16_CPU_PROMPTS]]
-    prompts = [pool_run["tokens"][i, :lens[i]].astype(np.int32) for i in idx]
+    prompts = [tokens[i, :lens[i]].astype(np.int32) for i in idx]
 
     def run(model, cfg, new_tokens):
         eng = ContinuousEngine(build_model(cfg), model,
@@ -4372,53 +4597,51 @@ def bf16_vs_cpu(torch, card: str, smi: str, pool_run: dict, bf16: dict):
     t0 = time.monotonic()
     with torch.no_grad():
         card_first, card_tok, _ = run(gpu, cfg16, NEW_TOKENS)
-        cpu16 = type(gpu)(cfg16, device="cpu")
-        cpu16.load_state_dict(gpu.state_dict())
-        first16, tok16, marg16 = run(cpu16, cfg16, NEW_TOKENS)
-        del cpu16
-        cfg32 = dataclasses.replace(cfg16, dtype="float32")
-        cpu32 = type(gpu)(cfg32, device="cpu")
-        cpu32.load_state_dict(gpu.state_dict())    # bf16 values, widened
-        first32, _, _ = run(cpu32, cfg32, 1)
-        del cpu32
+        cpus, cfgs = _cpu_twins(torch, gpu, cfg16, True)
+        first16, tok16, marg16 = run(cpus["cpu"], cfg16, NEW_TOKENS)
+        first32, _, _ = run(cpus["cpu32"], cfgs["cpu32"], 1)
+        del cpus
     V = cfg16.vocab_size
     gap, tol = _dtype_tol(first16, first32, V)
     err = max((a[:V] - b[:V]).abs().max().item()
               for a, b in zip(card_first, first16))
     err32 = max((a[:V] - b[:V]).abs().max().item()
                 for a, b in zip(card_first, first32))
-    log(f"[bf16 vs cpu] {len(idx)} prompts of {[len(p) for p in prompts]} "
-        f"tokens on full: the dtype's gap (CPU bf16 against CPU fp32 "
-        f"first-token logits) {gap:.4g}, tolerance {tol:.4g}; card bf16 "
-        f"against CPU bf16 {err:.4g}, against CPU fp32 {err32:.4g}")
+    log(f"[{tag}] {cfg16.name}: {len(idx)} prompts of "
+        f"{[len(p) for p in prompts]} tokens: the dtype's gap (CPU bf16 "
+        f"against CPU fp32 first-token logits) {gap:.4g}, tolerance "
+        f"{tol:.4g}; card bf16 against CPU bf16 {err:.4g}, against CPU "
+        f"fp32 {err32:.4g}")
     if not err <= tol:
-        raise AssertionError(f"bf16 card vs CPU first-token logits {err} > "
-                             f"{tol}, twice the dtype's gap")
+        raise AssertionError(f"{tag}: bf16 card vs CPU first-token logits "
+                             f"{err} > {tol}, twice the dtype's gap")
     for i, got, want, margins in zip(idx, card_tok, tok16, marg16):
         sure = next((j for j, m in enumerate(margins) if m < tol),
                     len(margins))
         agree = next((j for j, (a, b) in enumerate(zip(got, want))
                       if a != b), min(len(got), len(want)))
-        log(f"[bf16 vs cpu] prompt {i}: card and CPU agree on the first "
+        log(f"[{tag}] prompt {i}: card and CPU agree on the first "
             f"{agree} of {len(want)} greedy tokens; the CPU's top-2 margin "
             f"first falls under {tol:.4g} at position "
             f"{sure if sure < len(margins) else 'none'}")
         if agree < min(sure, len(want)):
-            raise AssertionError(f"prompt {i}: card and CPU bf16 greedy "
-                                 f"tokens differ at {agree}, before the "
-                                 f"first near-tie ({sure})")
-    log(f"[bf16 vs cpu] {time.monotonic() - t0:.1f} s (most of it the "
-        f"CPU's bf16 serve) on {card} ({smi})")
+            raise AssertionError(f"{tag}: prompt {i}: card and CPU bf16 "
+                                 f"greedy tokens differ at {agree}, before "
+                                 f"the first near-tie ({sure})")
+    log(f"[{tag}] {time.monotonic() - t0:.1f} s (most of it the CPU's bf16 "
+        f"serve) on {card} ({smi})")
 
 
-def bf16_steps_phase(torch, card: str, smi: str):
+def bf16_steps_phase(torch, card: str, smi: str, runs=None, tag="bf16 steps"):
     """Phase 10(d): phase 9(b)'s qwen1.5-32b decode and prefill steps at
     ``dryrun_config``'s bf16 (depth STEP_DEPTH) on the card, each predicted
     first by the bf16 fake run on one device: predicted against measured
     peak, K5 / K4 once a layer a run, their bf16 instances only, finite
     logits, and the decode logits against the CPU's bf16 within the
     dtype's tolerance there (``_dtype_tol``: the CPU's bf16 against its
-    fp32 on the same weights)."""
+    fp32 on the same weights). ``runs``: other entries of ``_step_runs``
+    (phase 11(d): mamba2-130m's prefill, K3, its first row's logits held
+    to the CPU's the same way). Returns {kernel: {dtype: launches}}."""
     from repro_torch.launch import steps
     from repro_torch.launch.dryrun import trace_step
     from repro_torch.launch.inputs import dryrun_config
@@ -4427,28 +4650,33 @@ def bf16_steps_phase(torch, card: str, smi: str):
     dev = torch.device("cuda")
     counters = _all_counters()
     t_phase = time.monotonic()
-    model = None
-    for tag, cfg, shape, kernel, per_run in _step_runs()[:2]:
+    model_of = {}   # config name -> (its bf16 model on the card, base)
+    launched = {}
+    for name, cfg, shape, kernel, per_run in (runs or _step_runs()[:2]):
         rcfg = dryrun_config(cfg, shape)
         bundle = build_model(rcfg)
         t0 = time.monotonic()
         pred = trace_step(rcfg, shape)
-        log(f"[bf16 steps] {tag}: bf16 fake run on one device "
+        log(f"[{tag}] {name}: bf16 fake run on one device "
             f"{time.monotonic() - t0:.2f} s: predicted peak "
             f"{pred['memory']['peak_gb']:.3f} GB")
-        if model is None:
+        if cfg.name not in model_of:
+            model_of.clear()
             gc.collect()
             torch.cuda.empty_cache()
             base = torch.cuda.memory_allocated()
-            model = bundle.init(torch.Generator(device=dev).manual_seed(900),
-                                dev)
+            model_of[cfg.name] = (bundle.init(
+                torch.Generator(device=dev).manual_seed(900), dev), base)
+        model, base = model_of[cfg.name]
         gen = torch.Generator(device=dev).manual_seed(901)
         args = _step_args(torch, bundle, model, shape, dev, gen)
         cpu_args = None
-        if shape.kind == "decode":
+        if shape.kind == "decode" or rcfg.family == "ssm":
             cpu16 = type(model)(rcfg, device="cpu")
             cpu16.load_state_dict(model.state_dict())
             cpu_args = _to_cpu(torch, args, cpu16)
+            if shape.kind == "prefill":    # the CPU's prefill on one row
+                cpu_args = (cpu16, {"tokens": cpu_args[1]["tokens"][:1]})
         fn = (steps.build_decode_step(bundle, False) if shape.kind == "decode"
               else steps.build_prefill_step(bundle, shape.seq_len))
         _reset_counts(counters)
@@ -4466,60 +4694,74 @@ def bf16_steps_phase(torch, card: str, smi: str):
         by_dtype = _by_dtype(counters)
         want = {kernel: {"bfloat16": 2 * per_run}}
         logits = out[0]
-        log(f"[bf16 steps] {tag} on {card} ({smi}): measured peak "
+        log(f"[{tag}] {name} on {card} ({smi}): measured peak "
             f"{peak / 1e9:.3f} GB against {pred['memory']['peak_gb']:.3f} "
             f"GB predicted (bf16 fake run); wall {wall * 1e3:.3f} ms a "
             f"step; launches by dtype {by_dtype} (expected {want}); logits "
             f"{tuple(logits.shape)} {logits.dtype}")
         if by_dtype != want:
-            raise AssertionError(f"bf16 {tag}: launches {by_dtype} != {want}")
+            raise AssertionError(f"{tag} {name}: launches {by_dtype} != "
+                                 f"{want}")
         if logits.dtype != torch.bfloat16 or \
                 not torch.isfinite(logits.float()).all():
-            raise AssertionError(f"bf16 {tag}: logits not finite bf16")
+            raise AssertionError(f"{tag} {name}: logits not finite bf16")
+        for k, d in by_dtype.items():
+            launched.setdefault(k, {})["bfloat16"] = \
+                launched.get(k, {}).get("bfloat16", 0) + d["bfloat16"]
         if cpu_args is not None:
             cfg32 = dataclasses.replace(rcfg, dtype="float32")
             with torch.no_grad():
                 cpu32 = type(model)(cfg32, device="cpu")
                 cpu32.load_state_dict(cpu16.state_dict())  # widened
-                a32 = (cpu32, {k: v.float() if torch.is_tensor(v)
-                               and v.is_floating_point() else v
-                               for k, v in cpu_args[1].items()},
-                       cpu_args[2])
+                a32 = (cpu32,) + tuple(
+                    {k: v.float() if torch.is_tensor(v)
+                     and v.is_floating_point() else v
+                     for k, v in a.items()} if isinstance(a, dict) else a
+                    for a in cpu_args[1:])
                 c16 = fn(*cpu_args)[0].float()
-                c32 = steps.build_decode_step(build_model(cfg32),
-                                              False)(*a32)[0]
+                fn32 = (steps.build_decode_step(build_model(cfg32), False)
+                        if shape.kind == "decode" else
+                        steps.build_prefill_step(build_model(cfg32),
+                                                 shape.seq_len))
+                c32 = fn32(*a32)[0]
             gap, tol = _dtype_tol([c16], [c32], rcfg.vocab_size)
-            err = (logits.float().cpu() - c16)[:, :rcfg.vocab_size].abs() \
-                .max().item()
-            log(f"[bf16 steps] {tag}: card against CPU bf16 logits {err:.4g}"
+            err = (logits[:len(c16)].float().cpu() - c16)[
+                :, :rcfg.vocab_size].abs().max().item()
+            log(f"[{tag}] {name}: card against CPU bf16 logits {err:.4g}"
                 f"; the dtype's gap (CPU bf16 against fp32) {gap:.4g}, "
                 f"tolerance {tol:.4g}")
             if not err <= tol:
-                raise AssertionError(f"bf16 {tag}: card vs CPU {err} > "
+                raise AssertionError(f"{tag} {name}: card vs CPU {err} > "
                                      f"{tol}")
             del cpu16, cpu32, cpu_args, a32
         del args, out, logits
-    del model
+    del model_of, model
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"[bf16 steps] {time.monotonic() - t_phase:.1f} s")
+    log(f"[{tag}] {time.monotonic() - t_phase:.1f} s")
+    return launched
 
 
 def bf16_phase(torch, card: str, smi: str, pool_run: dict):
     """Phase 10 (after phase 9's card work, while its dry runs finish on
-    the host; on phase 4's models, router and prompts):
-    the tiers cast to bf16 in place (phase 4's fp32 models are not used
-    after it), then (a) is phase 3's bf16 cases, (b) the routed pool
-    (``bf16_pool_phase``) and the card against the CPU (``bf16_vs_cpu``),
-    (c) phase 4b's dense hybrid path at bf16 (K4 once a layer a prefill,
-    K5 once a layer a decode step, their bf16 instances only) and (d)
-    the dry run's decode and prefill steps at bf16 (``bf16_steps_phase``).
-    Returns {kernel: {dtype: launches}} over (b) and (c)."""
+    the host; on phase 4's models, router and prompts): the tiers' bf16
+    twins (``bridge.twin``: each weight in its parameter's dtype at the
+    bf16 config, as the bridge loads it there), then (a) is phase 3's bf16
+    cases, (b) the routed pool (``bf16_pool_phase``) and the card against
+    the CPU (``bf16_vs_cpu``), (c) phase 4b's dense hybrid path at bf16
+    (K4 once a layer a prefill, K5 once a layer a decode step, their bf16
+    instances only) and (d) the dry run's decode and prefill steps at bf16
+    (``bf16_steps_phase``). Returns {kernel: {dtype: launches}} over (b)
+    and (c)."""
+    from repro_torch import bridge
     t0 = time.monotonic()
-    bf16 = dict(cfgs={n: dataclasses.replace(c, dtype="bfloat16")
-                      for n, c in pool_run["cfgs"].items()},
-                models={n: m.to(torch.bfloat16)
-                        for n, m in pool_run["models"].items()})
+    cfgs = {n: dataclasses.replace(c, dtype="bfloat16")
+            for n, c in pool_run["cfgs"].items()}
+    # each fp32 tier gives way to its twin: nothing after phase 10 uses
+    # phase 4's models at fp32
+    models = pool_run["models"]
+    bf16 = dict(cfgs=cfgs, models={n: bridge.twin(models.pop(n), cfgs[n])
+                                   for n in list(models)})
     gc.collect()
     torch.cuda.empty_cache()
     launches = bf16_pool_phase(torch, card, smi, pool_run, bf16)
@@ -4531,9 +4773,131 @@ def bf16_phase(torch, card: str, smi: str, pool_run: dict):
     # its warm-up serve and its counted serve: the bf16 instances only
     _only_bf16("phase 10(c)", _by_dtype(counters), dense)
     launches.update({k: {"bfloat16": n} for k, n in dense.items()})
+    del bf16
     bf16_steps_phase(torch, card, smi)
     log(f"[bf16] phase 10 {time.monotonic() - t0:.3f} s on {card} ({smi})")
     return launches
+
+
+# ----------------------------------------------------------------- phase 11
+# the kernels line's keys of phase 11's paths, launches by dtype
+BF16_PATHS = ("mamba2-130m-bf16", "jamba-v0.1-52b-bf16",
+              "whisper-large-v3-bf16", "internvl2-26b-bf16")
+
+
+def _frontend_bf16(run32, run16, tag, card, smi):
+    """Phase 11(c)'s serve beside phase 4h's: prefill ms, tokens/s and
+    the peak memory at bf16 and fp32."""
+    log(f"[{tag}] prefill alone {run16['prefill_ms']:.3f} ms, "
+        f"{run16['tokens_s']:.1f} tokens/s, peak {run16['peak_gb']:.2f} GB "
+        f"at bf16; phase 4h at fp32: {run32['prefill_ms']:.3f} ms, "
+        f"{run32['tokens_s']:.1f} tokens/s, peak {run32['peak_gb']:.2f} GB; "
+        f"on {card} ({smi})")
+
+
+def _add_by_dtype(*counts):
+    """{kernel: {dtype: launches}} summed over ``counts``."""
+    out = {}
+    for c in counts:
+        for k, d in c.items():
+            for dt, n in d.items():
+                out.setdefault(k, {})[dt] = out.get(k, {}).get(dt, 0) + n
+    return out
+
+
+def ssm_bf16_phase(torch, card: str, smi: str, ssm_run: dict):
+    """Phase 11(a) (after phase 10, while phase 9's dry runs finish on the
+    host): phase 4c's two mamba2-130m tiers as their bf16 twins
+    (``bridge.twin``: ``A_log``, ``D`` and ``dt_bias`` stay fp32), behind
+    4c's router and on its prompts, through the pool and the dense hybrid
+    path (``_ssm_serve``: K3 exactly layers x prefill dispatches on the
+    pool and layers a prefill on the dense path, nothing else, no page or
+    state row leaked), each routing as 4c's pool did and launching only
+    K3's bf16 instance; tokens/s beside 4c's. Then the card against the
+    CPU at depth 1 (the full tier's first layer) through pool engines, as
+    phase 10's ``bf16_vs_cpu``. Returns {kernel: {dtype: launches}} over
+    both paths."""
+    import numpy as np
+    from repro_torch import bridge
+    from repro_torch.models import decoder
+    t0 = time.monotonic()
+    cfgs = {n: dataclasses.replace(c, dtype="bfloat16")
+            for n, c in ssm_run["cfgs"].items()}
+    run = dict(ssm_run, cfgs=cfgs, models={
+        n: bridge.twin(m, cfgs[n]) for n, m in ssm_run["models"].items()})
+    out = _ssm_serve(torch, card, smi, "ssm bf16", run,
+                     tier_idx=ssm_run["tier_idx"])
+    by_dtype = _add_by_dtype(out["pool_by_dtype"], out["dense_by_dtype"])
+    _only_bf16("phase 11(a)", by_dtype, ["ssd_chunk_scan"])
+    if set(by_dtype) != {"ssd_chunk_scan"}:
+        raise AssertionError(f"phase 11(a): launches {by_dtype}")
+    for path in ("pool", "dense"):
+        (n16, w16), (n32, w32) = out[path], ssm_run[path]
+        log(f"[ssm bf16] {path}: {n16 / w16:.1f} tokens/s at bf16 against "
+            f"phase 4c's {n32 / w32:.1f} at fp32 on {card} ({smi})")
+    full = run["models"]["full"]
+    cfg1 = dataclasses.replace(cfgs["full"], n_layers=1)
+    gpu = decoder.Decoder(cfg1, device="meta")
+    for name in ("embed", "ln_f", "head"):
+        if hasattr(full, name):
+            setattr(gpu, name, getattr(full, name))
+    gpu.layers = torch.nn.ModuleList(full.layers[:1])
+    lens = ssm_run["lens"]
+    idx = [int(i) for i in np.argsort(lens, kind="stable")
+           [:BF16_CPU_PROMPTS]]
+    _engine_vs_cpu(torch, card, smi, "ssm bf16 vs cpu", gpu, cfg1,
+                   ssm_run["tokens"], lens, idx)
+    del run, gpu, full
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[ssm bf16] phase 11(a) {time.monotonic() - t0:.3f} s on {card} "
+        f"({smi})")
+    return by_dtype
+
+
+def jamba_bf16_phase(torch, card: str, smi: str, jamba_run: dict):
+    """Phase 11(b) (after phase 4g and its phase-5 check, on the memory
+    they held): phase 4g's two jamba-v0.1-52b tiers at bf16, drawn from
+    4g's seeds in fp32 and stored in each parameter's dtype
+    (``bridge.init_twin``: 4g's weights rounded, without an fp32 build,
+    which would not fit beside the other tier), behind 4g's router on its
+    prompts, through the pool and the dense hybrid path
+    (``_jamba_serve``: exact launches by kernel, no page or state row
+    leaked, the MoE drops logged), routing as 4g's pool did and launching
+    only the bf16 instances; tokens/s beside 4g's and the peak memory.
+    Then the "half" tier against the CPU as phase 5 checks it
+    (``card_vs_cpu``), within twice the dtype's gap. Returns {kernel:
+    {dtype: launches}} over both paths."""
+    from repro_torch import bridge
+    dev = torch.device("cuda")
+    t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    cfgs = {n: dataclasses.replace(c, dtype="bfloat16")
+            for n, c in jamba_run["cfgs"].items()}
+    models = {n: bridge.init_twin(cfgs[n], torch.Generator(device=dev)
+                                  .manual_seed(400 + i), dev)
+              for i, n in enumerate(cfgs)}
+    torch.cuda.synchronize()
+    log(f"[jamba bf16] the tiers at bf16 from phase 4g's seeds: "
+        f"{time.monotonic() - t0:.1f} s, {_peak(torch)} allocated")
+    run = dict(jamba_run, cfgs=cfgs, models=models)
+    out = _jamba_serve(torch, card, smi, "jamba bf16", run,
+                       tier_idx=jamba_run["tier_idx"])
+    by_dtype = _add_by_dtype(out["pool_by_dtype"], out["dense_by_dtype"])
+    _only_bf16("phase 11(b)", by_dtype, list(by_dtype))
+    for path in ("pool", "dense"):
+        (n16, w16), (n32, w32) = out[path], jamba_run[path]
+        log(f"[jamba bf16] {path}: {n16 / w16:.1f} tokens/s at bf16 "
+            f"against phase 4g's {n32 / w32:.1f} at fp32 on {card} ({smi})")
+    log(f"[jamba bf16] peak memory in phase 11(b): {_peak(torch)}")
+    del models["full"], run
+    gc.collect()
+    torch.cuda.empty_cache()
+    card_vs_cpu(torch, models["half"], cfgs["half"], "(one block, bf16)",
+                lens=(40, 27), dtype_gap=True)
+    log(f"[jamba bf16] phase 11(b) {time.monotonic() - t0:.3f} s on {card} "
+        f"({smi})")
+    return by_dtype
 
 
 def main() -> int:
@@ -4565,12 +4929,17 @@ def main() -> int:
                         pool_run["cfgs"]["full"])
     device_vs_cpu_phase(torch, ssm_run["model"], ssm_run["cfg"])
     analysis_phase(torch, card, smi, pool_run, ssm_run)
-    # phase 10 runs while phase 9's dry runs work on the host, after 9(b)
-    # and (c); it casts phase 4's models to bf16 in place: nothing after
-    # it uses them at fp32
-    bf16_launches = {}
-    phase10 = lambda: bf16_launches.update(
-        bf16_phase(torch, card, smi, pool_run))
+    # phases 10 and 11(a), (d) run while phase 9's dry runs work on the
+    # host, after 9(b) and (c), on the bf16 twins of phases 4 and 4c's
+    # models; phase 10 drops phase 4's fp32 models for theirs
+    bf16_launches, bf16_paths = {}, {}
+
+    def phase10():
+        bf16_launches.update(bf16_phase(torch, card, smi, pool_run))
+        bf16_paths["mamba2-130m-bf16"] = ssm_bf16_phase(torch, card, smi,
+                                                        ssm_run)
+        bf16_steps_phase(torch, card, smi, runs=_step_runs()[3:],
+                         tag="ssm bf16 step")
     for path, counts in dryrun_phase(torch, card, smi, pool_run,
                                      meanwhile=phase10).items():
         for name, n in counts.items():
@@ -4596,6 +4965,11 @@ def main() -> int:
         by_path[name]["jamba-v0.1-52b"] = n
     card_vs_cpu(torch, jamba_run["model"], jamba_run["cfg"], "(one block)",
                 lens=(40, 27))
+    del jamba_run["models"], jamba_run["model"]  # phase 11(b) needs the
+    gc.collect()                                 # card's memory
+    torch.cuda.empty_cache()
+    bf16_paths["jamba-v0.1-52b-bf16"] = jamba_bf16_phase(torch, card, smi,
+                                                         jamba_run)
     del jamba_run   # phase 4h needs the card's memory
     gc.collect()
     torch.cuda.empty_cache()
@@ -4606,14 +4980,23 @@ def main() -> int:
     for name, n in whisper_run["launches"].items():
         by_path[name]["whisper-large-v3"] = n
     whisper_vs_cpu(torch, whisper_run["model"], whisper_run["cfg"])
-    del whisper_run
+    # phase 11(c): the bf16 twin of each phase-4h model in its place
+    whisper16 = whisper_phase(torch, card, smi, fp32=whisper_run)
+    _frontend_bf16(whisper_run, whisper16, "whisper bf16", card, smi)
+    bf16_paths["whisper-large-v3-bf16"] = whisper16["by_dtype"]
+    whisper_vs_cpu(torch, whisper16["model"], whisper16["cfg"])
+    del whisper_run, whisper16
     gc.collect()
     torch.cuda.empty_cache()
     vlm_run = internvl2_phase(torch, card, smi)
     for name, n in vlm_run["launches"].items():
         by_path[name]["internvl2-26b"] = n
     internvl2_vs_cpu(torch, vlm_run["model"], vlm_run["cfg"])
-    del vlm_run     # phase 6 needs the card's memory
+    vlm16 = internvl2_phase(torch, card, smi, fp32=vlm_run)
+    _frontend_bf16(vlm_run, vlm16, "internvl2 bf16", card, smi)
+    bf16_paths["internvl2-26b-bf16"] = vlm16["by_dtype"]
+    internvl2_vs_cpu(torch, vlm16["model"], vlm16["cfg"])
+    del vlm_run, vlm16     # phase 6 needs the card's memory
     gc.collect()
     torch.cuda.empty_cache()
     moe_vs_cpu_phase(torch)
@@ -4631,9 +5014,12 @@ def main() -> int:
         row["launches"] = launches[row["name"]]
         row["launches_by_path"] = by_path[row["name"]]
         row["qwen1.5-32b-bf16"] = bf16_launches.get(row["name"], {})
+        for path, counts in bf16_paths.items():
+            row[path] = counts.get(row["name"], {})
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "bf16", "qwen1.5-32b-bf16")
+            "bound_by", "library_ms", "bf16", "qwen1.5-32b-bf16",
+            *BF16_PATHS)
     log(smi)
     log(json.dumps({"kernels": [{k: r.get(k) for k in keys} for r in rows]}))
     log(json.dumps({"ok": True, "device": {

@@ -238,10 +238,13 @@ LAYOUTS: Dict[str, Dict[str, object]] = {
 }
 
 
-# the attention kernels' bf16 instances take their fp32 twins' layouts
+# the bf16 instances take their fp32 twins' layouts (the SSD scan's x, B
+# and C as elem::bf16, its dt, dA, y and state as float: the dtypes come
+# from the parsed signature)
 LAYOUTS.update({name.replace("_f32", "_bf16"): LAYOUTS[name] for name in (
     "decode_attention_f32", "flash_attention_f32",
-    "paged_decode_attention_f32", "paged_prefill_attention_f32")})
+    "paged_decode_attention_f32", "paged_prefill_attention_f32",
+    "ssd_chunk_scan_f32")})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -627,10 +630,19 @@ def _probe_ssd(mk: Inputs) -> List[Mode]:
     xs = mk.f(b, nc, lm, Hm, Pm)
     dts, dac = _ssd_inputs(mk, (b, nc), lm, Hm, -1)  # (b, nc, l, H)
     Bs, Cs = mk.f(b, nc, lm, Nm), mk.f(b, nc, lm, Nm)
+    bf = lambda *ts: [t.to(torch.bfloat16) for t in ts]
+    kx, kb, kc = bf(x, Bk, Ck)
+    mx, mb, mc = bf(xs, Bs, Cs)
     return [
         _mode("kernel_layout", ops.ssd_chunk_scan, x, dt[..., None],
               da[..., None], Bk, Ck, scaled=True),
         _mode("model_layout", ops.ssd_chunk, xs, dts, dac, Bs, Cs,
+              scaled=True),
+        # both layouts again with x, B and C at bf16 (dt and dA fp32, the
+        # outputs fp32: held at the fp32 tolerance)
+        _mode("bf16_kernel_layout", ops.ssd_chunk_scan, kx, dt[..., None],
+              da[..., None], kb, kc, scaled=True),
+        _mode("bf16_model_layout", ops.ssd_chunk, mx, dts, dac, mb, mc,
               scaled=True),
     ]
 

@@ -24,12 +24,20 @@ from a ``.npz`` that ``save_checkpoint`` wrote) are read as their 16 bits
 and viewed as ``torch.bfloat16`` (``tensor_from_numpy``), without
 ``ml_dtypes``; a bf16 parameter comes back as fp32 arrays, which hold
 every bf16 value exactly.
+
+A module moves to another dtype as the bridge loads it there: ``twin``
+builds the module at the other config and copies each weight into the
+parameter's own dtype, so a bf16 SSM keeps ``A_log``, ``D`` and
+``dt_bias`` in fp32 (as the reference's bf16 config does, and a
+module-wide ``.to(torch.bfloat16)`` would not); ``init_twin`` draws that
+twin's weights from a seed without holding the fp32 module.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.models.common import init_params_
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.decoder import Decoder
 from repro_torch.models.encdec import EncDec
@@ -81,6 +89,43 @@ def _state_from_tree(tree: dict, n_layers: int) -> dict:
     return state
 
 
+def module_class(cfg):
+    """The port's module class for ``cfg``: ``Decoder`` for an
+    ``ArchConfig`` (``Hybrid`` for ``family="hybrid"``, ``EncDec`` for an
+    encoder-decoder), ``RouterEncoder`` for a ``RouterConfig``."""
+    if isinstance(cfg, ArchConfig):
+        return (EncDec if cfg.is_encoder_decoder else Hybrid
+                if cfg.family == "hybrid" else Decoder)
+    if isinstance(cfg, RouterConfig):
+        return RouterEncoder
+    raise TypeError(f"no port module for config {type(cfg).__name__}")
+
+
+@torch.no_grad()
+def twin(module: torch.nn.Module, cfg) -> torch.nn.Module:
+    """``module``'s weights in the module for ``cfg`` (its own config at
+    another dtype, such as ``dataclasses.replace(c, dtype="bfloat16")``),
+    on ``module``'s device: each parameter copied into that module's own
+    dtype (rounded to nearest even where it narrows), as
+    ``params_from_numpy`` loads the same weights at ``cfg``. Parameters
+    the config keeps in fp32 (an SSM's ``A_log``, ``D``, ``dt_bias``) stay
+    fp32."""
+    out = module_class(cfg)(cfg, next(module.parameters()).device)
+    out.load_state_dict(module.state_dict())
+    return out
+
+
+@torch.no_grad()
+def init_twin(cfg, generator, device="cuda") -> torch.nn.Module:
+    """``twin(build_model(c).init(generator, device), cfg)`` with ``c`` the
+    fp32 config of ``cfg``, without the fp32 module: each parameter drawn
+    in fp32 in the init's order, then stored in its own dtype
+    (``init_params_(draw_dtype=torch.float32)``), so a seed names the same
+    weights at each dtype."""
+    return init_params_(module_class(cfg)(cfg, device), generator,
+                        draw_dtype=torch.float32)
+
+
 @torch.no_grad()
 def params_from_numpy(tree: dict, cfg, device="cuda"):
     """The port's module for ``cfg`` holding the reference param ``tree``
@@ -91,13 +136,7 @@ def params_from_numpy(tree: dict, cfg, device="cuda"):
     ``device``, each parameter in the config's dtype (a bf16 array into a
     bf16 parameter bit for bit, into an fp32 one exactly). Raises on a
     missing, unexpected or mis-shaped tensor."""
-    if isinstance(cfg, ArchConfig):
-        model = (EncDec if cfg.is_encoder_decoder else Hybrid
-                 if cfg.family == "hybrid" else Decoder)(cfg, device)
-    elif isinstance(cfg, RouterConfig):
-        model = RouterEncoder(cfg, device)
-    else:
-        raise TypeError(f"no port module for config {type(cfg).__name__}")
+    model = module_class(cfg)(cfg, device)
     state = _state_from_tree(tree, cfg.n_layers)
     params = dict(model.named_parameters())
     if state.keys() != params.keys():

@@ -1,12 +1,17 @@
-// Mamba-2 SSD intra-chunk scan for Hopper (sm_90a), fp32 through 3xTF32 on
-// the tensor cores.
+// Mamba-2 SSD intra-chunk scan for Hopper (sm_90a), at fp32 accuracy on the
+// tensor cores (3xTF32; two TF32 products where an operand is bf16).
 //
 // Replaces the TPU kernel src/repro/kernels/ssd_scan/kernel.py:53 ::
 // ssd_chunk_scan (body _ssd_kernel). For each (batch*chunk bc, head h) of
 // a chunk of l positions:
 //   y[i]  = sum_{j <= i} (C_i . B_j) * exp(dA_i - dA_j) * dt_j * x_j   (l, P)
 //   state = sum_j exp(dA_last - dA_j) * dt_j * B_j (x) x_j              (N, P)
-// B and C are shared by every head of a bc; everything is fp32.
+// B and C are shared by every head of a bc. x, B and C are fp32 or bf16 (one
+// type for the three: ssd_chunk_scan_f32, ssd_chunk_scan_bf16); dt and dA
+// are fp32, and y and the state are written as fp32, in both instances, as
+// the TPU kernel widens its inputs and writes fp32 (kernel.py:26-30, 81-84).
+// Nothing is rounded to bf16 inside the kernel: every product and sum is
+// fp32 arithmetic on the inputs' exact values.
 //
 // What bounds it: at the dense path's chunk (l = 256, N = 128, P = 64)
 // operations: the scores (l*l*N/2 flops per bc, once for all heads), y (l*l*P
@@ -38,12 +43,22 @@
 //   stream their key tiles as one pipeline.
 // Key tiles of x (with dA and dt), of B and the C rows are copied by
 // cp.async, two stages at l > 16 (one tile at l <= 16, where a y role
-// copies its first x with C and B). Every product is a 3xTF32 m16n8k8
-// mma.sync; fragments are read from shared memory with strides that put
-// the 32 lanes on 32 distinct banks and split into TF32 halves in
-// registers. y and the state are stored from the accumulator fragments:
-// lanes with the same t cover 32 contiguous bytes along the state's n in
-// the model layout, so every sector of the state written there is whole.
+// copies its first x with C and B). At bf16 the x, B and C rows are read
+// 16 bytes (8 values) at a time into registers instead, widened to fp32
+// (elem.cuh) and stored: shared memory holds fp32 in both instances, so
+// the tiles, strides and the 142 KB budget below are the same; dA and dt
+// still go by cp.async. At fp32 every product is a 3xTF32 m16n8k8
+// mma.sync. At bf16 a bf16 value is exact in TF32, so the scores C B^T
+// (both bf16) take one TF32 product, exact per term; y += G x and the
+// state (B o w)^T x split only their fp32 side (G, B o w) into TF32
+// halves and add lo x, then hi x: mma3's third term (hi x lo) is 0 when x
+// has no low part, so two products keep the three's accuracy
+// (tests/test_torch_ssd_tf32x3.py). Fragments are read from shared memory
+// with strides that put the 32 lanes on 32 distinct banks and split into
+// TF32 halves in registers. y and the state are stored from the
+// accumulator fragments: lanes with the same t cover 32 contiguous bytes
+// along the state's n in the model layout, so every sector of the state
+// written there is whole.
 // 16 warps a block at l > 16 and P <= 64 (one block an SM: the strip and
 // two stages of x for 4 heads take 142 KB), 8 otherwise.
 //
@@ -54,17 +69,21 @@
 // ms, the copies 0.03 more; splitting x costs 10%, the gates 6%; each
 // warp's mma.sync issue waits on shared-memory loads and splits, which 16
 // warps at 128 registers cannot prefetch. The knobs move it by 5% at most.
+// The bf16 instance took 0.125 ms there against the fp32 instance's 0.162
+// in the same run (chip_smoke.py phase 3, device time): fewer products,
+// while its x, B and C loads wait in registers instead of cp.async.
 //
 // Summation order, fixed by absolute position: a score sums its 8-wide
 // k step kk over n into accumulator kk % 4, and the four are added in
 // order at the end; y and the state each carry one accumulator over 8-key
-// steps j in increasing order; each step adds lo x hi, hi x lo, hi x hi.
+// steps j in increasing order; each step adds lo x hi, hi x lo, hi x hi
+// (at bf16: lo x, hi x).
 // No sum is split across warps or blocks and there are no atomics. Tiles
 // wholly above a warp's rows are skipped, and a step past a row's
 // diagonal or past l adds exact zeros. So neither HG, NT, BC, the row
 // tile nor the key tile changes an output's bits: a bc gives the same y
 // and state alone and packed, and a chunk padded with dt = 0 to any l
-// bucket (l <= 16) the same y rows and state.
+// bucket (l <= 16) the same y rows and state, in either instance.
 //
 // Layouts, all through element strides: x (bc, h, j, p) at (x_sbc, x_sh,
 // x_sl), unit stride on p; dt and dA (bc, h, j) at (d_sbc, d_sh, d_sl); B
@@ -72,10 +91,11 @@
 // (y_sbc, y_sh, y_sl), unit stride on p; state (bc, h, n, p) at (s_sbc,
 // s_sh, s_sn, s_sp). The TPU kernel's layout and the model's (b, nc, l, H,
 // P) layout are both strides of these; rows are copied 16 bytes at a time
-// where widths, strides and pointers allow it, 4 bytes otherwise.
+// where widths, strides and pointers allow it, one element otherwise.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "elem.cuh"
 #include "mma_tf32x3.cuh"
 #include "smem_copy.cuh"
 
@@ -123,8 +143,12 @@ using tilecopy::cp_async4;
 
 constexpr int kMaxSmem = 232448;   // a block's shared memory on Hopper
 
+// T: the element type of x, B and C (float or elem::bf16)
+template <typename T>
 struct Args {
-  const float *x, *dt, *da, *B, *C;
+  const T* x;
+  const float *dt, *da;
+  const T *B, *C;
   float *y, *st;
   int H, l, P, N, HG, state_tiles, vec_x, vec_b;
   int x_sbc, x_sh, x_sl, d_sbc, d_sh, d_sl, b_sbc, b_sl;
@@ -196,23 +220,42 @@ struct Geo {
   }
 };
 
-// Four floats at column c of a row (row_ok: the row exists) of width W into
-// dst, zero past W or when !row_ok. vec: one 16-byte copy (W, the strides
-// and the base are multiples of 4 floats, so the chunk lies wholly inside
-// or past W); else four of 4 bytes. `any` is a valid address for the
-// copies that read nothing.
-__device__ __forceinline__ void copy4(float* dst, const float* row,
-                                      const float* any, bool row_ok, int c,
-                                      int W, bool vec) {
-  if (vec) {
-    const bool in = row_ok && c < W;
-    cp_async16(dst, in ? row + c : any, in);
-  } else {
+// Elements a copy unit covers: 16 bytes of T.
+template <typename T>
+constexpr int kUnit = 16 / (int)sizeof(T);
+
+// kUnit<T> elements at column c of a row (row_ok: the row exists) of width
+// W into dst as fp32, zero past W or when !row_ok. vec: one 16-byte access
+// (W, the strides and the base are multiples of the unit, so the unit lies
+// wholly inside or past W); else one access an element. fp32 goes by
+// cp.async; bf16 is read into registers, widened (exactly) and stored.
+// `any` is a valid address for the copies that read nothing.
+template <typename T>
+__device__ __forceinline__ void copy_unit(float* dst, const T* row,
+                                          const T* any, bool row_ok, int c,
+                                          int W, bool vec) {
+  if constexpr (!elem::is_bf16<T>()) {
+    if (vec) {
+      const bool in = row_ok && c < W;
+      cp_async16(dst, in ? row + c : any, in);
+    } else {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const bool in = row_ok && c + i < W;
-      cp_async4(dst + i, in ? row + c + i : any, in);
+      for (int i = 0; i < 4; ++i) {
+        const bool in = row_ok && c + i < W;
+        cp_async4(dst + i, in ? row + c + i : any, in);
+      }
     }
+  } else {
+    float v[8];
+    if (vec) {
+      elem::load<8>(v, row + c, row_ok && c < W);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        v[i] = row_ok && c + i < W ? elem::ldg(row + c + i) : 0.f;
+    }
+    reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
   }
 }
 
@@ -259,19 +302,21 @@ __device__ __forceinline__ void pipeline(int t0, int t1, Load&& load,
 
 // Start copying key tile [j0, j0 + KT) of heads hb + r, r < hr, below h_end
 // into slots[r]: x rows (zero past l and P), then dA and dt (zero past l).
-template <class G>
-__device__ __forceinline__ void load_x(const Args& a, float* slots, int bc,
-                                       int hb, int hr, int h_end, int j0) {
-  constexpr int CPR = G::kPT / 4;   // 16-byte chunks of a row
+template <class G, typename T>
+__device__ __forceinline__ void load_x(const Args<T>& a, float* slots,
+                                       int bc, int hb, int hr, int h_end,
+                                       int j0) {
+  constexpr int U = kUnit<T>;
+  constexpr int CPR = G::kPT / U;   // 16-byte units of a row
   for (int e = threadIdx.x; e < (SSD_SKIP & 16 ? 0 : hr * G::kKT * CPR);
        e += G::kThreads) {
     const int r = e / (G::kKT * CPR), rem = e % (G::kKT * CPR);
-    const int j = rem / CPR, c = 4 * (rem % CPR), h = hb + r;
+    const int j = rem / CPR, c = U * (rem % CPR), h = hb + r;
     if (h >= h_end) continue;
-    const float* row = a.x + (size_t)bc * a.x_sbc + (size_t)h * a.x_sh +
-                       (size_t)(j0 + j) * a.x_sl;
-    copy4(slots + r * G::kSlot + j * G::kSX + c, row, a.x, j0 + j < a.l, c,
-          a.P, a.vec_x);
+    const T* row = a.x + (size_t)bc * a.x_sbc + (size_t)h * a.x_sh +
+                   (size_t)(j0 + j) * a.x_sl;
+    copy_unit(slots + r * G::kSlot + j * G::kSX + c, row, a.x, j0 + j < a.l,
+              c, a.P, a.vec_x);
   }
   for (int e = threadIdx.x; e < (SSD_SKIP & 32 ? 0 : hr * G::kKT);
        e += G::kThreads) {
@@ -287,18 +332,18 @@ __device__ __forceinline__ void load_x(const Args& a, float* slots, int bc,
 }
 
 // Rows [j0, j0 + rows) of a (l, W) matrix at row stride sl, columns
-// [c0, c0 + cols) (cols a multiple of 4), into dst at row stride ds; zero
-// past l and W.
-template <class G>
-__device__ __forceinline__ void load_rows(float* dst, int ds,
-                                          const float* src, int sl, int j0,
-                                          int rows, int c0, int cols, int l,
-                                          int W, bool vec) {
-  const int cpr = cols / 4;
+// [c0, c0 + cols) (cols a multiple of kUnit<T>), into dst at row stride ds
+// as fp32; zero past l and W.
+template <class G, typename T>
+__device__ __forceinline__ void load_rows(float* dst, int ds, const T* src,
+                                          int sl, int j0, int rows, int c0,
+                                          int cols, int l, int W, bool vec) {
+  constexpr int U = kUnit<T>;
+  const int cpr = cols / U;
   for (int e = threadIdx.x; e < rows * cpr; e += G::kThreads) {
-    const int j = e / cpr, c = 4 * (e % cpr);
-    copy4(dst + j * ds + c, src + (size_t)(j0 + j) * sl, src, j0 + j < l,
-          c0 + c, W, vec);
+    const int j = e / cpr, c = U * (e % cpr);
+    copy_unit(dst + j * ds + c, src + (size_t)(j0 + j) * sl, src,
+              j0 + j < l, c0 + c, W, vec);
   }
 }
 
@@ -309,8 +354,9 @@ using Acc = float[G::kNT / G::kNG][G::kNG][4];
 
 // acc += A x over every n-tile of the head, A split: x's B fragments at
 // k step ks (b0 (k = t, n = g), b1 (k = t + 4, n = g); xl: the slot's x
-// rows at row t, column g).
-template <class G>
+// rows at row t, column g). A bf16 x (X_EXACT: exact in TF32) passes
+// unsplit and takes two products, lo x then hi x.
+template <class G, bool X_EXACT>
 __device__ __forceinline__ void times_x(Acc<G>& acc, const uint32_t (&ah)[4],
                                         const uint32_t (&al)[4],
                                         const float* xl, int ks) {
@@ -321,6 +367,11 @@ __device__ __forceinline__ void times_x(Acc<G>& acc, const uint32_t (&ah)[4],
 #pragma unroll
     for (int i = 0; i < G::kNG; ++i) {
       const float* p = xl + 8 * ks * G::kSX + 8 * (G::kNG * ng + i);
+      if constexpr (X_EXACT) {
+        bh[i][0] = __float_as_uint(p[0]);
+        bh[i][1] = __float_as_uint(p[4 * G::kSX]);
+        continue;
+      }
       if (SSD_SKIP & 64) {
         bh[i][0] = __float_as_uint(p[0]);
         bh[i][1] = __float_as_uint(p[4 * G::kSX]);
@@ -330,7 +381,10 @@ __device__ __forceinline__ void times_x(Acc<G>& acc, const uint32_t (&ah)[4],
       tf32x3::split(p[0], bh[i][0], bl[i][0]);
       tf32x3::split(p[4 * G::kSX], bh[i][1], bl[i][1]);
     }
-    tf32x3::mma3(acc[ng], ah, al, bh, bl);
+    if constexpr (X_EXACT)
+      tf32x3::mma2(acc[ng], ah, al, bh);
+    else
+      tf32x3::mma3(acc[ng], ah, al, bh, bl);
   }
 }
 
@@ -365,7 +419,9 @@ __device__ __forceinline__ void store(const Acc<G>& acc, float* dst,
 // The scores of slab rows (cs: 16 C rows at stride sc) against the 8 keys
 // of bt (B rows at stride sc) over Np (N padded to 8), as one m16n8 tile:
 // k step kk is summed into accumulator kk % 4, and the four are added in
-// order at the end (four chains of dependent mma.sync, not one).
+// order at the end (four chains of dependent mma.sync, not one). EXACT
+// (bf16 C and B, exact in TF32): one TF32 product a step, exact per term.
+template <bool EXACT>
 __device__ __forceinline__ void scores8(const float* cs, const float* bt,
                                         int sc, int Np, int g, int t,
                                         float (&s)[4]) {
@@ -381,6 +437,16 @@ __device__ __forceinline__ void scores8(const float* cs, const float* bt,
       if (k0 + e >= nk) break;
       const float* c = cs + g * sc + 8 * (k0 + e) + t;
       const float* b = bt + g * sc + 8 * (k0 + e) + t;
+      if constexpr (EXACT) {
+        const uint32_t a[4] = {__float_as_uint(c[0]),
+                               __float_as_uint(c[8 * sc]),
+                               __float_as_uint(c[4]),
+                               __float_as_uint(c[8 * sc + 4])};
+        const uint32_t bb[2] = {__float_as_uint(b[0]),
+                                __float_as_uint(b[4])};
+        tf32x3::mma(sp[e][0], a, bb);
+        continue;
+      }
       uint32_t ah[4], al[4], bh[1][2], bl[1][2];
       tf32x3::split(c[0], ah[0], al[0]);
       tf32x3::split(c[8 * sc], ah[1], al[1]);
@@ -397,10 +463,11 @@ __device__ __forceinline__ void scores8(const float* cs, const float* bt,
 }
 
 // The y role: rows [r0, r0 + RT) of heads [h0, h_end).
-template <int RT, int PT>
-__device__ __forceinline__ void y_role(const Args& a, float* smem, int bc,
+template <int RT, int PT, typename T>
+__device__ __forceinline__ void y_role(const Args<T>& a, float* smem, int bc,
                                        int h0, int h_end, int r0) {
   using G = Geo<RT, PT>;
+  constexpr bool kExact = elem::is_bf16<T>();   // x, B, C exact in TF32
   const int l = a.l, SC = G::sc(a.N), Np = pad8(a.N);
   float* strip = smem;                 // RT x kSS: scores
   float* region = strip + RT * G::kSS;   // C rows and B tiles, or x slots
@@ -410,7 +477,7 @@ __device__ __forceinline__ void y_role(const Args& a, float* smem, int bc,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int kend = min(r0 + RT, l);
-  const float* Bb = a.B + (size_t)bc * a.b_sbc;
+  const T* Bb = a.B + (size_t)bc * a.b_sbc;
   if (G::kEarly)   // committed with the strip's copies
     load_x<G>(a, xslots, bc, h0, G::kHRy, h_end, 0);
 
@@ -434,8 +501,8 @@ __device__ __forceinline__ void y_role(const Args& a, float* smem, int bc,
             const int i0 = r0 + 16 * sl, j = tt * G::kKT + jt;
             if (i0 >= l || j > min(i0 + 15, l - 1)) continue;  // above
             float sv[4];
-            scores8(cs + 16 * sl * SC, bts + (s * G::kKT + jt) * SC, SC, Np,
-                    g, t, sv);
+            scores8<kExact>(cs + 16 * sl * SC,
+                            bts + (s * G::kKT + jt) * SC, SC, Np, g, t, sv);
             float* o = strip + (16 * sl + g) * G::kSS + (j - p0) + 2 * t;
             o[0] = sv[0];
             o[1] = sv[1];
@@ -505,7 +572,7 @@ __device__ __forceinline__ void y_role(const Args& a, float* smem, int bc,
                                                        : 0.f,
                               ah[q], al[q]);
               }
-              times_x<G>(acc, ah, al, xs + t * G::kSX + g, ks);
+              times_x<G, kExact>(acc, ah, al, xs + t * G::kSX + g, ks);
             }
           });
     }
@@ -516,8 +583,8 @@ __device__ __forceinline__ void y_role(const Args& a, float* smem, int bc,
 }
 
 // The state role: state rows [n0, n0 + kNTS) of heads [h0, h_end).
-template <int RT, int PT>
-__device__ __forceinline__ void state_role(const Args& a, float* smem,
+template <int RT, int PT, typename T>
+__device__ __forceinline__ void state_role(const Args<T>& a, float* smem,
                                            int bc, int h0, int h_end,
                                            int n0) {
   using G = Geo<RT, PT>;
@@ -529,7 +596,7 @@ __device__ __forceinline__ void state_role(const Args& a, float* smem,
   // this warp: m-tile mt of head hb + hr of each round
   const int mt = warp % G::kMT, hr = warp / G::kMT;
   const int m0 = n0 + 16 * mt;                // the m-tile's first row
-  const float* Bb = a.B + (size_t)bc * a.b_sbc;
+  const T* Bb = a.B + (size_t)bc * a.b_sbc;
 
   // the rounds of heads and their key tiles as one stream of copies, so
   // that a round's first tile is in flight while the last one is used
@@ -583,7 +650,8 @@ __device__ __forceinline__ void state_role(const Args& a, float* smem,
             const float b = bt[(8 * ks + 4 * c) * G::kSBN + 8 * (q & 1)];
             tf32x3::split(SSD_SKIP & 128 ? b : b * w[c], ah[q], al[q]);
           }
-          times_x<G>(acc, ah, al, xs + t * G::kSX + g, ks);
+          times_x<G, elem::is_bf16<T>()>(acc, ah, al, xs + t * G::kSX + g,
+                                         ks);
         }
         if (tt == tiles - 1)   // the round's last tile: the state is whole
           store<G>(acc, a.st + (size_t)bc * a.s_sbc + (size_t)h * a.s_sh,
@@ -591,9 +659,9 @@ __device__ __forceinline__ void state_role(const Args& a, float* smem,
       });
 }
 
-template <int RT, int PT>
+template <int RT, int PT, typename T>
 __global__ void __launch_bounds__(Geo<RT, PT>::kThreads, 1)
-ssd_kernel(Args a) {
+ssd_kernel(Args<T> a) {
   extern __shared__ __align__(16) float smem[];
   const int bc = blockIdx.x, h0 = blockIdx.y * a.HG;
   const int h_end = min(h0 + a.HG, a.H);
@@ -607,8 +675,8 @@ ssd_kernel(Args a) {
   }
 }
 
-template <int RT, int PT>
-int launch(const Args& a, int BC, cudaStream_t stream) {
+template <int RT, int PT, typename T>
+int launch(const Args<T>& a, int BC, cudaStream_t stream) {
   using G = Geo<RT, PT>;
   const size_t ys = G::y_floats(a.N), ss = G::state_floats();
   const size_t smem = (ys > ss ? ys : ss) * sizeof(float);
@@ -616,19 +684,19 @@ int launch(const Args& a, int BC, cudaStream_t stream) {
   static size_t granted = 48 * 1024;   // the attribute is set once a size
   if (smem > granted) {
     const cudaError_t err = cudaFuncSetAttribute(
-        ssd_kernel<RT, PT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        ssd_kernel<RT, PT, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
     granted = smem;
   }
   const dim3 grid(BC, (a.H + a.HG - 1) / a.HG,
                   a.state_tiles + (a.l + RT - 1) / RT);
-  ssd_kernel<RT, PT><<<grid, G::kThreads, smem, stream>>>(a);
+  ssd_kernel<RT, PT, T><<<grid, G::kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int RT>
-int launch_p(const Args& a, int BC, cudaStream_t s) {
+template <int RT, typename T>
+int launch_p(const Args<T>& a, int BC, cudaStream_t s) {
   if (a.P <= 16) return launch<RT, 16>(a, BC, s);
   if (a.P <= 32) return launch<RT, 32>(a, BC, s);
   if (a.P <= 64) return launch<RT, 64>(a, BC, s);
@@ -636,6 +704,28 @@ int launch_p(const Args& a, int BC, cudaStream_t s) {
 }
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+template <typename T>
+int run(const T* x, const float* dt, const float* da, const T* B,
+        const T* C, float* y, float* st, int BC, int H, int l, int P, int N,
+        int x_sbc, int x_sh, int x_sl, int d_sbc, int d_sh, int d_sl,
+        int b_sbc, int b_sl, int y_sbc, int y_sh, int y_sl, int s_sbc,
+        int s_sh, int s_sn, int s_sp, void* stream) {
+  const bool small = l <= 16;
+  const int hg = small ? SSD_HEADS_SMALL : SSD_HEADS_LARGE;
+  const int HG = H < hg ? H : hg;
+  const int NT = small ? SSD_NT_SMALL : SSD_NT_LARGE;
+  constexpr int U = kUnit<T>;
+  const int vec_x = (P % U == 0 && x_sbc % U == 0 && x_sh % U == 0 &&
+                     x_sl % U == 0 && aligned16(x));
+  const int vec_b = (N % U == 0 && b_sbc % U == 0 && b_sl % U == 0 &&
+                     aligned16(B) && aligned16(C));
+  Args<T> a{x, dt, da, B, C, y, st, H, l, P, N, HG, (N + NT - 1) / NT,
+            vec_x, vec_b, x_sbc, x_sh, x_sl, d_sbc, d_sh, d_sl, b_sbc, b_sl,
+            y_sbc, y_sh, y_sl, s_sbc, s_sh, s_sn, s_sp};
+  cudaStream_t s = (cudaStream_t)stream;
+  return small ? launch_p<16>(a, BC, s) : launch_p<64>(a, BC, s);
+}
 
 }  // namespace
 
@@ -649,17 +739,20 @@ extern "C" int ssd_chunk_scan_f32(
     int x_sbc, int x_sh, int x_sl, int d_sbc, int d_sh, int d_sl, int b_sbc,
     int b_sl, int y_sbc, int y_sh, int y_sl, int s_sbc, int s_sh, int s_sn,
     int s_sp, void* stream) {
-  const bool small = l <= 16;
-  const int hg = small ? SSD_HEADS_SMALL : SSD_HEADS_LARGE;
-  const int HG = H < hg ? H : hg;
-  const int NT = small ? SSD_NT_SMALL : SSD_NT_LARGE;
-  const int vec_x = (P % 4 == 0 && x_sbc % 4 == 0 && x_sh % 4 == 0 &&
-                     x_sl % 4 == 0 && aligned16(x));
-  const int vec_b = (N % 4 == 0 && b_sbc % 4 == 0 && b_sl % 4 == 0 &&
-                     aligned16(B) && aligned16(C));
-  Args a{x, dt, da, B, C, y, st, H, l, P, N, HG, (N + NT - 1) / NT,
-         vec_x, vec_b, x_sbc, x_sh, x_sl, d_sbc, d_sh, d_sl, b_sbc, b_sl,
-         y_sbc, y_sh, y_sl, s_sbc, s_sh, s_sn, s_sp};
-  cudaStream_t s = (cudaStream_t)stream;
-  return small ? launch_p<16>(a, BC, s) : launch_p<64>(a, BC, s);
+  return run(x, dt, da, B, C, y, st, BC, H, l, P, N, x_sbc, x_sh, x_sl,
+             d_sbc, d_sh, d_sl, b_sbc, b_sl, y_sbc, y_sh, y_sl, s_sbc, s_sh,
+             s_sn, s_sp, stream);
+}
+
+// The same with x, B and C in bf16; dt and dA fp32, y and the state
+// written as fp32.
+extern "C" int ssd_chunk_scan_bf16(
+    const elem::bf16* x, const float* dt, const float* da,
+    const elem::bf16* B, const elem::bf16* C, float* y, float* st, int BC,
+    int H, int l, int P, int N, int x_sbc, int x_sh, int x_sl, int d_sbc,
+    int d_sh, int d_sl, int b_sbc, int b_sl, int y_sbc, int y_sh, int y_sl,
+    int s_sbc, int s_sh, int s_sn, int s_sp, void* stream) {
+  return run(x, dt, da, B, C, y, st, BC, H, l, P, N, x_sbc, x_sh, x_sl,
+             d_sbc, d_sh, d_sl, b_sbc, b_sl, y_sbc, y_sh, y_sl, s_sbc, s_sh,
+             s_sn, s_sp, stream);
 }

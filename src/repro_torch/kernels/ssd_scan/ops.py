@@ -4,16 +4,23 @@ The tensor's device decides the path: CPU tensors take the plain versions
 (``ref.py``); CUDA tensors launch the hand-written kernel
 ``csrc/ssd_scan.cu`` or raise. There is no fallback between the two.
 Both entries are one launch, and ``ssd_chunk_scan.launches`` counts the
-launches of both. It takes fp32 only (a bf16 input raises). The kernel
-multiplies in 3xTF32 on the tensor cores and sums every output in an
-order fixed by absolute position, so a chunk's outputs do not depend on
-how many chunks share the launch.
+launches of both (``ssd_chunk_scan.launches_by_dtype`` by x's dtype).
+x, B and C are fp32 or bf16, one dtype for the three (its C entry,
+``ssd_chunk_scan_f32`` or ``ssd_chunk_scan_bf16``); dt and dA are fp32
+in both, as the reference's model passes them; y and the state come out
+fp32 in both, as the TPU kernel writes them. Anything else (fp16, a mix
+across x, B and C, a bf16 dt or dA) raises before a launch. The kernel
+keeps fp32 accuracy on the tensor cores (3xTF32; two TF32 products where
+x is bf16, one for bf16 scores) and sums every output in an order fixed
+by absolute position, so a chunk's outputs do not depend on how many
+chunks share the launch.
 """
 from __future__ import annotations
 
 import torch
 
-from ..common import check_inputs, launch
+from ..common import (ENTRY_SUFFIX, check_inputs, count_launch, float_dtype,
+                      launch)
 from .ref import ssd_chunk_ref, ssd_chunk_reference
 
 MAX_HEAD_DIM = 128   # P: output columns a warp keeps in registers
@@ -36,16 +43,29 @@ def _launch(x, dt, da, B, C, y, st, shape, x_s, d_s, b_s, y_s, s_s):
                          f"{MAX_GRID_Y}")
     if BC * H * l == 0:
         return
-    launch("ssd_scan", "ssd_chunk_scan_f32", x, dt, da, B, C, y, st, BC, H, l,
-           P, N, *x_s, *d_s, *b_s, *y_s, *s_s)
-    ssd_chunk_scan.launches += 1
+    launch("ssd_scan", f"ssd_chunk_scan_{ENTRY_SUFFIX[x.dtype]}", x, dt, da,
+           B, C, y, st, BC, H, l, P, N, *x_s, *d_s, *b_s, *y_s, *s_s)
+    count_launch(ssd_chunk_scan, x.dtype)
+
+
+def check_dtypes(x, dt, da, B, C) -> torch.dtype:
+    """The launch's element type, from the dtypes alone: x, B and C one of
+    fp32 and bf16 (``common.float_dtype``), dt and dA fp32. Raises
+    otherwise."""
+    elem = float_dtype("ssd_chunk_scan", {"x": x, "B": B, "C": C})
+    if (dt, da) != (torch.float32, torch.float32):
+        raise ValueError(f"ssd_chunk_scan: dt is {dt} and dA {da}; the "
+                         "kernel takes both as torch.float32")
+    return elem
 
 
 def _check(x, dt, da, B, C):
-    check_inputs("ssd_chunk_scan", {"x": x, "dt": dt, "dA": da, "B": B,
-                                    "C": C}, {},
-                 strided=("x", "dt", "dA", "B", "C"),
-                 dtypes=(torch.float32,))
+    check_dtypes(x.dtype, dt.dtype, da.dtype, B.dtype, C.dtype)
+    # dt and dA are the operands of one fixed dtype (fp32), as a page
+    # table is elsewhere (int32)
+    check_inputs("ssd_chunk_scan", {"x": x, "B": B, "C": C},
+                 {"dt": dt, "dA": da}, strided=("x", "dt", "dA", "B", "C"),
+                 int_dtype=torch.float32)
     if dt.stride() != da.stride() or B.stride() != C.stride():
         raise ValueError("ssd_chunk_scan: dt and dA, and B and C, must "
                          "share strides")
@@ -75,6 +95,7 @@ def ssd_chunk_scan(x, dt, dacum, B, C):
 
 
 ssd_chunk_scan.launches = 0
+ssd_chunk_scan.launches_by_dtype = {}
 
 
 def ssd_chunk(xs, dts, dA_cum, Bs, Cs):

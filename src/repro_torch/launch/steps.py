@@ -11,14 +11,12 @@ The model, the optimizer state and the cache are updated in place (the
 reference donates them). On CUDA tensors the steps are real entry points:
 decode launches the dense decode kernel (K5) a layer, prefill the flash
 kernel (K4) or, on an SSM or hybrid stack, the SSD chunk kernel (K3); train
-launches none (the kernels have no backward pass). K4 and K5 take fp32 or
-bf16, so the dry run's bf16 config (``dryrun_config``) runs its decode and
-prefill steps on the card through their bf16 instances; K3 takes fp32
-only, so a bf16 SSM or hybrid config raises the wrapper's dtype error
-there, and nothing switches to the plain version. ``trip_counts`` maps
-the layer loops' trip
-counts; the port's counter sees every layer's ops as they dispatch, so it
-needs no trip correction, and the dry run records them as
+launches none (the kernels have no backward pass). K3, K4 and K5 take
+fp32 or bf16, so the dry run's bf16 config (``dryrun_config``) runs its
+decode and prefill steps on the card through their bf16 instances, an
+SSM or hybrid stack's prefill too. ``trip_counts`` maps the layer loops'
+trip counts; the port's counter sees every layer's ops as they dispatch,
+so it needs no trip correction, and the dry run records them as
 ``while_trips``.
 """
 from __future__ import annotations

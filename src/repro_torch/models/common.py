@@ -47,7 +47,7 @@ def trunc_normal_(t: torch.Tensor, std: float, generator) -> torch.Tensor:
 
 
 @torch.no_grad()
-def init_params_(module: nn.Module, generator) -> nn.Module:
+def init_params_(module: nn.Module, generator, draw_dtype=None) -> nn.Module:
     """Fill every parameter of ``module`` from the reference's init
     distributions, by name: norm ``scale`` ones, QKV biases zeros, token
     embedding tables truncated normal * 0.02 (``embed_init``), the router's
@@ -58,8 +58,11 @@ def init_params_(module: nn.Module, generator) -> nn.Module:
     MoE layer's expert weights (E, fan-in, fan-out) truncated normal over
     their fan-in, the second axis (``models/moe.py::init_moe``); every
     other weight truncated normal over its fan-in, the leading axis
-    (``dense_init``)."""
-    for name, p in module.named_parameters():
+    (``dense_init``). ``draw_dtype``: draw each parameter of another dtype
+    in this one, then store it in its own (None: draw in its own dtype)."""
+    for name, param in module.named_parameters():
+        p = param if draw_dtype in (None, param.dtype) else torch.empty(
+            param.shape, dtype=draw_dtype, device=param.device)
         leaf = name.rsplit(".", 1)[-1]
         if leaf in ("w_in", "w_glu", "w_out") and p.ndim == 3:   # experts
             trunc_normal_(p, 1.0 / math.sqrt(p.shape[1]), generator)
@@ -79,6 +82,8 @@ def init_params_(module: nn.Module, generator) -> nn.Module:
             p.copy_(torch.linspace(1e-3, 1e-1, len(p)).expm1().log())
         else:
             trunc_normal_(p, 1.0 / math.sqrt(p.shape[0]), generator)
+        if p is not param:
+            param.copy_(p)
     return module
 
 

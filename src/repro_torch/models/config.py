@@ -29,8 +29,9 @@ class ArchConfig:
     in the port a tensor's device decides between a kernel and its plain
     version (CUDA tensors launch the kernel, CPU tensors take the plain
     PyTorch version). ``dtype`` is the params', activations' and caches'
-    dtype: the attention kernels K1, K2, K4 and K5 take "float32" or
-    "bfloat16" on the card (the SSD chunk kernel K3 "float32" only).
+    dtype: every kernel (K1 to K5) takes "float32" or "bfloat16" on the
+    card (the SSD chunk kernel K3 its x, B and C in that dtype, its dt and
+    dA in fp32, as an SSM keeps ``A_log``, ``D`` and ``dt_bias``).
     ``launch.inputs.dryrun_config`` sets ``use_pallas=False`` and
     ``dtype="bfloat16"``; the dry run traces that config on fake CPU
     tensors, which run the plain versions, as the reference's jnp path

@@ -259,14 +259,20 @@ def test_kernel_parser_reads_the_signature(bad_entries):
     q = bad_entries["bad_unreached_bytes"]
     assert (q.ret, q.is_launch, q.params) == \
         ("long long", False, (kernel_check.Param("int", "B"),))
-    # the port's thirteen entries: nine launches (the four attention
-    # kernels at fp32 and bf16, the SSD scan at fp32), four queries
+    # the port's fourteen entries: ten launches (the five kernels at fp32
+    # and bf16), four queries
     port = kernel_check.read_entries(SRC / "csrc")
-    assert len(port) == 13
-    assert sum(e.is_launch for e in port.values()) == 9
+    assert len(port) == 14
+    assert sum(e.is_launch for e in port.values()) == 10
     bf = port["paged_decode_attention_bf16"]
     assert [(p.ctype, p.pointee) for p in bf.params[:3]] == \
         [("const elem::bf16*", "elem::bf16")] * 3
+    # the SSD scan's bf16 instance: x, B and C bf16, dt, dA, y, state fp32
+    ssd = port["ssd_chunk_scan_bf16"]
+    assert [(p.name, p.pointee) for p in ssd.params[:7]] == [
+        ("x", "elem::bf16"), ("dt", "float"), ("da", "float"),
+        ("B", "elem::bf16"), ("C", "elem::bf16"), ("y", "float"),
+        ("st", "float")]
 
 
 def test_kernel_good_wrapper_is_clean(bad_ops, bad_entries):
@@ -312,7 +318,19 @@ def test_kernel_abi_holds_each_dtype_to_its_entry():
     entries; each launch audited against its twin of the other dtype (a
     bf16 tensor where the source says ``const float*``, and the reverse)
     gives a kernel-abi finding for each float operand, naming its dtype."""
-    family = "paged_decode_attention"
+    _abi_holds_dtypes("paged_decode_attention", "paged_decode_attention",
+                      ["q", "k_pages", "v_pages", "out"])
+
+
+def test_kernel_abi_holds_ssd_dtypes_to_their_entry():
+    """The SSD scan's probes, fp32 and bf16, are clean against their own
+    entries; audited against the other dtype's entry, each launch gives a
+    kernel-abi finding for x, B and C only: dt, dA, y and the state are
+    fp32 in both instances."""
+    _abi_holds_dtypes("ssd_scan", "ssd_chunk_scan", ["x", "B", "C"])
+
+
+def _abi_holds_dtypes(family, stem, operands):
     entries = kernel_check.read_entries(SRC / "csrc")
     with kernel_check.capture(
             modules=kernel_check.family_modules([family])) as rec:
@@ -320,20 +338,21 @@ def test_kernel_abi_holds_each_dtype_to_its_entry():
             rec.mode = mode.name
             mode.run()
     launches = [c for c in rec.calls if c.kind == "launch"]
-    assert {c.entry for c in launches} == {f"{family}_f32",
-                                           f"{family}_bf16"}
+    assert {c.entry for c in launches} == {f"{stem}_f32", f"{stem}_bf16"}
     assert kernel_check.audit(rec.calls, entries) == []
-    twin = {f"{family}_f32": f"{family}_bf16",
-            f"{family}_bf16": f"{family}_f32"}
+    twin = {f"{stem}_f32": f"{stem}_bf16", f"{stem}_bf16": f"{stem}_f32"}
     for c in launches:
         found = kernel_check.audit(
             [dataclasses.replace(c, entry=twin[c.entry])], entries,
             {"kernel-abi"})
         want = "bfloat16" if c.entry.endswith("bf16") else "float32"
-        # q, k_pages, v_pages and out, each of the other dtype
-        assert [f.rule for f in found] == ["kernel-abi"] * 4, found
+        # each float operand of the element type, of the other dtype
+        assert [f.rule for f in found] == ["kernel-abi"] * len(operands), \
+            found
         assert all(f"gets a torch.{want} tensor" in f.message
                    for f in found), found
+        assert [f.message.split(": ")[1].split(" ")[0] for f in found] \
+            == operands, found
 
 
 def test_kernel_stale_spec_trips_and_goes_quiet(bad_entries):
@@ -412,7 +431,8 @@ def test_probes_cover_every_family_and_entry():
                              "head_expanded", "cross", "bf16_kv_strided"],
         "flash_attention": ["causal", "window", "non_causal", "irregular",
                             "gqa_strided", "bf16_gqa_strided"],
-        "ssd_scan": ["kernel_layout", "model_layout"],
+        "ssd_scan": ["kernel_layout", "model_layout", "bf16_kernel_layout",
+                     "bf16_model_layout"],
     }
     # each bf16 mode launches its kernel's bf16 entry, the others the fp32
     for c in rec.calls:
@@ -561,6 +581,6 @@ def test_cuda_probes_pass_the_audit_and_match_plain_versions():
                         if mode.scaled else 1e-4
                     err = (a - b).abs().max().item()
                     assert err <= tol, (family, mode.name, err)
-    assert sum(c.kind == "launch" for c in rec.calls) == 22
+    assert sum(c.kind == "launch" for c in rec.calls) == 24
     found = kernel_check.audit(rec.calls, entries)
     assert not found, [f.format() for f in found]

@@ -184,7 +184,8 @@ def test_kernel_dtype_rule(dtypes, want):
             float_dtype("probe", named)
     else:
         assert float_dtype("probe", named) is want
-    # the SSD scan (K3) takes fp32 only
+    # a launch whose floats must be fp32 (the SSD scan's dt and dA) names
+    # that dtype alone
     with pytest.raises(ValueError, match="the kernel takes torch.float32$"):
         float_dtype("ssd", {"x": torch.bfloat16}, (torch.float32,))
 

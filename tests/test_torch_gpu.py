@@ -677,6 +677,11 @@ def _typed_launch(kernel, mode, device, dtypes):
             .movedim(2, 1).reshape(B * H, S, D)
         return op, lambda: op(q, k, v, **kw), lambda: flash_ops.attention_ref(
             bhsd(q), bhsd(k), bhsd(v), **kw).reshape(B, H, S, D).movedim(1, 2)
+    if kernel == "ssd":
+        x, dt, da, B, C = typed(to_torch(ssd_case(mode), device))
+        op = ssd_ops.ssd_chunk_scan
+        return op, lambda: op(x, dt, da, B, C), \
+            lambda: ssd_ops.ssd_chunk_ref(x, dt, da, B, C)
     q, k, v, valid = typed(to_torch(decode_dense_case(mode), device))
     op = dense_dec_ops.decode_attention_kv
     return op, lambda: op(q, k, v, valid), \
@@ -704,13 +709,18 @@ def test_cuda_bf16_kernels_match_plain_versions(kernel, mode, cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kernel", ["paged_decode", "paged_prefill", "flash",
-                                    "dense_decode"])
-@pytest.mark.parametrize("dtypes", [[torch.float16],
-                                    [torch.float32, torch.bfloat16]])
+                                    "dense_decode", "ssd"])
+@pytest.mark.parametrize("dtypes", [
+    [torch.float16], [torch.float32, torch.bfloat16],
+    # the SSD scan's x, B and C bf16 with a bf16 dt (dA fp32); the
+    # attention kernels' q, k bf16 with an fp32 v
+    [torch.bfloat16, torch.bfloat16, torch.float32, torch.bfloat16]])
 def test_cuda_kernels_refuse_other_dtypes(kernel, dtypes, cuda):
-    """fp16 inputs, or fp32 and bf16 inputs in one launch, raise before any
-    launch; nothing falls back to the plain version."""
-    op, run, _ = _typed_launch(kernel, "gqa", cuda, dtypes)
+    """fp16 inputs, fp32 and bf16 inputs in one launch, or (the SSD scan)
+    a dt or dA that is not fp32, raise before any launch; nothing falls
+    back to the plain version."""
+    mode = "l16_pad_dt0_mamba" if kernel == "ssd" else "gqa"
+    op, run, _ = _typed_launch(kernel, mode, cuda, dtypes)
     n0 = op.launches
     with pytest.raises(ValueError, match="mixed|the kernel takes"):
         run()
@@ -787,18 +797,34 @@ def test_cuda_decode_attention_launch_zeroes_its_split_counts(cuda):
     assert err <= GPU_TOL
 
 
+def ssd_typed(ts, dtype, x_b_c=(0, 3, 4)):
+    """The SSD inputs with x, B and C (the positions ``x_b_c`` of ``ts``)
+    cast to ``dtype``; dt and dA stay fp32, as the model passes them."""
+    return [t.to(dtype) if i in x_b_c else t for i, t in enumerate(ts)]
+
+
+SSD_DTYPES = [torch.float32, torch.bfloat16]
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", SSD_DTYPES)
 @pytest.mark.parametrize("mode", sorted(SSD_MODES))
-def test_cuda_ssd_chunk_scan_matches_plain_version(mode, cuda):
+def test_cuda_ssd_chunk_scan_matches_plain_version(mode, dtype, cuda):
     """The SSD chunk kernel through both entries (the TPU kernel's layout,
     and the model's layout read and written through strides) against the
-    plain versions on the card. A whole row of dt = 0 gives a state of
-    exactly 0, and steep dA gives finite outputs."""
-    x, dt, da, B, C = to_torch(ssd_case(mode), cuda)
+    plain versions on the card, with x, B and C at fp32 and at bf16 (its
+    bf16 instance, fp32 outputs, held at the fp32 instance's tolerance:
+    its arithmetic is fp32 on exact inputs). A whole row of dt = 0 gives a
+    state of exactly 0, and steep dA gives finite outputs."""
+    x, dt, da, B, C = ssd_typed(to_torch(ssd_case(mode), cuda), dtype)
+    key = str(dtype).removeprefix("torch.")
     n0 = ssd_ops.ssd_chunk_scan.launches
+    d0 = ssd_ops.ssd_chunk_scan.launches_by_dtype.get(key, 0)
     y, st = ssd_ops.ssd_chunk_scan(x, dt, da, B, C)
     torch.cuda.synchronize()
     assert ssd_ops.ssd_chunk_scan.launches == n0 + 1
+    assert ssd_ops.ssd_chunk_scan.launches_by_dtype[key] == d0 + 1
+    assert y.dtype == st.dtype == torch.float32
     y_ref, st_ref = ssd_ops.ssd_chunk_ref(x, dt, da, B, C)
     assert torch.isfinite(y).all() and torch.isfinite(st).all(), mode
     assert ssd_err(y, y_ref) <= SSD_TOL, (mode, ssd_err(y, y_ref))
@@ -821,17 +847,20 @@ def test_cuda_ssd_chunk_scan_matches_plain_version(mode, cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", SSD_DTYPES)
 @pytest.mark.parametrize("l", [1, 2, 8, 16, 17, 256])
-def test_cuda_ssd_bc_alone_is_bitwise_packed(l, cuda):
+def test_cuda_ssd_bc_alone_is_bitwise_packed(l, dtype, cuda):
     """Each bc of a packed launch (8 chunks, both entries) gives the same
-    bits as the same chunk launched alone: no sum depends on BC."""
+    bits as the same chunk launched alone: no sum depends on BC (x, B and
+    C at fp32 and at bf16)."""
     case = ssd_bucket_case(l, l, seed=l)
-    x, dt, da, B, C = model = to_torch(case, cuda)
+    x, dt, da, B, C = model = ssd_typed(to_torch(case, cuda), dtype)
     packed = ssd_ops.ssd_chunk(*model)
     # the same chunks in the TPU kernel's layout
     x_, dt_, da_ = (a[:, 0].swapaxes(1, 2) for a in case[:3])
-    flat = to_torch([a.copy() for a in (x_, dt_[..., None], da_[..., None],
-                                        case[3][:, 0], case[4][:, 0])], cuda)
+    flat = ssd_typed(to_torch([a.copy() for a in (
+        x_, dt_[..., None], da_[..., None], case[3][:, 0], case[4][:, 0])],
+        cuda), dtype)
     packed_tpu = ssd_ops.ssd_chunk_scan(*flat)
     for k in range(x.shape[0]):
         alone = ssd_ops.ssd_chunk(*(t[k:k + 1] for t in model))
@@ -842,15 +871,18 @@ def test_cuda_ssd_bc_alone_is_bitwise_packed(l, cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", SSD_DTYPES)
 @pytest.mark.parametrize("n", SSD_BUCKET_LENS)
-def test_cuda_ssd_buckets_are_bitwise_equal(n, cuda):
+def test_cuda_ssd_buckets_are_bitwise_equal(n, dtype, cuda):
     """A chunk of n real positions padded with dt = 0 (and other x, B, C
     past n) to each l bucket of the pool gives the same bits in its n rows
     of y and in its state: the padding adds exact zeros, and every sum
-    runs over the same 8-key steps at the same absolute positions."""
+    runs over the same 8-key steps at the same absolute positions (x, B
+    and C at fp32 and at bf16)."""
     outs = []
     for l in ssd_buckets(n):
-        y, st = ssd_ops.ssd_chunk(*to_torch(ssd_bucket_case(n, l), cuda))
+        y, st = ssd_ops.ssd_chunk(*ssd_typed(
+            to_torch(ssd_bucket_case(n, l), cuda), dtype))
         outs.append((l, y[:, :, :n], st))
     torch.cuda.synchronize()
     for l, y, st in outs[1:]:
@@ -1123,29 +1155,38 @@ def test_cuda_kernels_at_encdec_and_vlm_shapes(mode, cuda):
 
 # ------------------------------------------------------ the dry run's steps
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("kind", ["prefill", "decode", "ssm_prefill"])
 def test_cuda_bf16_steps_match_plain_version(kind, cuda):
     """A bf16 config (the dry run's dtype) through ``launch.steps``'
     prefill and decode steps on the card: each launches its bf16 kernel
-    (K4 a layer in prefill, K5 a layer in decode) and its bf16 logits lie
+    (K4 a layer in prefill, K5 a layer in decode, K3 a layer in an SSM
+    stack's prefill, over two 8-position chunks) and its bf16 logits lie
     within 2 BF16_TOL of the same step's on the CPU, which runs the plain
     versions at bf16 (two layers of bf16 roundings in another order)."""
     from repro_torch.launch import steps
     from repro_torch.models.config import ArchConfig
     from repro_torch.models.model import build_model
-    cfg = ArchConfig("bf16", "dense", 2, 64, 4, 2, 128, 256, head_dim=16,
-                     vocab_pad_multiple=64, dtype="bfloat16")
+    if kind == "ssm_prefill":
+        cfg = ArchConfig("bf16-ssm", "ssm", 2, 64, 0, 0, 0, 256,
+                         ssm_state=16, ssm_headdim=16, ssm_chunk=8,
+                         vocab_pad_multiple=64, dtype="bfloat16")
+    else:
+        cfg = ArchConfig("bf16", "dense", 2, 64, 4, 2, 128, 256,
+                         head_dim=16, vocab_pad_multiple=64,
+                         dtype="bfloat16")
     bundle = build_model(cfg)
     cpu = bundle.init(torch.Generator().manual_seed(0), "cpu")
     model = build_model(cfg).init(torch.Generator().manual_seed(0),
                                   "cpu").to(cuda)
-    tokens = torch.randint(3, 256, (2, 8),
+    S = 16 if kind == "ssm_prefill" else 8
+    tokens = torch.randint(3, 256, (2, S),
                            generator=torch.Generator().manual_seed(1))
     op = {"prefill": flash_ops.flash_attention,
-          "decode": dense_dec_ops.decode_attention_kv}[kind]
+          "decode": dense_dec_ops.decode_attention_kv,
+          "ssm_prefill": ssd_ops.ssd_chunk_scan}[kind]
     n0 = op.launches_by_dtype.get("bfloat16", 0)
-    if kind == "prefill":
-        step = steps.build_prefill_step(bundle, 8)
+    if kind != "decode":
+        step = steps.build_prefill_step(bundle, S)
         got = step(model, {"tokens": tokens.to(cuda)})[0]
         want = step(cpu, {"tokens": tokens})[0]
     else:
