@@ -20,12 +20,14 @@ and prints no result line):
    kernel's time (CUDA events around back-to-back launches), the plain
    version's, one library call's where PyTorch has one (SDPA), and the
    least time the card could take for the same work. The main, gemma3
-   and Jamba cases of K1, K2, K4 and K5 and the whisper-large-v3 and
-   internvl2-26b cases of K4 and K5 run again at bf16 (their bf16
-   instances), held to BF16_TOL against the plain version at bf16, timed
-   beside it and SDPA at bf16 (K4, K5), bounded by bf16 bytes and the bf16
-   peak; K3's mamba2-130m (dense and pool) and Jamba (dense and pool)
-   cases run again with x, B and C at bf16 (its bf16 instance, fp32
+   and Jamba cases of K1, K2 and K5, the whisper-large-v3 and
+   internvl2-26b cases of K5, and every launch mode of K4 run again at
+   bf16 (their bf16 instances), held to BF16_TOL against the plain
+   version at bf16; the main-path shapes among them are timed beside it
+   and SDPA at bf16 (K4, K5), bounded by bf16 bytes and the bf16 peak (K4
+   also by its device time, its share of that bound and the bf16
+   tensor-core floor); K3's mamba2-130m (dense and pool) and Jamba (dense
+   and pool) cases run again with x, B and C at bf16 (its bf16 instance, fp32
    outputs held to the fp32 instance's SSD_TOL, "pool_bf16" also bit for
    bit alone/packed and across l buckets), bounded by 2-byte x, B, C and
    the fp32 peak.
@@ -702,7 +704,11 @@ def flash_cases(torch, dev):
     heads of 32 over 2 kv heads, window 8. The plain version expands kv to
     H heads and runs on (B*H, S, D); the library yardstick is one SDPA call
     (scale 1 on the pre-scaled q, causal where the case is, GQA where
-    H > K; for "gemma3" and "launch" a boolean window mask and GQA)."""
+    H > K; for "gemma3" and "launch" a boolean window mask and GQA).
+    Every case runs again at bf16 ("<name>_bf16": the bf16 instance, its
+    own design), held to BF16_TOL; "head_dim_20_bf16" reads k and v as
+    views of bf16 rows 21 values apart, the instance's 2-byte loads. The
+    timed bf16 cases are timed beside SDPA at bf16."""
     import numpy as np
     from torch.nn import functional as F
     from repro_torch.kernels.flash_attention import ops
@@ -729,8 +735,9 @@ def flash_cases(torch, dev):
         Dr = D + 1 if name == "head_dim_20" else D   # row width in memory
         q = torch.randn((B, S, H, Dr), generator=g, device=dev)[..., :D] \
             * D ** -0.5
-        k = torch.randn((B, S, K, Dr), generator=g, device=dev)[..., :D]
-        v = torch.randn((B, S, K, Dr), generator=g, device=dev)[..., :D]
+        kw_rows = torch.randn((B, S, K, Dr), generator=g, device=dev)
+        vw_rows = torch.randn((B, S, K, Dr), generator=g, device=dev)
+        k, v = kw_rows[..., :D], vw_rows[..., :D]
         kw = dict(causal=causal, window=window)
         qp, kp = np.arange(S)[:, None], np.arange(S)[None, :]
         seen = np.ones((S, S), bool)
@@ -769,35 +776,48 @@ def flash_cases(torch, dev):
                          plain, nbytes, flops, library, timed=library
                          is not None, report=_flash_standing
                          if library is not None else None))
-        if name in ("main", "gemma3", "jamba", "whisper_encoder",
-                    "whisper_decoder", "internvl2"):   # the same at bf16
-            qb, kb, vb = _bf16_args(torch, (q, k, v))
-            mask = torch.tensor(seen, device=dev) if window else None
-            out.append(_case(
-                f"{name}_bf16", desc + " bf16",
-                lambda q=qb, k=kb, v=vb, kw=kw:
-                    ops.flash_attention(q, k, v, **kw),
-                lambda q=qb, k=kb, v=vb, f=plain: f(q, k, v),
-                nbytes // 2, flops,
-                lambda q=qb, k=kb, v=vb, m=mask, c=causal and not window,
-                gqa=H != K: F.scaled_dot_product_attention(
+        # the same at bf16; k and v keep their rows' width in memory
+        qb = q.to(torch.bfloat16)
+        kb, vb = (t.to(torch.bfloat16)[..., :D] for t in (kw_rows, vw_rows))
+        mask = torch.tensor(seen, device=dev) if window else None
+        timed = name in ("main", "gemma3", "jamba", "whisper_encoder",
+                         "whisper_decoder", "internvl2")
+        library = None
+        if timed:
+            library = lambda q=qb, k=kb, v=vb, m=mask, \
+                c=causal and not window, gqa=H != K: \
+                F.scaled_dot_product_attention(
                     q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                     attn_mask=m, is_causal=c, scale=1.0,
-                    enable_gqa=gqa).transpose(1, 2),
-                timed=True, bf16=True))
+                    enable_gqa=gqa).transpose(1, 2)
+        out.append(_case(
+            f"{name}_bf16", desc.replace("floats", "values") + " bf16",
+            lambda q=qb, k=kb, v=vb, kw=kw:
+                ops.flash_attention(q, k, v, **kw),
+            lambda q=qb, k=kb, v=vb, f=plain: f(q, k, v),
+            nbytes // 2, flops, library, timed=timed,
+            report=_flash_standing if timed else None, bf16=True))
     return out
 
 
 def _flash_standing(torch, c, ms, plain_ms, library_ms):
     """Flash attention's standing at a timed shape: its device time per
     call from the profiler beside the events', its time as a share of
-    the fp32 bound, against SDPA's, and the floor of its 3xTF32 route (three
-    TF32 products per fp32 product at the tensor cores' peak). Names the
-    backend SDPA took, from one call under the profiler: its ATen op and
-    its device kernels."""
+    the bound at its dtype, against SDPA's at that dtype, and the floor of
+    its tensor-core route: at fp32 three TF32 products per fp32 product
+    at the TF32 peak (3xTF32), at bf16 one bf16 product at the bf16 peak.
+    Names the backend SDPA took, from one call under the profiler: its
+    ATen op and its device kernels."""
     from torch.profiler import ProfilerActivity, profile
-    bound_ms, _ = _bound(c["nbytes"], c["flops"])
-    tc_ms = 1e3 * 3 * c["flops"] / PEAK_TF32_FLOP_PER_S
+    if c["bf16"]:
+        dtype, route, tc_flops, peak = "bf16", "bf16", c["flops"], \
+            PEAK_BF16_FLOP_PER_S
+    else:
+        dtype, route, tc_flops, peak = "fp32", "3xTF32", 3 * c["flops"], \
+            PEAK_TF32_FLOP_PER_S
+    bound_ms, _ = _bound(c["nbytes"], c["flops"], PEAK_BF16_FLOP_PER_S
+                         if c["bf16"] else PEAK_FP32_FLOP_PER_S)
+    tc_ms = 1e3 * tc_flops / peak
     device_ms = _device_ms(torch, c["kernel"], "flash_kernel")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -813,10 +833,12 @@ def _flash_standing(torch, c, ms, plain_ms, library_ms):
                 str(e.device_type).endswith("CUDA"):
             kernels.append(e.key[:100])
     log(f"[kernels] flash_attention[{c['name']}] device {device_ms:.4f} ms "
-        f"(events {ms:.4f}); {bound_ms / ms:.3g} of the fp32 "
-        f"bound ({bound_ms:.4g} ms), {ms / library_ms:.3f}x SDPA's time "
-        f"({library_ms:.4f} ms); 3xTF32 tensor-core floor {tc_ms:.4f} ms "
-        f"(3 x {c['flops']} flop at {PEAK_TF32_FLOP_PER_S / 1e12:g} TFLOP/s)")
+        f"(events {ms:.4f}); {bound_ms / device_ms if device_ms else 0:.3g} "
+        f"of the {dtype} bound ({bound_ms:.4g} ms) on device time, "
+        f"{bound_ms / ms:.3g} on events; {ms / library_ms:.3f}x SDPA's "
+        f"{dtype} time ({library_ms:.4f} ms), device "
+        f"{device_ms / library_ms:.3f}x; {route} tensor-core floor "
+        f"{tc_ms:.4f} ms ({tc_flops} flop at {peak / 1e12:g} TFLOP/s)")
     log(f"[kernels] SDPA backend: ops {sorted(set(ops)) or 'none seen'}; "
         f"device kernels {sorted(set(kernels)) or 'none seen'}")
 

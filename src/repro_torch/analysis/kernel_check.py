@@ -591,6 +591,7 @@ def _probe_flash(mk: Inputs) -> List[Mode]:
                        t[..., H * Dm:(H + K) * Dm].view(B, Sm, K, Dm),
                        t[..., (H + K) * Dm:].view(B, Sm, K, Dm))
     qm, km, vm = views(qkv)
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
     return [
         _mode("causal", ops.flash_attention_bhsd, q, k, v),
         _mode("window", ops.flash_attention_bhsd, q, k, v, window=8),
@@ -606,6 +607,13 @@ def _probe_flash(mk: Inputs) -> List[Mode]:
         _mode("bf16_gqa_strided", ops.flash_attention,
               *views(torch.cat([qkv[..., :H * Dm] * Dm ** -0.5,
                                 qkv[..., H * Dm:]], -1).to(torch.bfloat16))),
+        # the (BH, S, D) modes again at bf16 (q pre-scaled above)
+        _mode("bf16_causal", ops.flash_attention_bhsd, qb, kb, vb),
+        _mode("bf16_window", ops.flash_attention_bhsd, qb, kb, vb, window=8),
+        _mode("bf16_non_causal", ops.flash_attention_bhsd, qb, kb, vb,
+              causal=False),
+        _mode("bf16_irregular", ops.flash_attention_bhsd, qb[:, :12],
+              kb[:, :12], vb[:, :12]),
     ]
 
 

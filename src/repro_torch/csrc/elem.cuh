@@ -49,16 +49,6 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// the eight bf16 values of a 16-byte word, widened into x[0, 8)
-__device__ __forceinline__ void widen8(float* x, uint4 v) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    x[2 * i] = widen(w[i] & 0xffffu);
-    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
 template <bool CG, typename V>
 __device__ __forceinline__ V ld(const V* p) {
   if constexpr (CG)

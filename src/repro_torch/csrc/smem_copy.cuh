@@ -35,12 +35,4 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const float* p) {
                : "r"(a));
 }
 
-// The first two of those matrices (addresses from lanes 0-15).
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const float* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(a));
-}
-
 }  // namespace tilecopy

@@ -3,10 +3,11 @@
 The tensor's device decides the path: CPU tensors take the plain version
 (``ref.py``); CUDA tensors launch the hand-written kernel
 ``csrc/flash_attention.cu`` or raise. There is no fallback between the
-two. The kernel takes fp32 (3xTF32 products) or bf16 (one TF32 product,
-exact on bf16 values): q, k, v and the output of one dtype, the entry
-``flash_attention_f32`` or ``_bf16`` by q's dtype, accumulating in fp32
-either way; anything else raises. ``flash_attention.launches`` counts
+two. The kernel takes fp32 (3xTF32 products) or bf16 (its own design:
+native bf16 ``mma.sync`` m16n8k16 products on bf16 tiles, exact on bf16
+values and on P rounded to bf16): q, k, v and the output of one dtype, the
+entry ``flash_attention_f32`` or ``_bf16`` by q's dtype, accumulating in
+fp32 either way; anything else raises. ``flash_attention.launches`` counts
 kernel launches of both wrappers, and ``.launches_by_dtype`` splits them
 by dtype.
 """

@@ -430,7 +430,9 @@ def test_probes_cover_every_family_and_entry():
         "decode_attention": ["gqa", "gqa_irregular", "kv_strided",
                              "head_expanded", "cross", "bf16_kv_strided"],
         "flash_attention": ["causal", "window", "non_causal", "irregular",
-                            "gqa_strided", "bf16_gqa_strided"],
+                            "gqa_strided", "bf16_gqa_strided", "bf16_causal",
+                            "bf16_window", "bf16_non_causal",
+                            "bf16_irregular"],
         "ssd_scan": ["kernel_layout", "model_layout", "bf16_kernel_layout",
                      "bf16_model_layout"],
     }
@@ -581,6 +583,6 @@ def test_cuda_probes_pass_the_audit_and_match_plain_versions():
                         if mode.scaled else 1e-4
                     err = (a - b).abs().max().item()
                     assert err <= tol, (family, mode.name, err)
-    assert sum(c.kind == "launch" for c in rec.calls) == 24
+    assert sum(c.kind == "launch" for c in rec.calls) == 28
     found = kernel_check.audit(rec.calls, entries)
     assert not found, [f.format() for f in found]
