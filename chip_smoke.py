@@ -26,7 +26,9 @@ and prints no result line):
    version at bf16; the main-path shapes among them are timed beside it
    and SDPA at bf16 (K4, K5), bounded by bf16 bytes and the bf16 peak (K4
    also by its device time, its share of that bound and the bf16
-   tensor-core floor); K3's mamba2-130m (dense and pool) and Jamba (dense
+   tensor-core floor); every launch mode of K2 runs again at bf16 too
+   (its bf16 design: the main and gemma3 cases bit for bit as at fp32,
+   the timed ones by device time); K3's mamba2-130m (dense and pool) and Jamba (dense
    and pool) cases run again with x, B and C at bf16 (its bf16 instance, fp32
    outputs held to the fp32 instance's SSD_TOL, "pool_bf16" also bit for
    bit alone/packed and across l buckets), bounded by 2-byte x, B, C and
@@ -505,7 +507,10 @@ def prefill_cases(torch, dev):
     what that design makes distinct: ps = 8 with chunks across split
     boundaries, 32-row blocks (G = 2), a 64-row block with 16 rows of
     padding (G = 3), head_dim 256 in 64-row blocks (16-key tiles), and
-    head_dim 18 (4-byte copies). "main" also checks that its output is
+    head_dim 18 (4-byte copies; 2-byte copies at bf16). Every case runs
+    again at bf16 ("<name>_bf16": the bf16 design, held to BF16_TOL, with
+    its twin's checks; the timed ones report their device time). "main"
+    also checks that its output is
     bit-identical under the pages it needs and under the full table
     width, and for each slot launched alone. "gemma3" is the gemma3-4b
     pool's packed 16-token chunk on a local layer: 8 slots resident at
@@ -593,12 +598,23 @@ def prefill_cases(torch, dev):
             flops, check=check,
             report=_paged_standing("paged_prefill_attention") if timed
             else None, ps=ps, timed=timed))
-        if main or name == "jamba":     # the same launch at bf16
-            bargs = _bf16_args(torch, args)
-            out.append(_paged_case(
-                f"{name}_bf16", op, ops.paged_prefill_attention_ref, bargs,
-                kw, _bf16_bytes(torch, bargs, 2 * 2 * int(keys.sum()) * K * D),
-                flops, ps=ps, timed=True, bf16=True))
+        # the same launch at bf16 (the bf16 design), with the same checks
+        bargs = _bf16_args(torch, args)
+        bcheck = _idle_slot_is_zero if name in ("ragged_idle",
+                                                "page8_split_edge") else None
+        if main:
+            bcheck = _all_of(_walk_bitwise(torch, op, bargs, kw),
+                             _start_bitwise(torch, op, bargs, kw,
+                                            window or 128,
+                                            1 - (window or 128)))
+        btimed = main or name == "jamba"
+        out.append(_paged_case(
+            f"{name}_bf16", op, ops.paged_prefill_attention_ref, bargs,
+            kw, _bf16_bytes(torch, bargs, 2 * 2 * int(keys.sum()) * K * D),
+            flops, check=bcheck,
+            report=_paged_bf16_standing("paged_prefill_attention",
+                                        "paged_prefill_kernel", op)
+            if btimed else None, ps=ps, timed=btimed, bf16=True))
     return out
 
 
@@ -679,6 +695,22 @@ def _paged_standing(kname):
         log(f"[kernels] {kname}[{c['name']}] {bound_ms / ms:.3g} of the {by} bound "
             f"({bound_ms:.4g} ms), {ms / plain_ms:.3f}x its plain version's "
             f"time ({plain_ms:.4f} ms)")
+    return report
+
+
+def _paged_bf16_standing(kname, piece, wrapper):
+    """A paged kernel's standing at a timed bf16 shape: its device time
+    per call from the profiler (``piece`` of its device name; events
+    around back-to-back calls of a kernel this short time the host) beside
+    the events', its share of the bound at bf16 (bf16 bytes, the bf16
+    peak) on each, and the factor against its plain version."""
+    def report(torch, c, ms, plain_ms, library_ms):
+        bound_ms, by = _bound(c["nbytes"], c["flops"], PEAK_BF16_FLOP_PER_S)
+        device_ms = _kernel_device_ms(torch, c["kernel"], piece, wrapper)
+        log(f"[kernels] {kname}[{c['name']}] events {ms:.4f} ms; "
+            f"{_share(bound_ms, by, device_ms)} at bf16, "
+            f"{bound_ms / ms:.3g} on events; {ms / plain_ms:.3f}x its "
+            f"plain version's time ({plain_ms:.4f} ms)")
     return report
 
 

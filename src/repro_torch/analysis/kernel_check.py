@@ -530,18 +530,16 @@ def _probe_paged_prefill(mk: Inputs) -> List[Mode]:
     kp, vp = mk.f(P, ps, K, D), mk.f(P, ps, K, D)
     pt = mk.i(mk.rng.integers(1, P, (B, MP)))
     bf = [t.to(torch.bfloat16) for t in (q, kp, vp)]
-    # a full chunk and a ragged one per launch, the last row padding; the
-    # window walk again at bf16
-    return [_mode(name, ops.paged_prefill_attention_gqa, *floats, pt,
-                  mk.i(start), mk.i(total), **kw)
-            for name, floats, start, total, kw in (
-        ("full_walk", (q, kp, vp), [20, 3, 0], [24, 5, 0], {}),
-        ("live_bound", (q, kp, vp), [16, 9, 0], [20, 13, 0],
-         dict(pages_bound=3)),
-        ("window_late_start", (q, kp, vp), [30, 25, 0], [34, 27, 0],
-         dict(pages_bound=5, pages_start=2, window=8)),
-        ("bf16_window_late_start", bf, [30, 25, 0], [34, 27, 0],
-         dict(pages_bound=5, pages_start=2, window=8)))]
+    # a full chunk and a ragged one per launch, the last row padding; each
+    # walk again at bf16 (the bf16 design)
+    walks = (("full_walk", [20, 3, 0], [24, 5, 0], {}),
+             ("live_bound", [16, 9, 0], [20, 13, 0], dict(pages_bound=3)),
+             ("window_late_start", [30, 25, 0], [34, 27, 0],
+              dict(pages_bound=5, pages_start=2, window=8)))
+    return [_mode(prefix + name, ops.paged_prefill_attention_gqa, *floats,
+                  pt, mk.i(start), mk.i(total), **kw)
+            for prefix, floats in (("", (q, kp, vp)), ("bf16_", bf))
+            for name, start, total, kw in walks]
 
 
 def _valid(mk: Inputs, *shape) -> torch.Tensor:

@@ -5,7 +5,9 @@ The tensor's device decides the path: CPU tensors take the plain version
 ``csrc/paged_prefill_attention.cu`` or raise. There is no fallback between
 the two. The kernel takes fp32 or bf16 (q, the pages and the output of one
 dtype; the entry ``paged_prefill_attention_f32`` or ``_bf16`` by q's
-dtype), accumulating in fp32 either way; anything else raises.
+dtype), accumulating in fp32 either way; anything else raises. The two
+entries are two designs over one split page walk: 3xTF32 products at
+fp32, native bf16 m16n8k16 products on bf16 tiles at bf16.
 ``paged_prefill_attention_gqa.launches`` counts wrapper calls that
 launched the kernel, and ``.launches_by_dtype`` splits them by dtype.
 """

@@ -425,7 +425,8 @@ def test_probes_cover_every_family_and_entry():
                                    "window_late_start",
                                    "bf16_window_late_start"],
         "paged_prefill_attention": ["full_walk", "live_bound",
-                                    "window_late_start",
+                                    "window_late_start", "bf16_full_walk",
+                                    "bf16_live_bound",
                                     "bf16_window_late_start"],
         "decode_attention": ["gqa", "gqa_irregular", "kv_strided",
                              "head_expanded", "cross", "bf16_kv_strided"],
@@ -583,6 +584,6 @@ def test_cuda_probes_pass_the_audit_and_match_plain_versions():
                         if mode.scaled else 1e-4
                     err = (a - b).abs().max().item()
                     assert err <= tol, (family, mode.name, err)
-    assert sum(c.kind == "launch" for c in rec.calls) == 28
+    assert sum(c.kind == "launch" for c in rec.calls) == 30
     found = kernel_check.audit(rec.calls, entries)
     assert not found, [f.format() for f in found]

@@ -513,15 +513,23 @@ def test_cuda_decode_launch_zeroes_its_split_counts(cuda):
     assert (out - want).abs().max().item() <= GPU_TOL
 
 
+def _typed(ts, dtype):
+    """``ts`` with every float tensor cast to ``dtype``."""
+    return [t.to(dtype) if t.is_floating_point() else t for t in ts]
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
 @pytest.mark.parametrize("mode", ["split_walk", "page8_split_edge",
                                   "window_splits", "rows_64"])
-def test_cuda_prefill_live_walk_is_bitwise_static_walk(mode, cuda):
+def test_cuda_prefill_live_walk_is_bitwise_static_walk(mode, dtype, cuda):
     """The same inputs under pages_bound = the pages needed and under the
     full table width give bit-identical outputs: a block's work depends on
-    its slot's own start and total, not on the grid."""
+    its slot's own start and total, not on the grid. At fp32 and at bf16
+    (each dtype its own design)."""
     args, kw = prefill_case(mode)
-    q, kp, vp, pt, start, total = to_torch(args, cuda)
+    q, kp, vp, pt, start, total = _typed(to_torch(args, cuda), dtype)
     op = pre_ops.paged_prefill_attention_gqa
     live = op(q, kp, vp, pt, start, total, pages_start=kw["pages_start"],
               window=kw["window"],
@@ -533,12 +541,15 @@ def test_cuda_prefill_live_walk_is_bitwise_static_walk(mode, cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
 @pytest.mark.parametrize("mode", ["split_walk", "rows_64"])
-def test_cuda_prefill_slot_alone_is_bitwise_packed(mode, cuda):
+def test_cuda_prefill_slot_alone_is_bitwise_packed(mode, dtype, cuda):
     """Each slot launched alone, at its own live bound, gives the bits it
-    gets in the packed launch of every slot (8 in split_walk)."""
+    gets in the packed launch of every slot (8 in split_walk), at fp32
+    and at bf16."""
     args, kw = prefill_case(mode)
-    q, kp, vp, pt, start, total = to_torch(args, cuda)
+    q, kp, vp, pt, start, total = _typed(to_torch(args, cuda), dtype)
     op = pre_ops.paged_prefill_attention_gqa
     packed = op(q, kp, vp, pt, start, total, **kw)
     ps = kp.shape[1]
@@ -552,13 +563,16 @@ def test_cuda_prefill_slot_alone_is_bitwise_packed(mode, cuda):
 
 
 @pytest.mark.gpu
-def test_cuda_prefill_launch_zeroes_its_split_counts(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_cuda_prefill_launch_zeroes_its_split_counts(dtype, cuda):
     """The paged prefill launch zeroes its counts of finished splits
     itself: over a workspace whose every byte is 0xff (every count
     non-zero), the kernel still merges every row block's splits and
-    matches the plain version."""
+    matches the plain version (through the _bf16 entry at bf16, within
+    BF16_TOL)."""
     args, kw = prefill_case("split_walk")
-    q, kp, vp, pt, start, total = to_torch(args, cuda)
+    q, kp, vp, pt, start, total = _typed(to_torch(args, cuda), dtype)
     B, K, C, G, D = q.shape
     ps, MP = kp.shape[1], pt.shape[1]
     end = MP if kw["pages_bound"] is None else kw["pages_bound"]
@@ -568,13 +582,18 @@ def test_cuda_prefill_launch_zeroes_its_split_counts(cuda):
     assert n > 0, "the case must span more than one split"
     ws = torch.full((n,), 0xFF, dtype=torch.uint8, device=q.device)
     out = torch.full_like(q, float("nan"))
-    common.launch(name, "paged_prefill_attention_f32", q, kp, vp, pt, start,
+    common.launch(name, f"paged_prefill_attention_"
+                  f"{common.ENTRY_SUFFIX[dtype]}", q, kp, vp, pt, start,
                   total, out, ws, B, K, C, G, D, ps, MP, kw["pages_start"],
                   end, kw["window"])
     torch.cuda.synchronize()
     want = pre_ops.paged_prefill_attention_ref(q, kp, vp, pt, start, total,
                                                **kw)
-    assert (out - want).abs().max().item() <= GPU_TOL
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(out.float(), want.float(), rtol=BF16_TOL,
+                                   atol=BF16_TOL)
+    else:
+        assert (out - want).abs().max().item() <= GPU_TOL
 
 
 @pytest.mark.gpu

@@ -6,7 +6,8 @@ on one card.
     python3 tools/compare_kernel.py decode_attention --case gemma3 PARENT . . PARENT
 
 ``flash_attention`` names a row of chip_smoke.py's ``KERNELS``; ``--case``
-one of its cases ("main" by default); each further argument is the root of
+one of its cases ("main" by default), or several joined by commas (timed
+one after another in each checkout's process); each further argument is the root of
 a checkout (for example the parent commit unpacked with ``git archive``
 into a directory that .gitignore lists). Each checkout runs in a process
 of its own, in the order given: it builds its own kernels, checks the
@@ -48,8 +49,12 @@ def run_one(kernel: str, case_name: str, tree: str) -> None:
     torch.backends.cudnn.allow_tf32 = False
     build.build_all()
     (make_cases,) = [k[3] for k in cs.KERNELS if k[0] == kernel]
-    case = next(c for c in make_cases(torch, torch.device("cuda"))
-                if c["name"] == case_name)
+    cases = {c["name"]: c for c in make_cases(torch, torch.device("cuda"))}
+    for name in case_name.split(","):
+        time_case(torch, cs, kernel, name, cases[name], tree)
+
+
+def time_case(torch, cs, kernel, case_name, case, tree) -> None:
     got = case["kernel"]()
     torch.cuda.synchronize()
     err, _ = cs._max_err(got, case["plain"]())

@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""Does the flash-attention kernel's fp32 instance compile to the same
-machine code in two sources?
+"""Does a kernel's fp32 instance compile to the same machine code in two
+sources?
 
-    python3 tools/flash_fp32_sass.py OTHER_SOURCE [OTHER_SOURCE ...]
+    python3 tools/flash_fp32_sass.py [--kernel NAME] OTHER_SOURCE [...]
 
-Compiles src/repro_torch/csrc/flash_attention.cu and each OTHER_SOURCE (for
-example the parent commit's, unpacked with git archive into build/parent)
-with nvcc for sm_90a into cubins under build/sass/, disassembles them with
-cuobjdump -sass, and compares the fp32 instances (flash_kernel at each tile
-width and load path, whatever the template's other arguments) instruction
-by instruction, with addresses, encodings and the anonymous namespace's
-name left out. Prints one line per source and instance: identical, or how
-many instructions differ. Needs the CUDA toolkit; imports no JAX.
+NAME is flash_attention (the default) or paged_prefill_attention. Compiles
+src/repro_torch/csrc/<NAME>.cu and each OTHER_SOURCE (for example the
+parent commit's, unpacked with git archive into build/parent) with nvcc
+for sm_90a into cubins under build/sass/, disassembles them with
+cuobjdump -sass, and compares the fp32 instances (flash_kernel at each
+tile width and load path, or paged_prefill_kernel at each tile width,
+load path and row-warp count; with or without the element type as a
+template argument) instruction by instruction, with addresses, encodings
+and the anonymous namespace's name left out. Prints one line per source
+and instance: identical, or how many instructions differ. Needs the CUDA
+toolkit; imports no JAX.
 """
 from __future__ import annotations
 
@@ -21,15 +24,19 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-SRC = ROOT / "src" / "repro_torch" / "csrc" / "flash_attention.cu"
+CSRC = ROOT / "src" / "repro_torch" / "csrc"
 OUT = ROOT / "build" / "sass"
-# the fp32 instance's device function: flash_kernel<DT, VEC> or, where the
-# template also takes the element type, flash_kernel<float, DT, VEC>
-FP32 = re.compile(r"flash_kernelI(?:f)?Li(\d+)ELb([01])E")
+# each kernel's fp32 device function: flash_kernel<DT, VEC> or
+# paged_prefill_kernel<DT, VEC, RW>, or, where the template also takes the
+# element type, the same with float first
+FP32 = {"flash_attention": re.compile(r"flash_kernelI(?:f)?Li(\d+)ELb([01])E"),
+        "paged_prefill_attention": re.compile(
+            r"paged_prefill_kernelI(?:f)?Li(\d+)ELb([01])ELi(\d)E")}
 
 
-def sass(src: Path, tag: str) -> dict:
-    """{(DT, VEC): [instruction text]} of the fp32 instances in src."""
+def sass(src: Path, tag: str, kernel: str = "flash_attention") -> dict:
+    """{instance's template arguments: [instruction text]} of the fp32
+    instances of ``kernel`` in src."""
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
     OUT.mkdir(parents=True, exist_ok=True)
@@ -44,8 +51,8 @@ def sass(src: Path, tag: str) -> dict:
     out, key = {}, None
     for line in dump.splitlines():
         if "Function :" in line:
-            m = FP32.search(line)
-            key = (int(m[1]), int(m[2])) if m and "bf16" not in line \
+            m = FP32[kernel].search(line)
+            key = tuple(map(int, m.groups())) if m and "bf16" not in line \
                 else None
             if key is not None:
                 out[key] = []
@@ -58,9 +65,12 @@ def sass(src: Path, tag: str) -> dict:
 
 
 def main() -> int:
-    mine = sass(SRC, "this")
-    for i, other in enumerate(sys.argv[1:]):
-        theirs = sass(Path(other), f"other{i}")
+    args, kernel = sys.argv[1:], "flash_attention"
+    if args[:1] == ["--kernel"]:
+        kernel, args = args[1], args[2:]
+    mine = sass(CSRC / f"{kernel}.cu", "this", kernel)
+    for i, other in enumerate(args):
+        theirs = sass(Path(other), f"other{i}", kernel)
         for key in sorted(set(mine) | set(theirs)):
             a, b = mine.get(key), theirs.get(key)
             if a is None or b is None:
@@ -70,7 +80,13 @@ def main() -> int:
             else:
                 n = sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))
                 what = f"{n} of {max(len(a), len(b))} instructions differ"
-            print(f"{other}: fp32 flash_kernel DT={key[0]} vec={key[1]}: "
+                first = next((i for i, (x, y) in enumerate(zip(a, b))
+                              if x != y), None)
+                if first is not None:
+                    what += (f"; first at {first}: {a[first]!r} here, "
+                             f"{b[first]!r} there")
+            print(f"{other}: fp32 {kernel} instance {key} (DT, vec"
+                  f"{', row warps' if len(key) > 2 else ''}): "
                   f"{len(a or [])} instructions here, {what}", flush=True)
     return 0
 

@@ -1,19 +1,30 @@
 #!/usr/bin/env python3
-"""Designs of the paged prefill kernel (K2) at chip_smoke.py's main case,
-on one CUDA card.
+"""Designs of the paged prefill kernel (K2) at one of chip_smoke.py's
+cases, on one CUDA card.
 
-Run from the root of a checkout:  python3 tools/prefill_variants.py [NAME ...]
+Run from the root of a checkout:
 
-Each variant is csrc/paged_prefill_attention.cu compiled with a few -D
-flags (``VARIANTS`` below: the kernel's knobs PREFILL_SPLIT_KEYS,
-PREFILL_STAGES, PREFILL_KEY_TILE, PREFILL_MIN_BLOCKS, the ablations of
-PREFILL_SKIP, and the clocks by phase of PREFILL_PHASES with
-tools/prefill_phases.cuh); no name runs them all, "shipped" is the source
-as it is. Every variant is compiled with nvcc into build/variants/<name>/
-(all at once), loaded in place of the built kernel (the wrapper asks the
-loaded library for its shared memory and workspace), checked against the
-plain version on the main case (a variant that drops work is marked so and
-only timed), then timed in turns, twice round: the CUDA-event time of
+    python3 tools/prefill_variants.py [--case NAME] [VARIANT ...]
+
+The case is "main" by default; "main_bf16" (or any other "<name>_bf16"
+case) times the bf16 design; several cases joined by commas run one
+after another on the same builds. Each variant is
+csrc/paged_prefill_attention.cu compiled with a few -D flags
+(``VARIANTS`` below: the knobs PREFILL_SPLIT_KEYS, PREFILL_STAGES and
+PREFILL_MIN_BLOCKS of both designs, PREFILL_KEY_TILE of the fp32 design,
+PREFILL_BF16_KEYS, PREFILL_BF16_KEYS_256, PREFILL_BF16_MIN_BLOCKS and
+PREFILL_BF16_MERGE_SPLITS of the bf16 design, the
+ablations of PREFILL_SKIP, and the clocks by phase of PREFILL_PHASES with
+tools/prefill_phases.cuh, in either design); no name runs them all but
+"parent", "shipped" is the source as it is and "parent" the source under
+build/parent (the parent commit unpacked with git archive). Every variant
+is compiled with nvcc into build/variants/<name>/
+(all at once; its registers and spills printed by instance), loaded in
+place of the built kernel (the wrapper asks the loaded library for its
+shared memory and workspace), checked against the plain version on the
+case (within KERNEL_TOL at fp32, allclose within BF16_TOL at bf16; a
+variant that drops work is marked so and only timed), then timed in
+turns, twice round: the CUDA-event time of
 back-to-back wrapper calls (what chip_smoke.py reports), the host time of
 a wrapper call, and the kernel's device time per call from
 torch.profiler. Prints the card's name and power limit, then one JSON
@@ -31,8 +42,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 SRC = "paged_prefill_attention.cu"
-PHASE_NAMES = ("setup to page ids", "Q split to loop", "copy issue + wait",
-               "products + barrier", "warp merge + stores", "split merge")
+PHASE_NAMES = ("setup to page ids", "Q split (bf16: first copies) to loop",
+               "copy issue + wait", "products + barrier",
+               "warp merge + stores", "split merge")
 
 # name: (-D flags, exact: the output must match the plain version)
 VARIANTS = {
@@ -57,6 +69,22 @@ VARIANTS = {
     "no_pv": (["-DPREFILL_SKIP=2"], False),
     "no_products": (["-DPREFILL_SKIP=4"], False),
     "phases": (["-DPREFILL_PHASES", "-I", str(ROOT / "tools")], True),
+    # the bf16 design's tiles: 128 keys at D <= 128 (32-key slices at 16
+    # rows), 64 at D = 256
+    "bf16_keys_128": (["-DPREFILL_BF16_KEYS=128"], True),
+    "bf16_keys_256_64": (["-DPREFILL_BF16_KEYS_256=64"], True),
+    # at 16 rows and D <= 128 (shipped: registers for 3 blocks an SM, the
+    # split merge one split at a time): no register cap with 4 or 2
+    # splits' partials in flight, or 3 blocks with 2 (which spills)
+    "bf16_merge_4_blocks_1": (["-DPREFILL_BF16_MERGE_SPLITS=4",
+                               "-DPREFILL_BF16_MIN_BLOCKS=1"], True),
+    "bf16_merge_2_blocks_1": (["-DPREFILL_BF16_MERGE_SPLITS=2",
+                               "-DPREFILL_BF16_MIN_BLOCKS=1"], True),
+    "bf16_merge_2_blocks_3": (["-DPREFILL_BF16_MERGE_SPLITS=2"], True),
+    # the parent commit's source, timed in the same turns; run only where
+    # named
+    "parent": ([], True, ROOT / "build" / "parent" / "src" / "repro_torch" /
+               "csrc" / SRC),
 }
 
 
@@ -66,14 +94,19 @@ def log(msg: str) -> None:
 
 def instances(report: str) -> str:
     """ptxas's registers and spill stores by kernel instance, as
-    "D=<head tile> vec=<0|1> rows=<16 x row warps>: N regs, S B spilled"."""
+    "<fp32|bf16> D=<head tile> vec=<0|1> rows=<16 x row warps>: N regs, S
+    B spilled" (the fp32 and bf16 designs, and the element-typed template
+    of earlier sources)."""
     out = []
-    for m in re.finditer(r"Compiling entry function '\w*paged_prefill_kernel"
-                         r"ILi(\d+)ELb([01])ELi(\d)E\w*'.*?Used (\d+) "
-                         r"registers", report, re.S):
+    for m in re.finditer(r"Compiling entry function '\w*?paged_prefill_kernel"
+                         r"(_bf16)?I(f|13__nv_bfloat16)?Li(\d+)ELb([01])"
+                         r"ELi(\d)E\w*'.*?Used (\d+) registers", report,
+                         re.S):
         spill = re.search(r"(\d+) bytes spill stores", report[m.start():])
-        out.append(f"D={m[1]} vec={m[2]} rows={16 * int(m[3])}: {m[4]} regs, "
-                   f"{spill[1] if spill else '?'} B spilled")
+        dtype = "bf16" if m[1] or (m[2] or "").endswith("bfloat16") \
+            else "fp32"
+        out.append(f"{dtype} D={m[3]} vec={m[4]} rows={16 * int(m[5])}: "
+                   f"{m[6]} regs, {spill[1] if spill else '?'} B spilled")
     return "; ".join(sorted(out))
 
 
@@ -184,7 +217,7 @@ def read_rates(torch, cs, case) -> dict:
                      ("half_heads_runs", lambda: x[:, :K // 2].contiguous()),
                      ("alternate_heads", lambda: x[:, ::2].contiguous())):
         ms = cs._time_ms(torch, fn)
-        nbytes = 2 * fn().numel() * 4
+        nbytes = 2 * fn().numel() * kp.element_size()
         out[name] = dict(ms=ms, tb_per_s=nbytes / ms / 1e9)
     return out
 
@@ -223,8 +256,9 @@ def host_breakdown(torch, ops, case_args, kw):
         allocations=lambda: (torch.empty_like(q), torch.empty(
             n, dtype=torch.uint8, device=q.device)),
         c_call=lambda: common.launch(
-            ops.NAME, "paged_prefill_attention_f32", q, kp, vp, pt, start,
-            total, out, ws, B, K, C, G, D, ps, MP, 0, end, 0),
+            ops.NAME, f"paged_prefill_attention_"
+            f"{common.ENTRY_SUFFIX[q.dtype]}", q, kp, vp, pt, start, total,
+            out, ws, B, K, C, G, D, ps, MP, 0, end, 0),
         current_stream=lambda: torch.cuda.current_stream().cuda_stream,
     )
     res = {}
@@ -234,6 +268,36 @@ def host_breakdown(torch, ops, case_args, kw):
         res[name] = _host_us(fn)
         torch.cuda.synchronize()
     return res
+
+
+def run_case(torch, cs, ops, build, profile_ssm, case_name, case, names,
+             libs) -> None:
+    """Every variant of ``names`` checked and timed on one case, in turns,
+    twice round; the "phases" variant's clocks by phase in the first."""
+    want = case["plain"]()
+    log(f"[{case_name}] {case['desc']}; plain "
+        f"{cs._time_ms(torch, case['plain']):.4f} ms")
+    if case["bf16"]:   # each variant within BF16_TOL, checked once here
+        for name in names:
+            load_variant(build, ops.NAME, libs[name])
+            got = case["kernel"]()
+            torch.cuda.synchronize()
+            excess = cs._bf16_excess(got, want)
+            log(f"[check] {name}: allclose excess {excess:.3g}")
+            if VARIANTS[name][1] and not excess <= cs.BF16_TOL:
+                raise AssertionError(f"{name}: excess {excess}")
+    log(json.dumps(dict(case=case_name,
+                        read_rates=read_rates(torch, cs, case))))
+    log(json.dumps(dict(case=case_name, host_us=host_breakdown(
+        torch, ops, case["args"], case["kw"]))))
+    for rnd in range(2):
+        for name in names:
+            r = measure(torch, cs, ops, build, profile_ssm, name, libs[name],
+                        case, want, exact=False if case["bf16"] else None)
+            log(json.dumps(dict(round=rnd, case=case_name, **r)))
+            if name == "phases" and rnd == 0:
+                log(json.dumps(dict(case=case_name, phases=phase_report(
+                    torch, libs[name], case))))
 
 
 def main() -> int:
@@ -246,29 +310,21 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.paged_prefill_attention import ops
     torch.backends.cuda.matmul.allow_tf32 = False
-    names = sys.argv[1:] or list(VARIANTS)
+    args, case_names = sys.argv[1:], "main"
+    if args[:1] == ["--case"]:
+        case_names, args = args[1], args[2:]
+    names = args or [n for n in VARIANTS if n != "parent"]
     log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
                        text=True, check=True).stdout.strip())
     out_root = ROOT / "build" / "variants"
     profile_ssm.OUT.mkdir(parents=True, exist_ok=True)
     libs = compile_all(names, out_root)
-    case = next(c for c in cs.prefill_cases(torch, torch.device("cuda"))
-                if c["name"] == "main")
-    want = case["plain"]()
-    log(f"[main] {case['desc']}; plain {cs._time_ms(torch, case['plain']):.4f}"
-        " ms")
-    log(json.dumps(dict(read_rates=read_rates(torch, cs, case))))
-    log(json.dumps(dict(host_us=host_breakdown(
-        torch, ops, case["args"], case["kw"]))))
-    for rnd in range(2):
-        for name in names:
-            r = measure(torch, cs, ops, build, profile_ssm, name, libs[name],
-                        case, want)
-            log(json.dumps(dict(round=rnd, **r)))
-            if name == "phases" and rnd == 0:
-                log(json.dumps(dict(phases=phase_report(torch, libs[name],
-                                                        case))))
+    cases = {c["name"]: c for c in cs.prefill_cases(torch,
+                                                     torch.device("cuda"))}
+    for cname in case_names.split(","):
+        run_case(torch, cs, ops, build, profile_ssm, cname, cases[cname],
+                 names, libs)
     return 0
 
 

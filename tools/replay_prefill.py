@@ -4,7 +4,7 @@ calls, in several checkouts, in turns, on one CUDA card.
 
 Run from the root of a checkout:
 
-    python3 tools/replay_prefill.py PARENT . . PARENT
+    python3 tools/replay_prefill.py [--bf16] PARENT . . PARENT
 
 First one serve of chip_smoke.py phase 4's pool (two qwen1.5-32b tiers,
 16 prompts of 32-512 tokens, 8 slots) records the arguments of every K2
@@ -23,9 +23,12 @@ summed over a tier's calls of one kernel (one replay of the serve's
 sequence: "pool_*" K2, "decode_*" K1) or over 20 calls of a shape, three
 rounds each. Also prints how the recorded calls spread over contexts: the
 share of slot chunks (K2) and of slot rows (K1, idle slots left out)
-whose keys pass 128, 256 and 512. Prints the card's name and power
-limit, then one JSON line per checkout and round. It imports neither JAX
-nor the JAX package.
+whose keys pass 128, 256 and 512. ``--bf16`` replays the same calls with
+q and the pools in bf16 (the kernels' bf16 instances, as phase 10's bf16
+pool launches them: the same chunks at the same positions), each call
+checked against the plain version at bf16 within allclose(rtol = atol =
+2e-2). Prints the card's name and power limit, then one JSON line per
+checkout and round. It imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
@@ -124,7 +127,7 @@ def _shape_calls(torch):
     return out
 
 
-def run_one(tree: str) -> None:
+def run_one(tree: str, dtype_name: str = "float32") -> None:
     root = Path(tree).resolve()
     sys.path[:0] = [str(root / "src"), str(root), str(ROOT / "tools")]
     import torch
@@ -135,6 +138,7 @@ def run_one(tree: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     build.build_all()
     dev = torch.device("cuda")
+    dtype = getattr(torch, dtype_name)
     g = torch.Generator(device=dev).manual_seed(0)
     calls = torch.load(CALLS)
     tier = lambda c: "full" if c["q"][1] == 40 else "half"
@@ -159,17 +163,21 @@ def run_one(tree: str) -> None:
         for c in lst:
             if c["pool"] not in pools:
                 pools[c["pool"]] = tuple(torch.randn(c["pool"], generator=g,
-                                                     device=dev)
+                                                     device=dev).to(dtype)
                                          for _ in range(2))
             kp, vp = pools[c["pool"]]
-            q = torch.randn(c["q"], generator=g, device=dev) * c["q"][-1] ** -.5
+            q = (torch.randn(c["q"], generator=g, device=dev)
+                 * c["q"][-1] ** -.5).to(dtype)
             pos = (c["lens"],) if "lens" in c else (c["start"], c["total"])
             a = (q, kp, vp, c["pt"].to(dev), *[t.to(dev) for t in pos])
             args.append((a, c["kw"]))
-            err = (op(*a, **c["kw"]) - ref(*a, **c["kw"])).abs().max().item()
+            got, want = op(*a, **c["kw"]).float(), ref(*a, **c["kw"]).float()
+            # fp32: the largest error; bf16: how far outside allclose
+            err = ((got - want).abs() - (2e-2 * want.abs() if dtype ==
+                                         torch.bfloat16 else 0)).max().item()
             worst = max(worst, err)
         runs[name] = (op, piece, args)
-    if not worst <= 1e-4:
+    if not worst <= (2e-2 if dtype == torch.bfloat16 else 1e-4):
         raise AssertionError(f"{tree}: max abs err {worst}")
     profile_ssm.OUT.mkdir(parents=True, exist_ok=True)
     for rnd in range(3):
@@ -183,19 +191,24 @@ def run_one(tree: str) -> None:
                 torch, f"replay_{root.name}_{name}", go)
             ms = sum(t for k, (n, t) in by_name.items() if piece in k)
             res[name] = dict(calls=len(args), device_ms=ms)
-        log(json.dumps(dict(tree=tree, round=rnd, max_abs_err=worst, **res)))
+        log(json.dumps(dict(tree=tree, dtype=dtype_name, round=rnd,
+                            max_abs_err=worst, **res)))
 
 
 def main() -> int:
     if sys.argv[1] == "--one":
-        run_one(sys.argv[2])
+        run_one(*sys.argv[2:4])
         return 0
+    trees, dtype_name = sys.argv[1:], "float32"
+    if trees[:1] == ["--bf16"]:
+        trees, dtype_name = trees[1:], "bfloat16"
     log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
                        text=True, check=True).stdout.strip())
     subprocess.run([sys.executable, __file__, "--record"], check=True)
-    for tree in sys.argv[1:]:
-        subprocess.run([sys.executable, __file__, "--one", tree], check=True)
+    for tree in trees:
+        subprocess.run([sys.executable, __file__, "--one", tree, dtype_name],
+                       check=True)
     return 0
 
 
