@@ -28,11 +28,13 @@ and prints no result line):
    also by its device time, its share of that bound and the bf16
    tensor-core floor); every launch mode of K2 runs again at bf16 too
    (its bf16 design: the main and gemma3 cases bit for bit as at fp32,
-   the timed ones by device time); K3's mamba2-130m (dense and pool) and Jamba (dense
-   and pool) cases run again with x, B and C at bf16 (its bf16 instance, fp32
-   outputs held to the fp32 instance's SSD_TOL, "pool_bf16" also bit for
-   bit alone/packed and across l buckets), bounded by 2-byte x, B, C and
-   the fp32 peak.
+   the timed ones by device time); K3's mamba2-130m (dense and pool) and
+   Jamba (dense and pool) cases in the kernel's layout and in the
+   model's, timed, and its bf16 design's tile edges
+   run again with x, B and C at bf16 (its bf16 instance, fp32 outputs held
+   to the fp32 instance's SSD_TOL, "pool_bf16" also bit for bit
+   alone/packed and across l buckets), bounded by 2-byte x, B, C and the
+   bf16 design's products at the bf16 peak.
 4. The routed pool at full width: a router at DeBERTa-v3-large's widths
    scores 16 prompts, a ThresholdPolicy splits them between two
    qwen1.5-32b tiers ("half": the reference's scaled_sibling(., 2) at 2
@@ -1087,13 +1089,17 @@ def ssd_cases(torch, dev):
     "jamba_dense" and "jamba_pool" (timed) are jamba-v0.1-52b's Mamba
     layers: 128 heads of 64, state 16, the dense path's 128-position
     chunks (8 prompts x 4) and the pool's 16-position chunks with dt = 0
-    padding. "main", "pool", "jamba_dense" and "jamba_pool" run again with
-    x, B and C at bf16 (dt and dA fp32, as the models pass them; the bf16
-    instance, its fp32 outputs held to SSD_TOL as the fp32 instance's:
-    its arithmetic is fp32 on exact inputs), "pool_bf16" with the exact
-    contracts at bf16; bounded by 2-byte x, B and C, 4-byte dt, dA and
-    outputs, and its operations at the fp32 peak (all but the scores are
-    fp32 products).
+    padding. "pool_model" and "jamba_pool_model" (timed) are the two pools'
+    chunks in the model's layout, as the SSM layers call the kernel (the
+    state written (P, N)). ``SSD_BF16_TWINS`` run again with x, B and C
+    at bf16 (dt and dA fp32, as the models pass them; the bf16 instance,
+    its fp32 outputs held to SSD_TOL as the fp32 instance's: exact bf16
+    products summed in fp32, with each gate in two bf16 parts), "pool_bf16"
+    with the exact contracts at bf16; the main-path shapes timed (both
+    layouts), the others the bf16 design's tile edges;
+    bounded by 2-byte x, B and C, 4-byte dt, dA and outputs, and the bf16
+    design's products at the bf16 peak (``_ssd_standing`` logs the fp32
+    peak's figure beside it).
     The plain version holds the whole (l, l) decay matrix; no single
     PyTorch call computes the function."""
     from repro_torch.kernels.ssd_scan import ops
@@ -1112,18 +1118,21 @@ def ssd_cases(torch, dev):
         "l300_strip_panels": (2, 3, 300, 64, 128, "random"),
         "jamba_dense": (32, 128, 128, 64, 16, "random"),
         "jamba_pool": (8, 128, 16, 64, 16, "pad"),
+        "pool_model": (8, 24, 16, 64, 128, "model"),
+        "jamba_pool_model": (8, 128, 16, 64, 16, "model pad"),
     }
     g = torch.Generator(device=dev).manual_seed(6)
     out = []
     for name, (BC, H, l, P, N, layout) in spec.items():
+        layout = set(layout.split())
         u = lambda lo, hi, shape: lo + (hi - lo) * torch.rand(
             shape, generator=g, device=dev)
         x = torch.randn((BC, H, l, P), generator=g, device=dev)
-        if layout == "steep":
+        if "steep" in layout:
             dt, A = u(1.0, 5.0, (BC, H, l, 1)), -u(8.0, 16.0, (H,))
         else:
             dt, A = u(0.01, 0.2, (BC, H, l, 1)), -u(1.0, 16.0, (H,))
-        if layout == "pad":
+        if "pad" in layout:
             dt[0, :, l // 2:] = 0.0
             dt[-1] = 0.0
         da = torch.cumsum(dt * A[None, :, None, None], dim=2)
@@ -1137,25 +1146,35 @@ def ssd_cases(torch, dev):
             + BC * H * l * (3 + N + 2 * N * P)
         nbytes = 4 * (2 * x.numel() + 2 * dt.numel() + 2 * B.numel()
                       + BC * H * N * P)
-        if layout == "model":
+        check = _state_row_is_zero if "pad" in layout else None
+        if "model" in layout:
             # the dense path's views: x a head-split slice of the conv
             # output (b, S, di + 2N), B and C slices of the same rows
             b, nc, di = BC // 2, 2, H * P
             xbc = torch.randn((b, nc * l, di + 2 * N), generator=g,
                               device=dev)
-            xs = xbc[..., :di].reshape(b, nc, l, H, P)
-            Bs = xbc[..., di:di + N].reshape(b, nc, l, N)
-            Cs = xbc[..., di + N:].reshape(b, nc, l, N)
             dts = dt[..., 0].movedim(1, 2).reshape(b, nc, l, H).contiguous()
             das = da[..., 0].movedim(1, 2).reshape(b, nc, l, H).contiguous()
-            args = (xs, dts, das, Bs, Cs)
-            kernel = lambda args=args: ops.ssd_chunk(*args)
-            plain = lambda args=args: ops.ssd_chunk_reference(*args)
+
+            def typed(dtype, t=xbc, d=(dts, das), sh=(b, nc, l), di=di,
+                      N=N, H=H, P=P):
+                """(xs, dts, das, Bs, Cs) with xs, Bs, Cs views of xbc in
+                ``dtype``"""
+                t = t.to(dtype)
+                return (t[..., :di].reshape(*sh, H, P), *d,
+                        t[..., di:di + N].reshape(*sh, N),
+                        t[..., di + N:].reshape(*sh, N))
+            args = typed(torch.float32)
+            entry, ref = ops.ssd_chunk, ops.ssd_chunk_reference
+            if check is not None:   # the last bc is (b - 1, nc - 1)
+                check = lambda out: _state_row_is_zero(
+                    (out[0], out[1].flatten(0, 1)))
         else:
             args = (x, dt, da, B, C)
-            kernel = lambda args=args: ops.ssd_chunk_scan(*args)
-            plain = lambda args=args: ops.ssd_chunk_ref(*args)
-        check = _state_row_is_zero if layout == "pad" else None
+            typed = lambda dtype, a=args: _ssd_typed(torch, a, dtype)
+            entry, ref = ops.ssd_chunk_scan, ops.ssd_chunk_ref
+        kernel = lambda args=args, f=entry: f(*args)
+        plain = lambda args=args, f=ref: f(*args)
         if name == "pool":
             check = lambda out: _ssd_exact(torch, ops, dev)
         # the products' flops on the tensor cores: the scores once per bc,
@@ -1163,32 +1182,50 @@ def ssd_cases(torch, dev):
         score_flops = BC * pairs * 2 * N
         mma_flops = score_flops + BC * H * pairs * 2 * P \
             + BC * H * l * 2 * N * P
-        desc = f"x {BC}x{H}x{l}x{P}, B/C {BC}x{l}x{N}, {layout}"
+        desc = (f"x {BC}x{H}x{l}x{P}, B/C {BC}x{l}x{N}, "
+                f"{spec[name][5].replace(' ', ', ')}")
         c = _case(name, desc, kernel, plain, nbytes, flops, check=check,
                   timed=name in ("pool", "model_layout", "jamba_dense",
-                                 "jamba_pool"), scaled=True,
+                                 "jamba_pool", "pool_model",
+                                 "jamba_pool_model"), scaled=True,
                   report=_ssd_standing)
         c.update(tc_flops=3 * mma_flops, tc_route="3xTF32")
         out.append(c)
-        if name in ("main", "pool", "jamba_dense", "jamba_pool"):
-            # the same launch with x, B and C at bf16: one TF32 product for
-            # the scores, two for y and the state
-            bargs = _ssd_typed(torch, args, torch.bfloat16)
+        if name in SSD_BF16_TWINS:
+            # the same launch with x, B and C at bf16 (the bf16 design:
+            # one bf16 product for the scores, two bf16 parts of G and of
+            # B o w for y and the state); the edge modes untimed
+            bargs = typed(torch.bfloat16)
             if name == "pool":
                 check = lambda out: _ssd_exact(torch, ops, dev,
                                                torch.bfloat16)
+            bf16_flops = score_flops + SSD_BF16_PARTS * (mma_flops
+                                                         - score_flops)
             c = _case(f"{name}_bf16", desc + ", x/B/C bf16",
-                      lambda a=bargs: ops.ssd_chunk_scan(*a),
-                      lambda a=bargs: ops.ssd_chunk_ref(*a),
+                      lambda a=bargs, f=entry: f(*a),
+                      lambda a=bargs, f=ref: f(*a),
                       2 * x.numel() + 4 * x.numel() + 4 * 2 * dt.numel()
-                      + 2 * 2 * B.numel() + 4 * BC * H * N * P, flops,
-                      check=check, timed=True, scaled=True,
-                      report=_ssd_standing, bf16=True)
-            c.update(tc_flops=score_flops + 2 * (mma_flops - score_flops),
-                     tc_route="TF32 (1 product for the scores, 2 for y and "
-                     "the state)", peak=PEAK_FP32_FLOP_PER_S)
+                      + 2 * 2 * B.numel() + 4 * BC * H * N * P, bf16_flops,
+                      check=check, timed=name in SSD_TIMED_BF16,
+                      scaled=True, report=_ssd_standing, bf16=True)
+            c.update(tc_flops=bf16_flops, simt_flops=flops,
+                     tc_route=f"bf16 (1 product for the scores, "
+                     f"{SSD_BF16_PARTS} parts for y and the state)",
+                     peak=PEAK_BF16_FLOP_PER_S)
             out.append(c)
     return out
+
+
+# the SSD cases run again at bf16, and which of them are timed (the
+# main paths' shapes); the rest are the bf16 design's tile edges: past
+# its 16-row tiles, past a 256-key strip, the widest P and N, steep dA,
+# and dt = 0 padding in short chunks
+SSD_TIMED_BF16 = ("main", "pool", "jamba_dense", "jamba_pool", "model_layout",
+                  "pool_model", "jamba_pool_model")
+SSD_BF16_TWINS = SSD_TIMED_BF16 + ("l4", "pad_dt0", "steep_dA",
+                                   "l17_tile_edge", "p128_n256", "n256_p64",
+                                   "l300_strip_panels")
+SSD_BF16_PARTS = 2   # bf16 parts of G and B o w in the bf16 design
 
 
 def _ssd_typed(torch, args, dtype):
@@ -1247,17 +1284,25 @@ def _ssd_standing(torch, c, ms, plain_ms, library_ms):
     profiler (at the pool's chunks the CUDA events around back-to-back
     calls time the host wrapper), its share of the bound, and the floor of
     its tensor-core route (``tc_flops``: three TF32 products per fp32
-    product of the scores, y and the state, or at bf16 one for the scores
-    and two for y and the state, at the tensor cores' TF32 peak)."""
+    product of the scores, y and the state at the TF32 peak; at bf16 one
+    bf16 product for the scores and two parts for y and the state at the
+    bf16 peak, with the bound that the same operations would give at the
+    fp32 peak beside it)."""
     from repro_torch.kernels.ssd_scan import ops
-    bound_ms, by = _bound(c["nbytes"], c["flops"])
+    peak = c.get("peak", PEAK_FP32_FLOP_PER_S)
+    bound_ms, by = _bound(c["nbytes"], c["flops"], peak)
     device_ms = _kernel_device_ms(torch, c["kernel"], "ssd_kernel",
                                   ops.ssd_chunk_scan)
-    tc_ms = 1e3 * c["tc_flops"] / PEAK_TF32_FLOP_PER_S
+    tc_peak = PEAK_BF16_FLOP_PER_S if c["bf16"] else PEAK_TF32_FLOP_PER_S
+    tc_ms = 1e3 * c["tc_flops"] / tc_peak
+    old = ""
+    if c["bf16"]:
+        old_ms, old_by = _bound(c["nbytes"], c["simt_flops"])
+        old = f"; at the fp32 peak {old_ms:.4g} ms ({old_by})"
     log(f"[kernels] ssd_chunk_scan[{c['name']}] events {ms:.4f} ms; "
-        f"{_share(bound_ms, by, device_ms)}; {c['tc_route']} tensor-core "
-        f"floor {tc_ms:.4f} ms ({c['tc_flops']} TF32 flop at "
-        f"{PEAK_TF32_FLOP_PER_S / 1e12:g} TFLOP/s)")
+        f"{_share(bound_ms, by, device_ms)}{old}; {c['tc_route']} "
+        f"tensor-core floor {tc_ms:.4f} ms ({c['tc_flops']} flop at "
+        f"{tc_peak / 1e12:g} TFLOP/s)")
 
 
 def _ssd_padded(torch, dev, n, l, BC=8, H=24, P=64, N=128):

@@ -67,19 +67,4 @@ __device__ __forceinline__ void mma3(float (&c)[N][4],
   for (int i = 0; i < N; ++i) mma(c[i], a_hi, b_hi[i]);
 }
 
-// c[i] += a b[i], i < N, at fp32 accuracy where every b[i] is exact in
-// TF32 (a bf16 value widened: 8 significant bits): mma3 with b_lo = 0, so
-// its a_hi b_lo products drop out and two remain, the N a_lo b[i], then
-// the N a_hi b[i].
-template <int N>
-__device__ __forceinline__ void mma2(float (&c)[N][4],
-                                     const uint32_t (&a_hi)[4],
-                                     const uint32_t (&a_lo)[4],
-                                     const uint32_t (&b)[N][2]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) mma(c[i], a_lo, b[i]);
-#pragma unroll
-  for (int i = 0; i < N; ++i) mma(c[i], a_hi, b[i]);
-}
-
 }  // namespace tf32x3

@@ -10,10 +10,12 @@ x, B and C are fp32 or bf16, one dtype for the three (its C entry,
 in both, as the reference's model passes them; y and the state come out
 fp32 in both, as the TPU kernel writes them. Anything else (fp16, a mix
 across x, B and C, a bf16 dt or dA) raises before a launch. The kernel
-keeps fp32 accuracy on the tensor cores (3xTF32; two TF32 products where
-x is bf16, one for bf16 scores) and sums every output in an order fixed
-by absolute position, so a chunk's outputs do not depend on how many
-chunks share the launch.
+multiplies on the tensor cores: 3xTF32 at fp32, which keeps fp32
+accuracy; at bf16 native bf16 products, one for the scores and two bf16
+parts of each fp32 gate for y and the state, which keep the kernel's
+tolerance (1e-4 of the outputs' scale) but not fp32 accuracy. It sums
+every output in an order fixed by absolute position, so a chunk's
+outputs do not depend on how many chunks share the launch.
 """
 from __future__ import annotations
 

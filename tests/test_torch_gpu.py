@@ -896,8 +896,8 @@ def test_cuda_ssd_buckets_are_bitwise_equal(n, dtype, cuda):
     """A chunk of n real positions padded with dt = 0 (and other x, B, C
     past n) to each l bucket of the pool gives the same bits in its n rows
     of y and in its state: the padding adds exact zeros, and every sum
-    runs over the same 8-key steps at the same absolute positions (x, B
-    and C at fp32 and at bf16)."""
+    runs over the same key steps (8 keys at fp32, 16 at bf16) at the same
+    absolute positions (x, B and C at fp32 and at bf16)."""
     outs = []
     for l in ssd_buckets(n):
         y, st = ssd_ops.ssd_chunk(*ssd_typed(

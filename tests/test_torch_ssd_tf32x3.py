@@ -21,15 +21,11 @@ emulates that arithmetic in plain PyTorch on the CPU:
 
 The emulation stays within the kernel's tolerance (SSD_TOL, relative to
 max(1, max |plain|)) of the plain version and of the JAX package's
-reference; one TF32 product misses it. The bf16 instance (x, B and C in
-bf16, each exact in TF32) takes one TF32 product for the scores and two
-for y and the state, lo x then hi x (3xTF32's hi x lo is 0 where x has no
-low part): that arithmetic stays within the same tolerance of the plain
-version and of the reference's Pallas kernel run in interpret mode at
-bf16. A bc gives the same bits alone and
-inside a packed launch, and a chunk padded with dt = 0 to any of the
-pool's l buckets the same bits in its real rows and its state; the same
-identities hold for the kernel on the card (test_torch_gpu.py).
+reference; one TF32 product misses it. (The bf16 instance is a design of
+its own, emulated in test_torch_ssd_bf16_mma.py.) A bc gives the same
+bits alone and inside a packed launch, and a chunk padded with dt = 0 to
+any of the pool's l buckets the same bits in its real rows and its state;
+the same identities hold for the kernel on the card (test_torch_gpu.py).
 """
 import jax
 import jax.numpy as jnp
@@ -37,7 +33,6 @@ import numpy as np
 import pytest
 import torch
 
-from repro.kernels.ssd_scan.kernel import ssd_chunk_scan as jax_ssd_kernel
 from repro.kernels.ssd_scan.ref import ssd_chunk_ref as jax_ssd_ref
 from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref
 from test_torch_flash_tf32x3 import split
@@ -60,9 +55,8 @@ def mma(a, b, products, sets=1):
     in order at the end."""
     ah, al = split(a)
     bh, bl = split(b)
-    # 3xTF32; two products, lo b then hi b (b exact in TF32: bl = 0); one
-    terms = {3: ((al, bh), (ah, bl), (ah, bh)), 2: ((al, bh), (ah, bh)),
-             1: ((ah, bh),)}[products]
+    # 3xTF32, or hi x hi alone
+    terms = {3: ((al, bh), (ah, bl), (ah, bh)), 1: ((ah, bh),)}[products]
     shape = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2]) \
         + (a.shape[-2], b.shape[-1])
     acc = [torch.zeros(shape) for _ in range(sets)]
@@ -82,16 +76,13 @@ def _exp(x):
     return torch.exp(x.double()).float()
 
 
-def emulated_ssd(x, dt, da, B, C, products=3, scores_products=None):
+def emulated_ssd(x, dt, da, B, C, products=3):
     """The kernel's arithmetic in its layout: x (BC, H, l, P); dt, da
-    (BC, H, l, 1); B, C (BC, l, N), fp32 tensors (at bf16, holding bf16
-    values). ``products`` TF32 products per fp32 product of y and the
-    state, ``scores_products`` (default the same) of the scores. Returns
-    (y, state (BC, H, N, P))."""
+    (BC, H, l, 1); B, C (BC, l, N), fp32 tensors. ``products`` TF32
+    products per fp32 product. Returns (y, state (BC, H, N, P))."""
     dt, da = dt[..., 0], da[..., 0]
     l = x.shape[2]
-    s = mma(C, B.transpose(1, 2), scores_products or products,
-            sets=4)                                           # (BC, i, j)
+    s = mma(C, B.transpose(1, 2), products, sets=4)          # (BC, i, j)
     below = torch.ones((l, l), dtype=torch.bool).tril()
     rel = torch.where(below, da[..., :, None] - da[..., None, :], 0.0)
     G = torch.where(below, s[:, None] * _exp(rel) * dt[..., None, :], 0.0)
@@ -138,41 +129,6 @@ def test_three_tf32_products_stay_within_the_kernel_tolerance(mode):
         assert ssd_err(got, ref) <= SSD_TOL, (mode, ssd_err(got, ref))
     if SSD_MODES[mode][-1] == "pad":
         assert not st[-1].any(), "a dt = 0 row must add exactly 0"
-
-
-# the bf16 instance's modes held against the reference's Pallas kernel in
-# interpret mode (each a few seconds); every small mode against the plain
-# version
-PALLAS_BF16_MODES = ("sweep_l64", "l16_pad_dt0_mamba", "l17_tile_edge")
-
-
-@pytest.mark.parametrize("mode", SMALL_MODES)
-def test_bf16_instance_two_products_stay_within_the_kernel_tolerance(mode):
-    """x, B and C rounded to bf16 (dt and dA fp32, as the models pass
-    them): one TF32 product for the scores (bf16 C and B are exact in
-    TF32, so each term is exact) and two for y and the state (G and B o w
-    split, x exact) stay within SSD_TOL of the plain version on the same
-    bf16 inputs, and for PALLAS_BF16_MODES of the reference's Pallas kernel
-    in interpret mode; splitting x as well adds only exact zeros."""
-    args = ssd_case(mode)
-    jargs = [jnp.asarray(a, jnp.bfloat16) if i in (0, 3, 4)
-             else jnp.asarray(a) for i, a in enumerate(args)]
-    bf = [np.asarray(a, np.float32) for a in jargs]   # the bf16 values
-    x, dt, da, B, C = to_torch(bf)
-    y, st = emulated_ssd(x, dt, da, B, C, products=2, scores_products=1)
-    assert torch.isfinite(y).all() and torch.isfinite(st).all()
-    three = emulated_ssd(x, dt, da, B, C, products=3, scores_products=3)
-    assert torch.equal(y, three[0]) and torch.equal(st, three[1])
-    typed = [t.to(torch.bfloat16) if i in (0, 3, 4) else t
-             for i, t in enumerate((x, dt, da, B, C))]
-    want = ssd_chunk_ref(*typed)
-    for got, plain in zip((y, st), want):
-        assert ssd_err(got, plain) <= SSD_TOL, (mode, ssd_err(got, plain))
-    if mode in PALLAS_BF16_MODES:
-        jwant = jax_ssd_kernel(*jargs, interpret=True)
-        for got, ref in zip((y, st), jwant):
-            ref = torch.from_numpy(np.array(ref))
-            assert ssd_err(got, ref) <= SSD_TOL, (mode, ssd_err(got, ref))
 
 
 @pytest.mark.parametrize("mode", ["l16_pad_dt0_mamba", "l100_mamba"])
