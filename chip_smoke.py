@@ -20,13 +20,16 @@ and prints no result line):
    kernel's time (CUDA events around back-to-back launches), the plain
    version's, one library call's where PyTorch has one (SDPA), and the
    least time the card could take for the same work. The main, gemma3
-   and Jamba cases of K1, K2 and K5, the whisper-large-v3 and
-   internvl2-26b cases of K5, and every launch mode of K4 run again at
-   bf16 (their bf16 instances), held to BF16_TOL against the plain
-   version at bf16; the main-path shapes among them are timed beside it
-   and SDPA at bf16 (K4, K5), bounded by bf16 bytes and the bf16 peak (K4
-   also by its device time, its share of that bound and the bf16
-   tensor-core floor); every launch mode of K2 runs again at bf16 too
+   and Jamba cases of K1 and K2, every case of K5, and every launch mode
+   of K4 run again at bf16 (their bf16 instances), held to BF16_TOL
+   against the plain version at bf16; the main-path shapes among them are
+   timed beside it and SDPA at bf16 (K4, K5), bounded by bf16 bytes and
+   the bf16 peak (K4 and K5 also by their device time and its share of
+   that bound, K5 beside SDPA's own device time, K4 beside the bf16
+   tensor-core floor); K5's windowed_sink and gemma3 cases run once more
+   at bf16 with NaN in every K and V row of an invalid key (finite, and
+   the bits of the launch on finite rows); every launch mode of K2 runs
+   again at bf16 too
    (its bf16 design: the main and gemma3 cases bit for bit as at fp32,
    the timed ones by device time); K3's mamba2-130m (dense and pool) and
    Jamba (dense and pool) cases in the kernel's layout and in the
@@ -902,7 +905,7 @@ def _dense_exact(torch, ops, q, k, v, valid):
         B, S, K, D = k.shape
         g = torch.Generator(device=q.device).manual_seed(9)
         tail = lambda t: torch.cat([t, torch.randn(
-            (B, 256, K, D), generator=g, device=q.device)], 1)
+            (B, 256, K, D), generator=g, device=q.device).to(t.dtype)], 1)
         longer = torch.cat([valid, torch.zeros(
             (B, 256), dtype=torch.int8, device=q.device)], 1)
         if not torch.equal(ops.decode_attention_kv(q, tail(k), tail(v),
@@ -918,7 +921,8 @@ def _no_valid_row(torch, ops, q, k, v, valid):
     """The check of a case whose first row has no valid key: that row is
     the mean of V over its S keys (K's heads repeated over their groups),
     over several splits (the merging block writes it) and, on the first 100
-    keys, in one split (the split's own block writes it)."""
+    keys, in one split (the split's own block writes it). At bf16 each
+    output is held to allclose(rtol = atol = BF16_TOL) of its want."""
     def check(got):
         if valid[0].any():
             raise AssertionError("the case's first row has a valid key")
@@ -928,14 +932,22 @@ def _no_valid_row(torch, ops, q, k, v, valid):
         for n in (k.shape[1], 100):
             out = ops.decode_attention_kv(q, k[:, :n], v[:, :n],
                                           valid[:, :n].contiguous())
-            mean = v[0, :n].mean(0).repeat_interleave(G, 0)
+            mean = v[0, :n].float().mean(0).repeat_interleave(G, 0)
             want = _dense_plain(torch, ops, q, k[:, :n], v[:, :n],
                                 valid[:, :n])
-            errs.append(max((out[0] - mean).abs().max().item(),
-                            (out - want).abs().max().item()))
-            if not errs[-1] <= KERNEL_TOL:
+            if q.dtype == torch.bfloat16:
+                errs.append(max(_bf16_excess(out[0], mean),
+                                _bf16_excess(out, want)))
+                tol = BF16_TOL
+            else:
+                errs.append(max((out[0] - mean).abs().max().item(),
+                                (out - want).abs().max().item()))
+                tol = KERNEL_TOL
+            if not errs[-1] <= tol:
                 raise AssertionError(f"S = {n}: max abs err {errs[-1]}")
-        return (f"the no-valid row is the mean of V (max abs err "
+        what = "allclose excess" if q.dtype == torch.bfloat16 \
+            else "max abs err"
+        return (f"the no-valid row is the mean of V ({what} "
                 f"{errs[0]:.3g} over {k.shape[1]} keys, {errs[1]:.3g} over "
                 "100)")
     return check
@@ -945,15 +957,37 @@ def _dense_standing(torch, c, ms, plain_ms, library_ms):
     """The dense decode kernel's standing at a timed shape: its device time
     per call from the profiler (CUDA events around back-to-back calls of a
     kernel this short time the host wrapper), the device time of the
-    memset that zeroes its split counts, and its share of the bound."""
+    memset that zeroes its split counts, its share of the bound at its
+    dtype, and the library call's own device time per call (every kernel
+    the SDPA call launches, summed) beside the kernel's."""
     from repro_torch.kernels.decode_attention import ops
-    bound_ms, by = _bound(c["nbytes"], c["flops"])
+    bound_ms, by = _bound(c["nbytes"], c["flops"], PEAK_BF16_FLOP_PER_S
+                          if c["bf16"] else PEAK_FP32_FLOP_PER_S)
     device_ms = _kernel_device_ms(torch, c["kernel"], "decode_kernel",
                                   ops.decode_attention_kv)
     memset_ms = _device_ms(torch, c["kernel"], "Memset (Device)")
+    lib = ""
+    if c["library"] is not None:
+        lib_ms = _all_device_ms(torch, c["library"])
+        lib = (f"; SDPA device {lib_ms:.4f} ms"
+               + (f", kernel/SDPA on device {device_ms / lib_ms:.3f}x"
+                  if device_ms and lib_ms else ""))
     log(f"[kernels] decode_attention[{c['name']}] events {ms:.4f} ms, the "
         f"counts' memset {memset_ms:.4f} ms; "
-        f"{_share(bound_ms, by, device_ms)}")
+        f"{_share(bound_ms, by, device_ms)}{lib}")
+
+
+def _dense_nan_rows(torch, finite_out):
+    """The check of a case whose invalid keys' K and V rows are NaN: the
+    output is finite and bit-identical to the same launch on finite rows
+    (the kernel reads no row of an invalid key)."""
+    def check(got):
+        if not torch.isfinite(got.float()).all():
+            raise AssertionError("NaN in invalid rows reached the output")
+        if not torch.equal(got, finite_out()):
+            raise AssertionError("NaN in invalid rows changed the bits")
+        return "finite, bit-identical to the launch on finite rows"
+    return check
 
 
 def dense_decode_cases(torch, dev):
@@ -977,14 +1011,24 @@ def dense_decode_cases(torch, dev):
     8 kv heads of 128, G = 6); "launch" the serving launcher's
     gemma3-4b-smoke dense decode on a local layer mid-generation (phase 7):
     32 rows over a 28-position cache at position 20, 2 kv heads of 32,
-    G = 2, the 8-key window in ``valid``. The plain version regroups to
-    (B*K, G, D);
-    the library yardstick is one SDPA call with a boolean mask from
-    ``valid`` (and GQA where G > 1)."""
+    G = 2, the 8-key window in ``valid``; "rows_past_16" G = 20 (two
+    16-row tiles of the bf16 design). Every case runs again at bf16
+    (``<name>_bf16``, the bf16 design; the main paths' shapes timed), and
+    "windowed_sink" and "gemma3" once more at bf16 with NaN in every K and
+    V row of an invalid key (``<name>_nan_bf16``: finite, and the bits of
+    the launch on finite rows). The plain version regroups to (B*K, G, D);
+    the library yardstick is one SDPA call with a boolean mask made from
+    ``valid`` beforehand (and GQA where G > 1)."""
     import numpy as np
     from torch.nn import functional as F
     from repro_torch.kernels.decode_attention import ops
     rng = np.random.default_rng(4)
+
+    def sdpa(q, k, v, mask, gqa):
+        return F.scaled_dot_product_attention(
+            q[:, :, None], k.movedim(2, 1), v.movedim(2, 1),
+            attn_mask=mask[:, None, None, :], scale=1.0,
+            enable_gqa=gqa)[:, :, 0]
     spec = {  # name: (B, S, K, G, D, validity layout)
         "main": (8, 544, 40, 1, 128, "main"),
         "prefix": (4, 300, 8, 1, 128, "prefix"),
@@ -999,6 +1043,7 @@ def dense_decode_cases(torch, dev):
         "whisper_cross": (16, 1500, 20, 1, 64, "all"),
         "internvl2": (16, 544, 8, 6, 128, "main"),
         "launch": (32, 28, 2, 2, 32, "launch"),
+        "rows_past_16": (2, 300, 2, 20, 128, "prefix"),
     }
     g = torch.Generator(device=dev).manual_seed(5)
     out = []
@@ -1030,13 +1075,12 @@ def dense_decode_cases(torch, dev):
         nbytes = 4 * (2 * q.numel() + 2 * n_valid * K * D) + B * S
         flops = 4 * n_valid * K * G * D
         library = None
-        if name in ("main", "gemma3", "jamba", "whisper_self",
-                    "whisper_cross", "internvl2", "launch"):
-            library = lambda q=q, k=k, v=v, valid=valid, gqa=G > 1: \
-                F.scaled_dot_product_attention(
-                    q[:, :, None], k.movedim(2, 1), v.movedim(2, 1),
-                    attn_mask=valid.bool()[:, None, None, :],
-                    scale=1.0, enable_gqa=gqa)[:, :, 0]
+        timed = name in ("main", "gemma3", "jamba", "whisper_self",
+                         "whisper_cross", "internvl2", "launch")
+        if timed:
+            # the mask is made once, outside the timed call
+            library = lambda q=q, k=k, v=v, mask=valid.bool(), gqa=G > 1: \
+                sdpa(q, k, v, mask, gqa)
         check = None
         if name == "gemma3":
             check = _dense_exact(torch, ops, q, k, v, valid)
@@ -1049,26 +1093,44 @@ def dense_decode_cases(torch, dev):
                          lambda q=q, k=k, v=v, valid=valid:
                              _dense_plain(torch, ops, q, k, v, valid),
                          nbytes, flops, library, check=check,
-                         timed=library is not None,
-                         report=_dense_standing if library else None))
-        if name in ("main", "gemma3", "jamba", "whisper_cross",
-                    "whisper_self", "internvl2"):   # the same launch at
-            # bf16 (layer 1 of the bf16 slab, read in place)
-            qb, cb = _bf16_args(torch, (q, cache))
-            kb, vb = cb[0, 1], cb[1, 1]
+                         timed=timed,
+                         report=_dense_standing if timed else None))
+        # the same launch at bf16 (layer 1 of the bf16 slab, read in place),
+        # through the bf16 design; the main paths' shapes timed
+        qb, cb = _bf16_args(torch, (q, cache))
+        kb, vb = cb[0, 1], cb[1, 1]
+        timed_bf16 = timed and name != "launch"
+        check = None
+        if name == "gemma3":
+            check = _dense_exact(torch, ops, qb, kb, vb, valid)
+        elif layout == "no_valid_row":
+            check = _no_valid_row(torch, ops, qb, kb, vb, valid)
+        run = lambda q=qb, k=kb, v=vb, valid=valid: \
+            ops.decode_attention_kv(q, k, v, valid)
+        plain = lambda q=qb, k=kb, v=vb, valid=valid: \
+            _dense_plain(torch, ops, q, k, v, valid)
+        nbytes = 2 * (2 * q.numel() + 2 * n_valid * K * D) + B * S
+        library = None
+        if timed_bf16:
+            library = lambda q=qb, k=kb, v=vb, mask=valid.bool(), gqa=G > 1: \
+                sdpa(q, k, v, mask, gqa)
+        out.append(_case(
+            f"{name}_bf16", desc + " bf16", run, plain, nbytes, flops,
+            library, check=check, timed=timed_bf16, bf16=True,
+            report=_dense_standing if timed_bf16 else None))
+        if name in ("windowed_sink", "gemma3"):
+            # NaN in every K and V row of an invalid key: the output must
+            # be finite and equal to the launch on finite rows
+            bad = (valid == 0)[..., None, None].expand_as(kb)
+            nan = torch.tensor(float("nan"), dtype=torch.bfloat16,
+                               device=dev)
+            kn, vn = torch.where(bad, nan, kb), torch.where(bad, nan, vb)
             out.append(_case(
-                f"{name}_bf16", desc + " bf16",
-                lambda q=qb, k=kb, v=vb, valid=valid:
+                f"{name}_nan_bf16", desc + " bf16, NaN in invalid rows",
+                lambda q=qb, k=kn, v=vn, valid=valid:
                     ops.decode_attention_kv(q, k, v, valid),
-                lambda q=qb, k=kb, v=vb, valid=valid:
-                    _dense_plain(torch, ops, q, k, v, valid),
-                2 * (2 * q.numel() + 2 * n_valid * K * D) + B * S, flops,
-                lambda q=qb, k=kb, v=vb, valid=valid, gqa=G > 1:
-                    F.scaled_dot_product_attention(
-                        q[:, :, None], k.movedim(2, 1), v.movedim(2, 1),
-                        attn_mask=valid.bool()[:, None, None, :],
-                        scale=1.0, enable_gqa=gqa)[:, :, 0],
-                timed=True, bf16=True))
+                plain, nbytes, flops, bf16=True,
+                check=_dense_nan_rows(torch, run)))
     return out
 
 
@@ -1269,6 +1331,25 @@ def _kernel_device_ms(torch, fn, piece, wrapper):
         raise AssertionError(f"{piece}: the wrapper launched no kernel in "
                              "the profiler window")
     return device_ms if device_ms > 0 else None
+
+
+def _all_device_ms(torch, fn, n=20):
+    """Device time per call of everything ``fn`` launches (kernels,
+    memsets and copies), summed, from torch.profiler over ``n`` calls back
+    to back: a library call's own device time, whatever kernels its
+    backend picks."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "device_time_total", 0.0) or
+                getattr(e, "cuda_time_total", 0.0)
+                for e in prof.key_averages()
+                if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    return total / 1e3 / n
 
 
 def _share(bound_ms, by, device_ms):

@@ -53,15 +53,72 @@
 // - Rows of a block: G rounded up to 1, 2, 4 or 8 (at most 4 at
 //   D > 128); past 8 rows the grid's y axis takes more row blocks.
 //   Padding rows are zero queries that are never stored.
-// - The element type of q, k, v and out is a template parameter, fp32 or
-//   bf16 (entries *_f32 and *_bf16), as the TPU kernel takes either. A
-//   bf16 row is read in the same lane groups, a group in one access of up
-//   to 16 bytes (8 values at D = 256, 4 at D = 128), and widened exactly
-//   to fp32 in registers; scores, (m, l), the accumulator and the
-//   workspace stay fp32; P is rounded to bf16 before P V and l sums it
-//   unrounded, as the TPU body's p.astype(v.dtype); the output is rounded
-//   once. At bf16 the bytes, and so the bound, halve.
+// - The element type of q, k, v and out is a template parameter of this
+//   design; the fp32 entry decode_attention_f32 instantiates it at float.
 //
+// bf16 design (decode_attention_bf16, bf16_dense::decode_kernel_bf16; the
+// TPU kernel takes either dtype): q, k, v and out bf16; the scores, (m, l),
+// the accumulator and the workspace fp32. It is the TPU body at bf16: the
+// scores summed in fp32 from bf16 products, invalid keys out of the max and
+// the sums, P rounded to bf16 for P V (p.astype(v.dtype)) while l sums the
+// unrounded P, the l == 0 guard, the output rounded once. Every operand of
+// both products is a bf16 value, so each product is one native bf16
+// mma.sync m16n8k16 (mma_bf16.cuh) with fp32 accumulation: exact. It stays
+// bytes-bound (the m16 tile does 16 flops a K/V byte whatever G; the bf16
+// ridge is near 295), so the design is about bytes in flight, not products.
+// - The walk is the fp32 design's: 128-key splits aligned from key 0, one
+//   block per (row b, kv head h, block of up to 16 rows, split), a split
+//   that `valid` masks entirely reading no K or V and recording (m, l) =
+//   (-1e30, 0), the partials merged in split order by the last block
+//   through the per-row-block count, the mean of V for a row with no valid
+//   key. So a row alone equals the row in a batch, and invalid keys
+//   appended after the last valid split change no bit, as at fp32.
+// - The G query rows of a kv head are one m16 tile (rows past G zero): the
+//   A operand of S = Q K^T, its fragments read once by ldmatrix from a
+//   swizzled Q tile in shared memory and kept in registers at D <= 128 (32
+//   registers at D = 128), read again at each k step at D = 256. Every G
+//   of the configs (1, 2, 4, 6, 12) is one row block that reads the K/V
+//   bytes once; a second row block comes only at G > 16.
+// - Each of the 4 warps owns a contiguous 32-key slice of the split: lane i
+//   loads the validity byte of key i, a ballot makes the slice's mask, and
+//   the warp copies the slice's valid K rows, then its V rows, as two
+//   cp.async groups (16-byte copies, smem_copy.cuh) into its own region of
+//   shared memory, all issued before any is used: a block has its whole
+//   split in flight (64 KB at D = 128, three blocks an SM; at D = 256 the
+//   V rows are copied into the K rows' memory after the scores, 72 KB a
+//   block, two blocks an SM as registers allow). An invalid key's
+//   row is zero-filled by cp.async with src-size 0, so no byte of it is
+//   read from global memory; a slice whose mask is 0 copies nothing. Each
+//   row's 16-byte chunks are swizzled (chunk c of row r at c ^ (r % 8), or
+//   c ^ ((r / 2) % 4) at D <= 32), so that the 8 rows of an ldmatrix matrix
+//   and a quarter-warp's copies hit 8 distinct bank groups.
+// - Scores: the slice's 4 m16n8 score tiles over D / 16 k steps, K's B
+//   fragments by ldmatrix from the (key, d) tile. The slice's softmax in
+//   one step: each row's max and sum over its 32 keys take 2 shuffle rounds
+//   in a quad (not 5 a key a row); an invalid key is out of the max and
+//   its p is 0, so with its zero V row it adds exactly 0, even where its
+//   global bytes are not finite. exp(x - m) is ex2.approx of x log2 e -
+//   m log2 e; m stays in natural units, the workspace's.
+// - P V: the C fragments of score tiles 2j and 2j + 1, packed to bf16
+//   pairs (cvt.rn.bf16x2.f32), are the A fragment of P V's k step j (16
+//   keys); V's B fragments by ldmatrix.trans from the same layout; the
+//   accumulator (16 x D fp32) stays in registers.
+// - The warps' states (m, l and the accumulator's rows < G, fp32) are
+//   written into each warp's own region and merged in warp order by the
+//   block's threads, one output element each: M the warps' max, each
+//   non-empty warp weighted by exp(m_w - M). One split: normalise and
+//   write bf16; else the split's partial to the workspace, and the last
+//   split's block merges the partials in split order, a thread 4
+//   neighbouring columns (16-byte loads) or one, with every load of 8 or
+//   16 partials issued before any is used and a running (M, l, acc)
+//   rescaled once a chunk: a merge of one element a thread in two passes
+//   of loads, element after element, took half of Jamba's device time
+//   (PERF.md).
+// - Rows whose D or strides are not a multiple of 8 values, or whose
+//   tensors are not 16-byte aligned, take the same design with 2-byte
+//   loads and shared stores in place of cp.async (zeros, no read, for an
+//   invalid key): slower, the same results. D is zero-padded to 32, 64,
+//   128 or 256 (zero columns add 0; padded columns are never stored).
 // Layouts: q and out (B, K, G, D) contiguous (the model's (B, H, D)); k, v
 // (B, S, K, D) read through element strides (sb, ss, sh; unit stride on D),
 // so the model's cache slab is read in place; valid (B, S) int8
@@ -75,6 +132,8 @@
 #include <stdint.h>
 
 #include "decode_rows.cuh"
+#include "mma_bf16.cuh"
+#include "smem_copy.cuh"
 
 // Knobs that tools/dense_decode_variants.py sets with -D to build the
 // designs it times; the defaults are the shipped kernel.
@@ -438,6 +497,540 @@ int run(const T* q, const T* k, const T* v, const int8_t* valid, T* out,
             ss, sh, st);
 }
 
+
+// ------------------------------------------------------------------ bf16
+namespace bf16_dense {
+
+using elem::bf16;
+
+// Knobs of the bf16 design that tools/dense_decode_variants.py sets with
+// -D; DENSE_SPLIT_KEYS holds for both designs.
+#ifndef DENSE_BF16_WARPS
+#define DENSE_BF16_WARPS 4        // warps of a block: 32-key slices (8: 16)
+#endif
+#ifndef DENSE_BF16_MIN_BLOCKS
+#define DENSE_BF16_MIN_BLOCKS 3   // blocks an SM at D <= 128 (registers)
+#endif
+#ifndef DENSE_BF16_SHARE_256
+#define DENSE_BF16_SHARE_256 1    // 1: at D = 256 a warp's V rows reuse its
+#endif                            // K rows' shared memory, after the scores
+#ifndef DENSE_BF16_SKIP
+#define DENSE_BF16_SKIP 0         // ablations, wrong outputs: 1 no Q K^T,
+#endif                            // 2 no P V, 4 no split merge, 8 no
+                                  // partials
+
+constexpr int kW = DENSE_BF16_WARPS;
+constexpr int kT = 32 * kW;
+constexpr int kSK = kSplitKeys / kW;   // keys of a warp's slice
+constexpr int kRows = 16;              // query rows of a block: one m16 tile
+constexpr int kSkip = DENSE_BF16_SKIP;
+constexpr int kMaxDevices = 64;
+constexpr float kLog2e = 1.4426950408889634f;
+static_assert(kSK * kW == kSplitKeys && kSK % 16 == 0 && kSK <= 32,
+              "a warp's slice is whole 16-key steps, one validity byte a "
+              "lane");
+
+__host__ __device__ inline int row_blocks16(int G) {
+  return (G + kRows - 1) / kRows;
+}
+// V's rows copied into K's after the scores: at D = 256, so that a block
+// takes 72 KB of shared memory, not 136 (two blocks an SM, as registers
+// allow)
+__host__ __device__ constexpr bool kv_share(int DT) {
+  return DT > 128 && DENSE_BF16_SHARE_256;
+}
+// floats between two rows of a warp's accumulator in its merge state (8
+// past the row, so a quad's 8-byte stores of rows g hit distinct banks)
+__host__ __device__ constexpr int state_stride(int DT) { return DT + 8; }
+// Bytes of a warp's region of shared memory: its slice's K and V rows (kSK
+// x DT bf16 each; one set where kv_share), which its merge state (m and l
+// of 16 rows, then the accumulator's rows) then reuses.
+__host__ __device__ constexpr size_t warp_bytes(int DT) {
+  const size_t slice =
+      sizeof(bf16) * (size_t)(kv_share(DT) ? 1 : 2) * kSK * DT;
+  const size_t state = sizeof(float) * (size_t)(2 + state_stride(DT)) * kRows;
+  return slice > state ? slice : state;
+}
+// Dynamic shared memory of one block: the Q tile (16 x DT bf16), then the
+// warps' regions.
+__host__ __device__ constexpr size_t smem_bytes(int DT) {
+  return sizeof(bf16) * (size_t)kRows * DT + kW * warp_bytes(DT);
+}
+__host__ __device__ constexpr int min_blocks(int DT) {
+  return DT <= 128 ? DENSE_BF16_MIN_BLOCKS : 1;
+}
+
+// 2^x on the special-function unit (ex2.approx.ftz, about 2^-22 relative)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The swizzle's key: chunk c of row r is stored at chunk c ^ key(r). A row
+// of DT >= 64 holds 8 or more chunks; at DT = 32 two rows share 128 bytes.
+template <int DT>
+__device__ __forceinline__ int swizzle_key(int r) {
+  return DT >= 64 ? r & 7 : (r >> 1) & 3;
+}
+
+// Copy the 16-byte chunk (eight values) at column c of a row (`row` = its
+// first value) to dst; zero past D, and the whole chunk, with nothing read,
+// where the row is not `in`. VEC: one cp.async (D a multiple of 8, so the
+// chunk lies wholly inside or past D); else 2-byte loads and shared stores.
+template <bool VEC>
+__device__ __forceinline__ void copy_chunk(bf16* dst, const bf16* row,
+                                           bool in, int c, int D,
+                                           const bf16* any) {
+  if constexpr (VEC) {
+    const bool ok = in && c < D;
+    tilecopy::cp_async16(dst, ok ? row + c : any, ok);
+  } else {
+    const unsigned short* p = reinterpret_cast<const unsigned short*>(row);
+    unsigned short* d = reinterpret_cast<unsigned short*>(dst);
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      d[e] = in && c + e < D ? p[c + e] : (unsigned short)0;
+  }
+}
+
+// The rows' output for a row with no valid key: the mean of V over its S
+// keys (vb: key 0's V row of the head), a column a thread, summed in key
+// order. Called by every thread of the block.
+__device__ void store_mean_of_v(const bf16* __restrict__ vb, int ss, int S,
+                                bf16* __restrict__ ob, int rows, int D) {
+  for (int c = threadIdx.x; c < D; c += kT) {
+    float x = 0.f;
+    for (int s = 0; s < S; ++s)
+      x += __bfloat162float(vb[(size_t)s * ss + c]);
+    x *= 1.f / S;
+    for (int r = 0; r < rows; ++r)
+      ob[(size_t)r * D + c] = __float2bfloat16_rn(x);
+  }
+}
+
+// The last block's merge of a row block's NS partials (first: row 0's
+// partial of split 0), in split order: each thread takes V neighbouring
+// columns of a row (one 16-byte load of a partial's where V = 4) and runs
+// (M, L, A) over the splits CH at a time, every load of a chunk issued
+// before any is used, rescaled once a chunk to the chunk's largest m. An
+// empty split (l = 0) adds nothing, and its accumulator (never written) is
+// loaded but not used. A row with L = 0 (no valid key) sets `none`. Called
+// by every thread of the block.
+template <int V, int CH>
+__device__ void merge_splits(const float* __restrict__ ws_acc,
+                             const float* __restrict__ ws_ml, size_t first,
+                             int NS, int G, int rows, int D,
+                             bf16* __restrict__ ob, bool& none) {
+  const int CV = D / V;   // column groups of a row
+  for (int i = threadIdx.x; i < rows * CV; i += kT) {
+    const int r = i / CV, c = (i - r * CV) * V;
+    float M = kNegInf, L = 0.f, A[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) A[e] = 0.f;
+    for (int j0 = 0; j0 < NS; j0 += CH) {
+      float mj[CH], lj[CH], xj[CH][V];
+#pragma unroll
+      for (int u = 0; u < CH; ++u) {
+        const bool in = j0 + u < NS;
+        const size_t at = first + (size_t)(j0 + u) * G + r;
+        mj[u] = in ? __ldcg(ws_ml + 2 * at) : kNegInf;
+        lj[u] = in ? __ldcg(ws_ml + 2 * at + 1) : 0.f;
+        if constexpr (V == 4) {
+          const float4 x = in ? __ldcg(reinterpret_cast<const float4*>(
+                                    ws_acc + at * D + c))
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+          xj[u][0] = x.x;
+          xj[u][1] = x.y;
+          xj[u][2] = x.z;
+          xj[u][3] = x.w;
+        } else {
+          xj[u][0] = in ? __ldcg(ws_acc + at * D + c) : 0.f;
+        }
+      }
+      float m_new = M;
+#pragma unroll
+      for (int u = 0; u < CH; ++u) m_new = fmaxf(m_new, mj[u]);
+      const float scale = expf(M - m_new);
+      L *= scale;
+#pragma unroll
+      for (int e = 0; e < V; ++e) A[e] *= scale;
+#pragma unroll
+      for (int u = 0; u < CH; ++u)
+        if (lj[u] > 0.f) {
+          const float w = expf(mj[u] - m_new);
+          L += w * lj[u];
+#pragma unroll
+          for (int e = 0; e < V; ++e) A[e] += w * xj[u][e];
+        }
+      M = m_new;
+    }
+    if (!(L > 0.f)) {
+      none = true;   // every split empty: no valid key in the row
+      continue;
+    }
+    const float inv = inverse(L);
+#pragma unroll
+    for (int e = 0; e < V; ++e)
+      ob[(size_t)r * D + c + e] = __float2bfloat16_rn(A[e] * inv);
+  }
+}
+
+template <int DT, bool VEC>
+__global__ void __launch_bounds__(kT, min_blocks(DT))
+decode_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v,
+                   const int8_t* __restrict__ valid, bf16* __restrict__ out,
+                   float* __restrict__ ws_acc, float* __restrict__ ws_ml,
+                   int* __restrict__ counters, int S, int K, int G, int D,
+                   int sb, int ss, int sh) {
+  constexpr int KS = DT / 16;        // k steps of Q K^T
+  constexpr int NO = DT / 8;         // m16n8 output tiles
+  constexpr int NT = kSK / 8;        // m16n8 score tiles of a slice
+  constexpr int CPR = DT / 8;        // 16-byte chunks of a row
+  constexpr int RB = 2 * DT;         // bytes of a tile row
+  constexpr int SW = state_stride(DT);
+  constexpr bool QR = DT <= 128;     // Q's fragments held in registers
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ bool last, none;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  unsigned char* const regions = smem_raw + sizeof(bf16) * kRows * DT;
+  bf16* ks = reinterpret_cast<bf16*>(regions + warp * warp_bytes(DT));
+  bf16* vs = kv_share(DT) ? ks : ks + kSK * DT;
+  auto state = [&](int w) {
+    return reinterpret_cast<const float*>(regions + w * warp_bytes(DT));
+  };
+  const int NS = gridDim.x, s = blockIdx.x;
+  const int n_rb = row_blocks16(G);
+  const int h = blockIdx.y / n_rb;
+  const int row0 = (blockIdx.y - h * n_rb) * kRows;
+  const int b = blockIdx.z;
+  const int rows = min(kRows, G - row0);
+  const size_t head = (size_t)b * K + h;
+
+  // Q's rows into the swizzled Q tile, zero past the block's rows and past
+  // D: one cp.async group, in flight with the validity bytes
+  const bf16* qb = q + (head * G + row0) * D;
+#pragma unroll
+  for (int j = 0; j < (kRows * CPR + kT - 1) / kT; ++j) {
+    const int i = threadIdx.x + j * kT, r = i / CPR, c = i % CPR;
+    if (i < kRows * CPR)
+      copy_chunk<VEC>(qs + r * DT + 8 * (c ^ swizzle_key<DT>(r)),
+                      qb + (r < rows ? (size_t)r * D : 0), r < rows, 8 * c,
+                      D, qb);
+  }
+  asm volatile("cp.async.commit_group;");
+
+  // this warp's slice [sl, sl + kSK) of the split: lane i reads key sl +
+  // i's validity byte, and a ballot makes the slice's mask
+  const int sl = s * kSplitKeys + warp * kSK;
+  const bool in_slice = lane < kSK && sl + lane < S;
+  const unsigned mask = __ballot_sync(
+      kFull, in_slice && __ldg(valid + (size_t)b * S + sl + lane) > 0);
+  const bf16* kb = k + (size_t)b * sb + (size_t)h * sh;
+  const bf16* vb = v + (size_t)b * sb + (size_t)h * sh;
+  // the slice's K rows, then its V rows, one cp.async group each (an empty
+  // group where the mask is 0); an invalid key's row is zero-filled and
+  // nothing of it is read
+  auto copy_rows = [&](bf16* dst, const bf16* src) {
+    if (mask) {
+#pragma unroll
+      for (int j = 0; j < kSK * CPR / 32; ++j) {
+        const int i = lane + 32 * j, r = i / CPR, c = i % CPR;
+        const bool ok = (mask >> r) & 1u;
+        copy_chunk<VEC>(dst + r * DT + 8 * (c ^ swizzle_key<DT>(r)),
+                        src + (ok ? (size_t)(sl + r) * ss : 0), ok, 8 * c, D,
+                        src);
+      }
+    }
+    asm volatile("cp.async.commit_group;");
+  };
+  copy_rows(ks, kb);
+  if constexpr (kv_share(DT))
+    asm volatile("cp.async.commit_group;");   // V's rows come later
+  else
+    copy_rows(vs, vb);
+  asm volatile("cp.async.wait_group 2;" ::: "memory");   // my Q chunks
+  const bool any = __syncthreads_or(mask != 0u);        // everyone's
+
+  const bool single = NS == 1;
+  bf16* ob = out + (head * G + row0) * D;
+  const size_t part = (head * NS + s) * G + row0;
+  if (!any) {
+    // no valid key in the split: in a one-split row, none in the row
+    if (single) {
+      store_mean_of_v(vb, ss, S, ob, rows, D);
+      return;
+    }
+    if ((int)threadIdx.x < rows) {
+      ws_ml[2 * (part + threadIdx.x)] = kNegInf;
+      ws_ml[2 * (part + threadIdx.x) + 1] = 0.f;
+    }
+  } else {
+    float* st = reinterpret_cast<float*>(ks);   // this warp's merge state
+    if (mask) {
+      const int g = lane >> 2, t = lane & 3;
+      // ldmatrix addresses of this lane (shared-memory bytes): row mr of
+      // matrix mi. Every row a lane names is mr modulo 8, so the swizzle's
+      // key is the lane's own, and chunk 2 kk + c0 lies at 8 (kk / 4) +
+      // col[kk % 4] (kk unrolled: each address a register plus an
+      // immediate).
+      const int mi = lane >> 3, mr = lane & 7;
+      const int key = swizzle_key<DT>(mr);
+      uint32_t qcol[4], kcol[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        qcol[u] = 16 * ((2 * u + (mi >> 1)) ^ key);
+        kcol[u] = 16 * ((2 * u + (mi & 1)) ^ key);
+      }
+      auto at = [](const uint32_t(&col)[4], int kk) {
+        return col[kk % 4] + 128 * (kk / 4);
+      };
+      // Q's A fragment: (rows 0-7 | 8-15) x (columns 0-7 | 8-15); K's B
+      // fragments of two n-tiles: (keys 0-7 | 8-15) x (d 0-7 | 8-15); V's,
+      // transposed: (keys 0-7 | 8-15) x (d 0-7 | 8-15), V's chunks Q's
+      const uint32_t qa = bf16mma::smem_addr(qs) + (mr + 8 * (mi & 1)) * RB;
+      const uint32_t ka = bf16mma::smem_addr(ks) + (mr + 8 * (mi >> 1)) * RB;
+      const uint32_t va = bf16mma::smem_addr(vs) + (mr + 8 * (mi & 1)) * RB;
+      uint32_t qf[QR ? KS : 1][4];
+      if constexpr (QR) {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+          bf16mma::ldsm_x4(qf[kk], qa + at(qcol, kk));
+      }
+      asm volatile("cp.async.wait_group 1;" ::: "memory");   // K's rows
+      __syncwarp();
+      // scores: sc[jn] is the m16n8 tile of keys sl + 8 jn ..
+      float sc[NT][4];
+#pragma unroll
+      for (int jn = 0; jn < NT; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[jn][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t a[4];
+        if constexpr (QR) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
+        } else {
+          bf16mma::ldsm_x4(a, qa + at(qcol, kk));
+        }
+#pragma unroll
+        for (int jp = 0; jp < NT / 2; ++jp) {
+          uint32_t x[4];
+          bf16mma::ldsm_x4(x, ka + 16 * jp * RB + at(kcol, kk));
+          if constexpr (!(kSkip & 1)) {
+            bf16mma::mma(sc[2 * jp], a, x[0], x[1]);
+            bf16mma::mma(sc[2 * jp + 1], a, x[2], x[3]);
+          }
+        }
+      }
+      // the slice's softmax of rows g (r = 0: elements 0, 1) and g + 8
+      // (r = 1: elements 2, 3): element e of tile jn is key 8 jn + 2 t +
+      // (e & 1); an invalid key is out of the max and its p is 0
+      float m[2], l[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = kNegInf;
+#pragma unroll
+        for (int jn = 0; jn < NT; ++jn)
+#pragma unroll
+          for (int e = 2 * r; e < 2 * r + 2; ++e)
+            if ((mask >> (8 * jn + 2 * t + (e & 1))) & 1u)
+              mx = fmaxf(mx, sc[jn][e]);
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+        const float ms = mx * kLog2e;
+        float sum = 0.f;
+#pragma unroll
+        for (int jn = 0; jn < NT; ++jn)
+#pragma unroll
+          for (int e = 2 * r; e < 2 * r + 2; ++e) {
+            sc[jn][e] = (mask >> (8 * jn + 2 * t + (e & 1))) & 1u
+                            ? exp2_approx(fmaf(sc[jn][e], kLog2e, -ms))
+                            : 0.f;
+            sum += sc[jn][e];
+          }
+        sum += __shfl_xor_sync(kFull, sum, 1);
+        sum += __shfl_xor_sync(kFull, sum, 2);
+        m[r] = mx;
+        l[r] = sum;   // the unrounded P
+      }
+      if constexpr (kv_share(DT)) {
+        __syncwarp();   // every lane's reads of K's rows are done
+        copy_rows(vs, vb);
+      }
+      asm volatile("cp.async.wait_group 0;" ::: "memory");   // V's rows
+      __syncwarp();
+      // o = P V: k step jp takes score tiles 2 jp, 2 jp + 1 rounded to bf16
+      // as its A fragment (keys 16 jp .. 16 jp + 15 of the slice)
+      float o[NO][4];
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+#pragma unroll
+      for (int jp = 0; jp < NT / 2; ++jp) {
+        const uint32_t a[4] = {
+            bf16mma::pack(sc[2 * jp][0], sc[2 * jp][1]),
+            bf16mma::pack(sc[2 * jp][2], sc[2 * jp][3]),
+            bf16mma::pack(sc[2 * jp + 1][0], sc[2 * jp + 1][1]),
+            bf16mma::pack(sc[2 * jp + 1][2], sc[2 * jp + 1][3])};
+#pragma unroll
+        for (int np = 0; np < NO / 2; ++np) {
+          uint32_t x[4];
+          bf16mma::ldsm_x4_trans(x, va + 16 * jp * RB + at(qcol, np));
+          if constexpr (!(kSkip & 2)) {
+            bf16mma::mma(o[2 * np], a, x[0], x[1]);
+            bf16mma::mma(o[2 * np + 1], a, x[2], x[3]);
+          }
+        }
+      }
+      // the warp's state over its slice's rows (m, l of 16 rows; the
+      // accumulator's rows < rows, columns < D)
+      __syncwarp();   // every lane's reads of the slice are done
+      if (t == 0) {
+        st[g] = m[0];
+        st[g + 8] = m[1];
+        st[kRows + g] = l[0];
+        st[kRows + g + 8] = l[1];
+      }
+      float* acc = st + 2 * kRows;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        if (8 * n >= D) break;
+        if (g < rows)
+          *reinterpret_cast<float2*>(acc + g * SW + 8 * n + 2 * t) =
+              make_float2(o[n][0], o[n][1]);
+        if (g + 8 < rows)
+          *reinterpret_cast<float2*>(acc + (g + 8) * SW + 8 * n + 2 * t) =
+              make_float2(o[n][2], o[n][3]);
+      }
+    } else if (lane < kRows) {   // an empty slice: (m, l) = (-1e30, 0)
+      st[lane] = kNegInf;
+      st[kRows + lane] = 0.f;
+    }
+    __syncthreads();
+    // the warps merged in warp order, an output element a thread: M their
+    // max, each non-empty warp (l > 0) weighted by exp(m_w - M). One split:
+    // normalise and write, rounded to bf16 once; else this split's partial
+    for (int i = threadIdx.x; i < rows * D; i += kT) {
+      const int r = i / D, c = i - r * D;
+      float M = kNegInf;
+#pragma unroll
+      for (int w = 0; w < kW; ++w) M = fmaxf(M, state(w)[r]);
+      float L = 0.f, A = 0.f;
+#pragma unroll
+      for (int w = 0; w < kW; ++w) {
+        const float* sw = state(w);
+        const float lw = sw[kRows + r];
+        if (lw > 0.f) {
+          const float x = expf(sw[r] - M);
+          L += x * lw;
+          A += x * sw[2 * kRows + r * SW + c];
+        }
+      }
+      if (single) {
+        ob[(size_t)r * D + c] = __float2bfloat16_rn(A * inverse(L));
+      } else {
+        ws_acc[(part + r) * D + c] = A;
+        if (c == 0) {
+          ws_ml[2 * (part + r)] = M;
+          ws_ml[2 * (part + r) + 1] = L;
+        }
+      }
+    }
+    if (single || (kSkip & 8)) return;
+  }
+
+  // the last of the row block's splits to finish merges them all, in
+  // split order (merge_splits)
+  __syncthreads();   // every thread's part of the partial is stored
+  if (threadIdx.x == 0) {
+    // release: the block's partial, ordered before by the barrier, is
+    // visible to whoever sees the count; acquire: so are the others'
+    unsigned done;
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;"
+                 : "=r"(done)
+                 : "l"(counters + (size_t)b * gridDim.y + blockIdx.y)
+                 : "memory");
+    last = done == (unsigned)NS - 1;
+    none = false;
+  }
+  __syncthreads();
+  if (!last || (kSkip & 4)) return;
+  // 16-byte loads of the partials where a row block has 4 columns a
+  // thread or more (and the workspace allows them); else a column a
+  // thread, 16 splits a chunk
+  const size_t first = head * NS * G + row0;
+  if (D % 4 == 0 && rows * D >= 4 * kT &&
+      reinterpret_cast<uintptr_t>(ws_acc) % 16 == 0)
+    merge_splits<4, 8>(ws_acc, ws_ml, first, NS, G, rows, D, ob, none);
+  else
+    merge_splits<1, 16>(ws_acc, ws_ml, first, NS, G, rows, D, ob, none);
+  __syncthreads();
+  if (none) store_mean_of_v(vb, ss, S, ob, rows, D);
+}
+
+template <int DT, bool VEC>
+int launch_as(const bf16* q, const bf16* k, const bf16* v,
+              const int8_t* valid, bf16* out, float* ws_acc, float* ws_ml,
+              int* counters, int B, int S, int K, int G, int D, int sb,
+              int ss, int sh, cudaStream_t stream) {
+  // the attribute is set once per instance and device (it holds for the
+  // current device only)
+  static bool configured[kMaxDevices] = {};
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  constexpr size_t smem = smem_bytes(DT);
+  if (!configured[dev]) {
+    err = cudaFuncSetAttribute(decode_kernel_bf16<DT, VEC>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    configured[dev] = true;
+  }
+  const dim3 grid(n_splits(S), K * row_blocks16(G), B);
+  decode_kernel_bf16<DT, VEC><<<grid, kT, smem, stream>>>(
+      q, k, v, valid, out, ws_acc, ws_ml, counters, S, K, G, D, sb, ss, sh);
+  return (int)cudaGetLastError();
+}
+
+// One launch of the bf16 design (decode_attention_bf16's arguments). Its
+// workspace is the fp32 design's (decode_attention_workspace_bytes): the
+// same partials, and no more counts (one per 16 rows, not per 8).
+int run_bf16(const bf16* q, const bf16* k, const bf16* v,
+             const int8_t* valid, bf16* out, void* workspace, int B, int S,
+             int K, int G, int D, int sb, int ss, int sh, cudaStream_t st) {
+  if (S == 0)   // no key: softmax over nothing sums to 0
+    return (int)cudaMemsetAsync(out, 0,
+                                sizeof(bf16) * (size_t)B * K * G * D, st);
+  const int NS = n_splits(S);
+  float* ws_acc = static_cast<float*>(workspace);
+  float* ws_ml = ws_acc + (size_t)B * K * NS * G * D;
+  int* counters = reinterpret_cast<int*>(ws_ml + (size_t)B * K * NS * G * 2);
+  if (NS > 1) {
+    const cudaError_t err = cudaMemsetAsync(
+        counters, 0, sizeof(int) * (size_t)B * K * row_blocks16(G), st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  // 16-byte copies need D and every stride a multiple of 8 values and q, k
+  // and v 16-byte aligned
+  const bool vec = D % 8 == 0 && (sb | ss | sh) % 8 == 0 &&
+      ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
+  auto as = D <= 32 ? (vec ? launch_as<32, true> : launch_as<32, false>)
+          : D <= 64 ? (vec ? launch_as<64, true> : launch_as<64, false>)
+          : D <= 128 ? (vec ? launch_as<128, true> : launch_as<128, false>)
+          : (vec ? launch_as<256, true> : launch_as<256, false>);
+  return as(q, k, v, valid, out, ws_acc, ws_ml, counters, B, S, K, G, D, sb,
+            ss, sh, st);
+}
+
+}  // namespace bf16_dense
+
 }  // namespace
 
 // The workspace of a launch (bytes), for decode_attention_f32's arguments
@@ -462,8 +1055,8 @@ extern "C" int decode_attention_f32(const float* q, const float* k,
              (cudaStream_t)stream);
 }
 
-// The same with q, k, v and out in bf16 (the workspace stays fp32:
-// partials are rounded once, in the merge's output).
+// The same with q, k, v and out in bf16, through the bf16 design (the
+// workspace stays fp32: partials are rounded once, in the merge's output).
 extern "C" int decode_attention_bf16(const elem::bf16* q,
                                      const elem::bf16* k,
                                      const elem::bf16* v,
@@ -471,6 +1064,6 @@ extern "C" int decode_attention_bf16(const elem::bf16* q,
                                      void* workspace, int B, int S, int K,
                                      int G, int D, int sb, int ss, int sh,
                                      void* stream) {
-  return run(q, k, v, valid, out, workspace, B, S, K, G, D, sb, ss, sh,
-             (cudaStream_t)stream);
+  return bf16_dense::run_bf16(q, k, v, valid, out, workspace, B, S, K, G, D,
+                              sb, ss, sh, (cudaStream_t)stream);
 }

@@ -121,6 +121,14 @@ DECODE_DENSE_MODES = {
     "window_long": (2, 600, 2, 2, 256, "window"),
     "no_valid_row": (3, 300, 2, 2, 64, "no_valid_row"),
 }
+# the bf16 design's query tile (one m16 tile of a kv head's G rows): G = 6
+# and 12 (internvl2-26b's group, and two full 8-row blocks of the fp32
+# design) in one row block, and G = 18 in two (the second with 2 rows)
+DECODE_DENSE_GQA_MODES = {
+    "gqa_6": (2, 300, 2, 6, 128, "prefix"),
+    "gqa_12": (2, 200, 2, 12, 64, "random"),
+    "rows_past_16": (1, 150, 2, 18, 32, "prefix"),
+}
 
 
 # SSD chunk scan (K3), covering the shapes of tests/test_kernels.py::
@@ -758,14 +766,16 @@ def _dense_plain(q, k, v, valid):
 
 
 @pytest.mark.gpu
-def test_cuda_decode_attention_exact_contracts(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_attention_exact_contracts(dtype, cuda):
     """The dense decode kernel's exact contracts, bit for bit: each row
     launched alone gets the bits it gets in the batch, and the rows get the
     same bits with 256 invalid positions (random K and V) appended to the
     cache, which adds two empty splits and lengthens the last. At gemma3-4b's
     local-layer decode (8 rows, 4 kv heads of 256, G = 2, the 1024-key
     window at position 2064 of a 2080-position slab), on window_long and
-    on irregular_s (one split grown to three)."""
+    on irregular_s (one split grown to three), at fp32 and through the
+    bf16 design at bf16 (and at G = 6 and 18 there)."""
     g = torch.Generator(device=cuda).manual_seed(0)
     B, S, K, G, D = 8, 2080, 4, 2, 256
     q = torch.randn((B, K * G, D), generator=g, device=cuda) * D ** -0.5
@@ -776,23 +786,90 @@ def test_cuda_decode_attention_exact_contracts(cuda):
     cases = [("gemma3", (q, k, v, valid[None].expand(B, S).contiguous()))]
     cases += [(m, to_torch(decode_dense_case(m), cuda))
               for m in ("window_long", "irregular_s")]
+    if dtype == torch.bfloat16:
+        cases += [(m, to_torch(decode_dense_case(
+            m, modes=DECODE_DENSE_GQA_MODES), cuda))
+            for m in ("gqa_6", "rows_past_16")]
     op = dense_dec_ops.decode_attention_kv
     for name, (q, k, v, valid) in cases:
+        q, k, v = (t.to(dtype) for t in (q, k, v))
         got = op(q, k, v, valid)
-        assert (got - _dense_plain(q, k, v, valid)).abs().max().item() \
-            <= GPU_TOL, name
+        want = _dense_plain(q, k, v, valid)
+        if dtype == torch.bfloat16:
+            torch.testing.assert_close(got.float(), want.float(),
+                                       rtol=BF16_TOL, atol=BF16_TOL)
+        else:
+            assert (got - want).abs().max().item() <= GPU_TOL, name
         for b in range(q.shape[0]):
             alone = op(q[b:b + 1], k[b:b + 1], v[b:b + 1], valid[b:b + 1])
             torch.cuda.synchronize()
             assert torch.equal(alone[0], got[b]), (name, b)
         B, S, K, D = k.shape
         tail = lambda t: torch.cat([t, torch.randn(
-            (B, 256, K, D), generator=g, device=cuda)], 1)
+            (B, 256, K, D), generator=g, device=cuda).to(dtype)], 1)
         longer = torch.cat([valid, torch.zeros(
             (B, 256), dtype=torch.int8, device=cuda)], 1)
         wide = op(q, tail(k), tail(v), longer)
         torch.cuda.synchronize()
         assert torch.equal(wide, got), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["windowed_sink", "gemma3"])
+def test_cuda_decode_attention_bf16_reads_no_invalid_row(mode, cuda):
+    """NaN in every K and V row of an invalid key, at bf16: the output is
+    finite and bit-identical to the one with finite rows (the bf16 design
+    zero-fills an invalid key's shared row and reads nothing of it). On
+    windowed_sink (the first 512 keys invalid) and at gemma3-4b's
+    local-layer decode (the 1024-key window at position 2064)."""
+    if mode == "gemma3":
+        g = torch.Generator(device=cuda).manual_seed(0)
+        B, S, K, G, D = 8, 2080, 4, 2, 256
+        q = torch.randn((B, K * G, D), generator=g, device=cuda) * D ** -0.5
+        k = torch.randn((B, S, K, D), generator=g, device=cuda)
+        v = torch.randn((B, S, K, D), generator=g, device=cuda)
+        pos = torch.arange(S, device=cuda)
+        valid = ((pos <= 2064) & (2064 - pos < 1024)).to(torch.int8)[None] \
+            .expand(B, S).contiguous()
+    else:
+        q, k, v, valid = to_torch(decode_dense_case(mode), cuda)
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    op = dense_dec_ops.decode_attention_kv
+    base = op(q, k, v, valid)
+    bad = (valid == 0)[..., None, None].expand_as(k)
+    nan = torch.tensor(float("nan"), dtype=torch.bfloat16, device=cuda)
+    got = op(q, torch.where(bad, nan, k), torch.where(bad, nan, v), valid)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all(), mode
+    assert torch.equal(got, base), mode
+    torch.testing.assert_close(base.float(),
+                               _dense_plain(q, k, v, valid).float(),
+                               rtol=BF16_TOL, atol=BF16_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", sorted(DECODE_DENSE_GQA_MODES))
+def test_cuda_decode_attention_gqa_tiles_match_plain_version(mode, dtype,
+                                                             cuda):
+    """G = 6, 12 and 18 (one or two 16-row tiles of the bf16 design; one
+    to three 8-row blocks of the fp32 design) against the plain version,
+    read in place and through a slab whose rows lie D + 1 values apart
+    (the bf16 design's 2-byte copies)."""
+    q, k, v, valid = (t.to(dtype) if t.is_floating_point() else t
+                      for t in to_torch(decode_dense_case(
+                          mode, modes=DECODE_DENSE_GQA_MODES), cuda))
+    want = _dense_plain(q, k, v, valid)
+    op = dense_dec_ops.decode_attention_kv
+    D = k.shape[-1]
+    wide = [torch.nn.functional.pad(t, (0, 1))[..., :D] for t in (k, v)]
+    for got in (op(q, k, v, valid), op(q, *wide, valid)):
+        torch.cuda.synchronize()
+        if dtype == torch.bfloat16:
+            torch.testing.assert_close(got.float(), want.float(),
+                                       rtol=BF16_TOL, atol=BF16_TOL)
+        else:
+            assert (got - want).abs().max().item() <= GPU_TOL, mode
 
 
 @pytest.mark.gpu
@@ -814,6 +891,34 @@ def test_cuda_decode_attention_launch_zeroes_its_split_counts(cuda):
     torch.cuda.synchronize()
     err = (out - _dense_plain(q, k, v, valid)).abs().max().item()
     assert err <= GPU_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 4])
+def test_cuda_decode_attention_bf16_zeroes_counts_in_any_workspace(offset,
+                                                                   cuda):
+    """The bf16 design's launch zeroes its counts of finished splits itself
+    and merges through a workspace at any 4-byte alignment: over a
+    workspace whose every byte is 0xff, 16-byte aligned (the merge's
+    16-byte loads of the partials) or 4 bytes past it (4-byte loads), G = 6
+    over three splits matches the plain version at bf16."""
+    q, k, v = (t.to(torch.bfloat16) for t in to_torch(decode_dense_case(
+        "gqa_6", modes=DECODE_DENSE_GQA_MODES), cuda)[:3])
+    valid = to_torch(decode_dense_case("gqa_6",
+                                       modes=DECODE_DENSE_GQA_MODES), cuda)[3]
+    B, S, K, D = k.shape
+    G = q.shape[1] // K
+    name = dense_dec_ops.NAME
+    n = common.query(name, "decode_attention_workspace_bytes", B, S, K, G, D)
+    assert n > 0, "the case must span more than one split"
+    ws = torch.full((n + 16,), 0xFF, dtype=torch.uint8, device=cuda)
+    out = torch.full_like(q, float("nan"))
+    common.launch(name, "decode_attention_bf16", q, k, v, valid, out,
+                  ws[offset:], B, S, K, G, D, *k.stride()[:3])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(),
+                               _dense_plain(q, k, v, valid).float(),
+                               rtol=BF16_TOL, atol=BF16_TOL)
 
 
 def ssd_typed(ts, dtype, x_b_c=(0, 3, 4)):

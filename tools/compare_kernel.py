@@ -15,10 +15,13 @@ kernel against its plain version on the case, and times the kernel, its
 plain version and the library call (where the case has one) with
 chip_smoke.py's CUDA-event timer, so that a kernel without a library call
 still has a yardstick measured beside it; the host time of a wrapper call;
-and the kernel's device time per call from torch.profiler, with that of
-any memset the wrapper call makes (events around back-to-back calls of a
-kernel shorter than its wrapper's host time time the host). Prints the
-card's name and power limit, then one JSON line per checkout.
+the kernel's device time per call from torch.profiler, with that of any
+memset the wrapper call makes (events around back-to-back calls of a
+kernel shorter than its wrapper's host time time the host); and, where
+the case has a library call, that call's own device time per call (every
+kernel, memset and copy it launches, summed: ``library_device_ms``).
+Prints the card's name and power limit, then one JSON line per checkout
+and case.
 """
 from __future__ import annotations
 
@@ -54,6 +57,23 @@ def run_one(kernel: str, case_name: str, tree: str) -> None:
         time_case(torch, cs, kernel, name, cases[name], tree)
 
 
+def all_device_ms(torch, fn, n=20) -> float:
+    """Device time per call of everything ``fn`` launches, summed, from
+    torch.profiler over ``n`` calls back to back."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "device_time_total", 0.0) or
+                getattr(e, "cuda_time_total", 0.0)
+                for e in prof.key_averages()
+                if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    return total / 1e3 / n
+
+
 def time_case(torch, cs, kernel, case_name, case, tree) -> None:
     got = case["kernel"]()
     torch.cuda.synchronize()
@@ -61,6 +81,8 @@ def time_case(torch, cs, kernel, case_name, case, tree) -> None:
     ms = cs._time_ms(torch, case["kernel"])
     plain_ms = cs._time_ms(torch, case["plain"])
     lib = cs._time_ms(torch, case["library"]) if case["library"] else None
+    lib_device = all_device_ms(torch, case["library"]) \
+        if case["library"] else None
     # host time of a wrapper call, over 200 calls back to back
     t0 = time.perf_counter()
     for _ in range(200):
@@ -71,7 +93,8 @@ def time_case(torch, cs, kernel, case_name, case, tree) -> None:
     memset_ms = cs._device_ms(torch, case["kernel"], "Memset (Device)")
     print(json.dumps(dict(tree=tree, kernel=kernel, case=case_name, ms=ms,
                           device_ms=device_ms, memset_ms=memset_ms,
-                          plain_ms=plain_ms, library_ms=lib, host_us=host_us,
+                          plain_ms=plain_ms, library_ms=lib,
+                          library_device_ms=lib_device, host_us=host_us,
                           max_abs_err=err)), flush=True)
 
 

@@ -4,15 +4,17 @@ sources?
 
     python3 tools/flash_fp32_sass.py [--kernel NAME] OTHER_SOURCE [...]
 
-NAME is flash_attention (the default), paged_prefill_attention or
-ssd_scan. Compiles src/repro_torch/csrc/<NAME>.cu and each OTHER_SOURCE
-(for example the parent commit's, unpacked with git archive into
-build/parent) with nvcc for sm_90a into cubins under build/sass/,
+NAME is flash_attention (the default), paged_prefill_attention, ssd_scan
+or decode_attention. Compiles src/repro_torch/csrc/<NAME>.cu and each
+OTHER_SOURCE (for example the parent commit's, unpacked with git archive
+into build/parent) with nvcc for sm_90a into cubins under build/sass/,
 disassembles them with cuobjdump -sass, and compares the fp32 instances
 (flash_kernel at each tile width and load path, paged_prefill_kernel at
 each tile width, load path and row-warp count, with or without the
-element type as a template argument, or ssd_kernel<RT, PT> at each row
-tile and head width, with or without float as a third argument)
+element type as a template argument, ssd_kernel<RT, PT> at each row
+tile and head width, with or without float as a third argument, or
+decode_kernel<float, NC, VEC, R> at each lane width, load path and row
+count)
 instruction by instruction, with addresses, encodings and the anonymous
 namespace's name left out. Prints one line per source and instance:
 identical, or how many instructions differ. Needs the CUDA toolkit;
@@ -31,15 +33,19 @@ OUT = ROOT / "build" / "sass"
 # each kernel's fp32 device function: flash_kernel<DT, VEC> or
 # paged_prefill_kernel<DT, VEC, RW>, or, where the template also takes the
 # element type, the same with float first; ssd_kernel<RT, PT> (or
-# <RT, PT, float>) outside the bf16 design's namespace
+# <RT, PT, float>) outside the bf16 design's namespace; decode_kernel<float,
+# NC, VEC, R>
 FP32 = {"flash_attention": re.compile(r"flash_kernelI(?:f)?Li(\d+)ELb([01])E"),
         "paged_prefill_attention": re.compile(
             r"paged_prefill_kernelI(?:f)?Li(\d+)ELb([01])ELi(\d)E"),
-        "ssd_scan": re.compile(r"ssd_kernelILi(\d+)ELi(\d+)Ef?E")}
+        "ssd_scan": re.compile(r"ssd_kernelILi(\d+)ELi(\d+)Ef?E"),
+        "decode_attention": re.compile(
+            r"decode_kernelIfLi(\d)ELb([01])ELi(\d)E")}
 # what each kernel's key names
 KEY = {"flash_attention": "DT, vec",
        "paged_prefill_attention": "DT, vec, row warps",
-       "ssd_scan": "rows, PT"}
+       "ssd_scan": "rows, PT",
+       "decode_attention": "lane columns, vec, rows"}
 
 
 def sass(src: Path, tag: str, kernel: str = "flash_attention") -> dict:
